@@ -9,15 +9,23 @@ Phases (one line each with its seconds, failures end the run nonzero):
   2. build: every kernel from lariat_tpu_torch/csrc with nvcc (sm_90a);
   3. kernels: each kernel's wrapper on the card at main-path shapes against
      its plain PyTorch version on the same inputs, exact (tolerance 0:
-     integer DP), with kernel and plain times (CUDA events, median of 7);
+     integer DP), with kernel and plain times (CUDA events, median of 7;
+     T1's plain times median of 3): K1-K3, and T1 in all six variants at
+     8192 x 192 x 576 on planted inputs and on the ablation tool's random
+     ones;
   4. data: a chr20-scale synthetic genome (tools/synth_genome.py --scale
      0.0208 --seed 7, ~64 Mbp), 10,000 read pairs of 151 bp
      (tools/sim_reads.py) and the index, under build/smoke/ (reused);
   5. host-native lariat_tpu (-use_device off -threads 8), a subprocess;
   6. the port (-use_device on -threads 8), a subprocess whose CLI resets
      the kernel launch counts before its main loop and prints them after;
-  7. checks: BAM records identical file for file, every pair primed on the
-     device, every kernel of the path launched.
+  7. tools: the three measurement entry points as subprocesses -- the T1
+     ablation at full size, the kernel roofline, and the priming profile
+     over 2,000 pairs of the data above -- each to a complete final JSON
+     line, every roofline share in (0, 100%];
+  8. checks: BAM records identical file for file, every pair primed on the
+     device, every kernel launched on its own path (K1-K3 in the port
+     run, T1 in the ablation tool).
 Then a kernels JSON line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -47,7 +55,11 @@ KERNEL_INFO = {   # name -> (source, the TPU kernel it replaces)
                   "lariat_tpu/ops/sw_global_pallas.py:295"),
     "sw_local": ("lariat_tpu_torch/csrc/sw_local.cu",
                  "lariat_tpu/ops/sw_local_pallas.py:49"),
+    "extend_ablate": ("lariat_tpu_torch/csrc/extend_ablate.cu",
+                      "tools/extend_ablate.py:49"),
 }
+CLI_KERNELS = ("sw_extend", "sw_global", "traceback", "sw_local")
+PROFILE_PAIRS = 2000
 
 
 class Phase:
@@ -110,19 +122,9 @@ def phase_build():
 
 def _median_ms(fn, n=7):
     import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    from lariat_tpu_torch.tools import median_ms
+    return median_ms(fn, torch.device("cuda", torch.cuda.current_device()),
+                     n)
 
 
 def _max_abs_err(got, want) -> int:
@@ -251,7 +253,58 @@ def phase_kernels(seed=1):
     for name, (e, ms, pms, shape) in res.items():
         print(f"  {name} {shape}: exact (max abs err {e}); kernel "
               f"{ms:.3f} ms, plain {pms:.3f} ms")
+    res["extend_ablate"] = _t1_vs_plain(rng, cuda)
     return res
+
+
+def _t1_vs_plain(rng, cuda):
+    """T1 against its twin in all six variants at 8192 x 192 x 576, on
+    planted inputs (timed, kernel and twin) and on the ablation tool's
+    random inputs (timed, kernel only: most lanes die within a few
+    rows)."""
+    import numpy as np
+    import torch
+    from lariat_tpu_torch.ops import extend_ablate
+    from lariat_tpu_torch.tools.extend_ablate import inputs
+    B, Lq, Lt = 8192, 192, 576
+    qlen = rng.integers(0, 152, B).astype(np.int32)
+    tlen = np.minimum(qlen + rng.integers(0, 450, B), Lt).astype(np.int32)
+    qlen[:64], tlen[64:128] = 0, 0
+    q, t = _planted(rng, qlen, tlen, Lq, Lt)
+    params = np.zeros((B, 8), np.int32)
+    params[:, 0], params[:, 1], params[:, 2] = qlen, tlen, 100
+    params[:, 3] = rng.integers(19, 152, B)
+    sets = {"planted": cuda(q, t, params),
+            "random": inputs(B, Lq, Lt, torch.device("cuda"))}
+    err, base = 0, None
+    for name, (half, kw) in extend_ablate.VARIANTS.items():
+        Lv = Lt // 2 if half else Lt
+        times = {}
+        for kind, (qd, td, pd) in sets.items():
+            def k():
+                return extend_ablate.run_variant(qd, td, pd, Lv, **kw)
+
+            def p():
+                return extend_ablate.run_variant_plain(qd, td, pd, Lv, **kw)
+
+            got, want = k(), p()
+            torch.cuda.synchronize()
+            e = _max_abs_err(got, want)
+            if e:
+                raise AssertionError(f"T1 extend_ablate {name} ({kind}) "
+                                     f"differs from its plain version "
+                                     f"(max abs err {e})")
+            err = max(err, e)
+            times[kind] = _median_ms(k)
+            if kind == "planted":
+                times["plain"] = _median_ms(p, n=3)
+                if base is None:
+                    base = (times[kind], times["plain"])
+        print(f"  extend_ablate {name} ({B}, {Lq}, {Lv}): exact; planted "
+              f"kernel {times['planted']:.3f} ms, plain "
+              f"{times['plain']:.3f} ms; random kernel "
+              f"{times['random']:.3f} ms")
+    return (err, base[0], base[1], (B, Lq, Lt))
 
 
 def phase_data(scale: float, barcodes: int, pairs_per_bc: int):
@@ -324,10 +377,73 @@ def _summary(stdout):
     return int(m.group(1)), float(m.group(4))
 
 
+def _last_json(stdout, keys, what):
+    """The last JSON line of a tool's output, holding every key of
+    ``keys``."""
+    lines = [s for s in stdout.splitlines() if s.startswith("{")]
+    if not lines:
+        raise AssertionError(f"{what}: no JSON line")
+    out = json.loads(lines[-1])
+    missing = set(keys) - set(out)
+    if missing:
+        raise AssertionError(f"{what}: final JSON lacks {sorted(missing)}")
+    return out
+
+
+def phase_tools(fasta, reads, env, logs):
+    """The three measurement entry points, each a subprocess of its own;
+    returns the ablation tool's T1 launch count."""
+    from lariat_tpu_torch.ops import extend_ablate
+    from lariat_tpu_torch.tools.kernel_roofline import shares
+
+    def tool(name, *args, timeout=600):
+        return _run([sys.executable, "-m", f"lariat_tpu_torch.tools.{name}",
+                     *args], timeout=timeout,
+                    log=os.path.join(logs, f"{name}.log"), env=env)
+
+    out = tool("extend_ablate")
+    lines = [json.loads(s) for s in out.splitlines() if s.startswith("{")]
+    names = [x.get("variant") for x in lines[:-1]]
+    if names != list(extend_ablate.VARIANTS):
+        raise AssertionError(f"extend_ablate: variants {names}")
+    for x in lines[:-1]:
+        if not (x.get("ms", 0) > 0 and x.get("padded_cells_per_s", 0) > 0):
+            raise AssertionError(f"extend_ablate: bad line {x}")
+        print(f"  extend_ablate {x['variant']} (Lt {x['Lt']}): "
+              f"{x['ms']:.3f} ms, {x['padded_cells_per_s']:.4g} padded "
+              f"cells/s")
+    fin = _last_json(out, ("device", "card", "B", "Lq", "Lt", "timing",
+                           "launches"), "extend_ablate")
+    t1_launches = int(fin["launches"].get("extend_ablate", 0))
+    print(f"  extend_ablate on {fin['card']}: {t1_launches} T1 launches")
+
+    roof = _last_json(tool("kernel_roofline"),
+                      ("device", "card", "attributes", "peaks", "extend",
+                       "global_tb", "local_2pass", "launches"),
+                      "kernel_roofline")
+    sh = shares(roof)
+    if len(sh) != 4 or not all(0 < v <= 100 for v in sh.values()):
+        raise AssertionError(f"kernel_roofline shares: {sh}")
+    print(f"  kernel_roofline peaks {json.dumps(roof['peaks'])}")
+    for k in ("extend", "global_tb", "local_2pass"):
+        print(f"  kernel_roofline {k}: {json.dumps(roof[k])}")
+
+    prof = _last_json(
+        tool("prime_profile", fasta, reads, str(PROFILE_PAIRS)),
+        ("device", "card", "pairs", "seed_s", "align_s", "rescue_s",
+         "total_s", "pairs_per_s", "extend_waves", "rescue_waves",
+         "wave_wall_s", "launches"), "prime_profile")
+    if not (prof["pairs"] == PROFILE_PAIRS and prof["extend_waves"] > 0
+            and prof["rescue_waves"] > 0):
+        raise AssertionError(f"prime_profile: {prof}")
+    print(f"  prime_profile: {json.dumps(prof)}")
+    return t1_launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--logs", default=SMOKE,
-                   help="directory for the two CLI runs' logs")
+                   help="directory for the CLI runs' and the tools' logs")
     args = p.parse_args(argv)
     os.makedirs(args.logs, exist_ok=True)
     with Phase("environment"):
@@ -374,6 +490,9 @@ def main(argv=None) -> int:
               f"fraction {busy}; primed {primed}, host {host_pairs}; "
               f"{dev_line.group(1) if dev_line else '?'}")
         print(f"  kernel launches on the main path: {json.dumps(launches)}")
+    with Phase("tools"):
+        launches = {k: launches.get(k, 0) for k in CLI_KERNELS}
+        launches["extend_ablate"] = phase_tools(fasta, reads, env, args.logs)
     with Phase("checks"):
         want_pairs = BARCODES * PAIRS_PER_BC
         names = sorted(os.path.basename(f) for f in glob.glob(
@@ -398,7 +517,7 @@ def main(argv=None) -> int:
                 f"host-routed {host_pairs}; want {want_pairs} all primed")
         idle = [k for k in KERNEL_INFO if launches.get(k, 0) <= 0]
         if idle:
-            raise AssertionError(f"kernels never launched on the main "
+            raise AssertionError(f"kernels never launched on their "
                                  f"path: {idle}")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

@@ -37,6 +37,8 @@ KERNELS = {
     "sw_global": ("lariat_sw_global", [_P] * 5 + [_I] * 10 + [_P] * 5),
     "traceback": ("lariat_traceback", [_P] * 5 + [_I] * 4 + [_P] * 2),
     "sw_local": ("lariat_sw_local", [_P] * 5 + [_I] * 10 + [_P] * 5),
+    "extend_ablate": ("lariat_extend_ablate",
+                      [_P] * 3 + [_I] * 14 + [_P] * 4),
 }
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -110,8 +112,27 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.lariat_cuda_error_string.argtypes = [ctypes.c_int]
             lib.lariat_cuda_error_string.restype = ctypes.c_char_p
+            lib.lariat_device_attributes.argtypes = [_I, _P]
+            lib.lariat_device_attributes.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+DEVICE_ATTRIBUTES = ("sm_count", "sm_clock_khz", "mem_clock_khz",
+                     "mem_bus_bits")
+
+
+def device_attributes(index: int) -> Dict[str, int]:
+    """The card's SM count, maximum SM clock, memory clock and memory bus
+    width, from cudaDeviceGetAttribute (csrc/runtime.cu)."""
+    lib = load()
+    vals = (ctypes.c_int * len(DEVICE_ATTRIBUTES))()
+    rc = lib.lariat_device_attributes(int(index), ctypes.addressof(vals))
+    if rc != 0:
+        msg = lib.lariat_cuda_error_string(rc).decode()
+        raise RuntimeError(f"cudaDeviceGetAttribute failed: CUDA error {rc} "
+                           f"({msg})")
+    return dict(zip(DEVICE_ATTRIBUTES, vals))
 
 
 CODE_DTYPES = (torch.uint8, torch.int32, torch.int64)

@@ -1,0 +1,221 @@
+"""Per-kernel share of the card's peak for the port's DP kernels.
+
+    python -m lariat_tpu_torch.tools.kernel_roofline        # needs CUDA
+
+The H100 counterpart of tools/kernel_roofline.py, at its kernels and
+shapes: K1 seed extension at 8192 x 192 x 576 (``ops/sw_extend``), K2
+banded global DP and K2b backtrack at 2048 x 192 x 192 (``ops/sw_global``;
+DP, traceback and combined times, the JAX tool's split), and the K3
+two-pass local SW at 2048 x 192 x 704 (``ops/sw_local.local_two_pass``,
+the rescue path's). Prints one JSON line.
+
+Peaks come from the device (cudaDeviceGetAttribute, ``_build.
+device_attributes``), not from constants:
+  - int32 peak = SMs x 64 INT32 lanes per SM per clock x maximum SM clock.
+    A Hopper SM has four partitions of 16 INT32 lanes; the DP kernels are
+    integer add/max/compare/select work with no tensor-core shape.
+  - memory peak = 2 (double data rate) x memory clock x bus width / 8.
+
+Work is counted in the cells each kernel visits, not in padded cells: one
+thread per task walks only its band (K1, K2) or its qlen x tlen box (K3),
+so padded cells overstate the work by up to 6x. ``ops_per_cell`` is the
+int32 operations of each inner loop, read from the CUDA source (loads,
+stores, address arithmetic and the loop test not counted):
+  K1 csrc/sw_extend.cu:88-107  21 = substitution score 5 (three compares,
+     two selects), M 3, H 2 max, row argmax 3, E 4, F 4;
+  K2 csrc/sw_global.cu:64-81   22 = substitution 5, M 1, H and its
+     direction 6, E with its bit 5, F with its bit 5;
+  K3 csrc/sw_local.cu:54-68    20 = substitution 5, M 1, H 3 max, F 4,
+     E 4, column argmax 3.
+K2b is a walk of dependent one-byte loads: its share is of the memory
+peak, counting one 32-byte sector per step.
+
+Inputs: K2 and K3 take the JAX tool's random codes and lengths. K1 does
+not: with random codes nearly every lane dies under the z-drop test within
+a few rows, so the cells it visits would be unknown. Each K1 query is
+planted unmutated at the start of its target. The row maximum then is
+h0 + i + 1 on the diagonal and rises every row up to row qlen - 1; past
+it, the deletion path from that corner keeps each row's maximum within
+o_del + rows x e_del of the best, and the z-drop test takes the same rows
+back as its gap term, so its left side stays at most o_del. Every lane
+runs until its band leaves the query (row qlen + w); ``_check_k1`` checks
+the score and ends that this implies.
+
+The fm_rank and smem_seed sections of the JAX tool need device seeding,
+which the port does not have yet; they are left out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..device import get_device
+from ..ops import _build, sw_extend, sw_global, sw_local
+from . import card, median_ms
+
+INT32_LANES_PER_SM_CLOCK = 64
+OPS_PER_CELL = {"extend": 21, "global": 22, "local": 20}
+SECTOR_BYTES = 32
+SCORING = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, match_sc=1,
+               mismatch_sc=-4, n_sc=-1)
+
+
+def peaks(attrs: Dict[str, int]) -> Dict[str, float]:
+    """int32 ops/s and memory bytes/s from the card's attributes."""
+    return {
+        "int32_ops_s": float(attrs["sm_count"] * INT32_LANES_PER_SM_CLOCK
+                             * attrs["sm_clock_khz"] * 1e3),
+        "mem_B_s": 2.0 * attrs["mem_clock_khz"] * 1e3
+                   * attrs["mem_bus_bits"] / 8}
+
+
+def band_cells(qlen: int, tlen: int, w: int) -> int:
+    """Cells of a banded DP of one task over rows 0..tlen-1 with band
+    [max(i - w, 0), min(i + w + 1, qlen)): what K1 visits when no lane
+    stops early (its band is empty from row qlen + w on), and what K2
+    visits."""
+    return sum(max(0, min(i + w + 1, qlen) - max(i - w, 0))
+               for i in range(tlen))
+
+
+def share(cells: float, ops: float, ms: float, peak: float) -> float:
+    """Percent of ``peak`` reached by ``cells * ops`` in ``ms``."""
+    return 100.0 * cells * ops / (ms * 1e-3) / peak
+
+
+def _check_k1(out: torch.Tensor, qlen: int, h0: int) -> None:
+    """The planted K1 lanes reach h0 + qlen at (qlen-1, qlen-1), the
+    premise of counting their cells by ``band_cells``."""
+    score, qle, tle = (out[k].cpu() for k in range(3))
+    if not (bool((score == h0 + qlen).all()) and bool((qle == qlen).all())
+            and bool((tle == qlen).all())):
+        raise AssertionError("K1's planted lanes did not follow the "
+                             "diagonal; the cell count would be wrong")
+
+
+def measure(dev: torch.device, iters: int = 7) -> dict:
+    rng = np.random.default_rng(5)
+    pk = peaks(_build.device_attributes(dev.index or 0))
+    int_peak, mem_peak = pk["int32_ops_s"], pk["mem_B_s"]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def full(B, v):
+        return put(np.full(B, v, np.int32))
+
+    res = {}
+    # ---- K1: banded extend at the production tier 8192 x 192 x 576 ------
+    B, Lq, Lt, qlen, tlen, w, h0 = 8192, 192, 576, 151, 400, 100, 30
+    q = rng.integers(0, 4, (B, Lq)).astype(np.uint8)
+    t = rng.integers(0, 4, (B, Lt)).astype(np.uint8)
+    t[:, :qlen] = q[:, :qlen]
+    args = (put(q), full(B, qlen), put(t), full(B, tlen), full(B, w),
+            full(B, h0))
+    ext = dict(SCORING, end_bonus=5, zdrop=100)
+
+    def k1():
+        return sw_extend.extend_batch(*args, **ext)
+
+    _check_k1(k1(), qlen, h0)
+    ms = median_ms(k1, dev, iters)
+    cells = float(B) * band_cells(qlen, tlen, w)
+    res["extend"] = {
+        "shape": [B, Lq, Lt], "ms": ms, "cells": cells,
+        "cells_per_s": cells / (ms * 1e-3),
+        "padded_cells_per_s": B * Lq * Lt / (ms * 1e-3),
+        "ops_per_cell": OPS_PER_CELL["extend"],
+        "int32_sol_pct": share(cells, OPS_PER_CELL["extend"], ms, int_peak)}
+
+    # ---- K2 + K2b: reg2aln tier 2048 x 192 x 192 --------------------------
+    B, Lq, Lt, qlen, tlen, w = 2048, 192, 192, 151, 160, 20
+    S = Lq + Lt
+    gq = put(rng.integers(0, 4, (B, Lq)).astype(np.uint8))
+    gt = put(rng.integers(0, 4, (B, Lt)).astype(np.uint8))
+    gql, gtl, gw = full(B, qlen), full(B, tlen), full(B, w)
+    score, z = sw_global.global_batch(gq, gql, gt, gtl, gw, **SCORING)
+
+    def dp():
+        return sw_global.global_batch(gq, gql, gt, gtl, gw, **SCORING)
+
+    def tb():
+        return sw_global.traceback_ops_fused(z, gql, gtl, gw, score, S=S)
+
+    def both():
+        s2, z2 = dp()
+        return sw_global.traceback_ops_fused(z2, gql, gtl, gw, s2, S=S)
+
+    blob = tb().cpu().numpy()
+    ops = blob[:, :S // 4]
+    steps = int(sum(int((((ops >> (2 * k)) & 3) != 3).sum())
+                    for k in range(4)))
+    dp_ms, tb_ms, ms = (median_ms(f, dev, iters) for f in (dp, tb, both))
+    cells = float(B) * band_cells(qlen, tlen, w)
+    res["global_tb"] = {
+        "shape": [B, Lq, Lt], "ms": ms, "dp_ms": dp_ms, "traceback_ms": tb_ms,
+        "cells": cells, "cells_per_s": cells / (dp_ms * 1e-3),
+        "padded_cells_per_s": B * Lq * Lt / (dp_ms * 1e-3),
+        "ops_per_cell": OPS_PER_CELL["global"],
+        "int32_sol_pct": share(cells, OPS_PER_CELL["global"], dp_ms,
+                               int_peak),
+        "traceback_steps": steps,
+        "traceback_mem_sol_pct": share(steps, SECTOR_BYTES, tb_ms, mem_peak),
+        "dl_bytes_per_wave": B * (S // 4 + 12)}
+
+    # ---- K3: local two-pass at the rescue tier 2048 x 192 x 704 -----------
+    B, Lq, Lt, qlen, tlen = 2048, 192, 704, 151, 686
+    largs = (put(rng.integers(0, 4, (B, Lq)).astype(np.uint8)),
+             full(B, qlen),
+             put(rng.integers(0, 4, (B, Lt)).astype(np.uint8)),
+             full(B, tlen), full(B, 19))
+
+    def k3():
+        return sw_local.local_two_pass(*largs, **SCORING)
+
+    out = k3().cpu().long()
+    te, qe, scored = out[1], out[2], out[7].bool()
+    second = int(((qe + 1) * (te + 1))[scored].sum())
+    ms = median_ms(k3, dev, iters)
+    cells = float(B) * qlen * tlen + second
+    res["local_2pass"] = {
+        "shape": [B, Lq, Lt], "ms": ms, "cells": cells,
+        "second_pass_cells": second, "cells_per_s": cells / (ms * 1e-3),
+        "padded_cells_per_s": 2.0 * B * Lq * Lt / (ms * 1e-3),
+        "ops_per_cell": OPS_PER_CELL["local"],
+        "int32_sol_pct": share(cells, OPS_PER_CELL["local"], ms, int_peak)}
+    res["peaks"] = pk
+    return res
+
+
+def shares(res: dict) -> Dict[str, float]:
+    """Every share of a peak in a ``measure`` result, by name."""
+    return {f"{k}.{f}": v for k, sec in res.items() if isinstance(sec, dict)
+            for f, v in sec.items() if f.endswith("_sol_pct")}
+
+
+def main(argv=None) -> int:
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
+        argv)
+    dev = get_device("cuda")
+    _build.reset_launches()
+    res = measure(dev)
+    res = {"device": torch.cuda.get_device_name(dev), "card": card(dev),
+           "attributes": _build.device_attributes(dev.index or 0), **res,
+           "launches": _build.launches()}
+    print(json.dumps(res), flush=True)
+    over = {k: v for k, v in shares(res).items() if not 0 < v <= 100}
+    if over:
+        print(f"kernel_roofline: shares outside (0, 100]: {over}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

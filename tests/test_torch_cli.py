@@ -83,11 +83,15 @@ def test_port_cli_cpu_matches_host_native(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """The package, its engine and its CLI import and prime without JAX."""
+    """The package, its engine, its CLI and its tools import and prime
+    without JAX."""
     fasta, _ = _inputs(tmp_path)
     code = textwrap.dedent(f"""
         import sys
         import lariat_tpu_torch, lariat_tpu_torch.cli
+        import lariat_tpu_torch.tools.extend_ablate
+        import lariat_tpu_torch.tools.kernel_roofline
+        import lariat_tpu_torch.tools.prime_profile
         from lariat_tpu_torch.align.batch_engine import \\
             TorchBatchAlignmentEngine
         from lariat_tpu.cli import load_reference

@@ -1,0 +1,96 @@
+"""The port's measurement entry points on the CPU: the roofline's peak and
+cell arithmetic, the ablation tool and the priming profile on the explicit
+CPU device, and each tool's refusal to run without CUDA otherwise."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+from test_torch_cli import _inputs
+
+from lariat_tpu_torch.ops import extend_ablate as t1
+from lariat_tpu_torch.tools import extend_ablate, kernel_roofline
+from lariat_tpu_torch.tools import prime_profile
+
+torch.set_num_threads(1)
+
+
+def _json_lines(out):
+    return [json.loads(s) for s in out.splitlines() if s.startswith("{")]
+
+
+def test_roofline_peaks_from_attributes():
+    # an H100 SXM's attributes: 132 SMs, 1,980 MHz, HBM3 2,619 MHz x 5120
+    pk = kernel_roofline.peaks({"sm_count": 132, "sm_clock_khz": 1980000,
+                                "mem_clock_khz": 2619000,
+                                "mem_bus_bits": 5120})
+    assert pk["int32_ops_s"] == 132 * 64 * 1.98e9
+    assert pk["mem_B_s"] == pytest.approx(3.352e12, rel=1e-3)
+    assert kernel_roofline.share(1e9, 20, 2.0, 1e13) == pytest.approx(100.0)
+
+
+@pytest.mark.parametrize("qlen,tlen,w", [(151, 400, 100), (151, 160, 20),
+                                         (5, 3, 0), (10, 40, 3), (0, 9, 4)])
+def test_roofline_band_cells_count_the_band(qlen, tlen, w):
+    want = sum(1 for i in range(tlen) for j in range(qlen)
+               if max(i - w, 0) <= j < min(i + w + 1, qlen))
+    assert kernel_roofline.band_cells(qlen, tlen, w) == want
+
+
+def test_roofline_shares_collects_every_share():
+    res = {"extend": {"ms": 1.0, "int32_sol_pct": 5.0},
+           "global_tb": {"int32_sol_pct": 2.0, "traceback_mem_sol_pct": 1.0},
+           "device": "x"}
+    assert kernel_roofline.shares(res) == {
+        "extend.int32_sol_pct": 5.0, "global_tb.int32_sol_pct": 2.0,
+        "global_tb.traceback_mem_sol_pct": 1.0}
+
+
+def test_extend_ablate_tool_on_cpu(capsys):
+    assert extend_ablate.main(["--device", "cpu", "--B", "130", "--Lq", "32",
+                               "--Lt", "48"]) == 0
+    lines = _json_lines(capsys.readouterr().out)
+    assert [x["variant"] for x in lines[:-1]] == list(t1.VARIANTS)
+    for x in lines[:-1]:
+        assert set(x) == {"variant", "Lt", "ms", "padded_cells_per_s"}
+        assert x["ms"] > 0 and x["Lt"] == (24 if x["variant"] == "rows_288"
+                                           else 48)
+    final = lines[-1]
+    assert set(final) == {"device", "card", "B", "Lq", "Lt", "seed",
+                          "timing", "launches"}
+    assert final["device"] == "cpu" and final["card"] is None
+    assert final["launches"] == {"extend_ablate": 0}   # twins launch nothing
+
+
+def test_extend_ablate_tool_inputs_are_the_jax_tools():
+    q, t, params = extend_ablate.inputs(8, 192, 576, torch.device("cpu"))
+    rng = np.random.default_rng(5)
+    np.testing.assert_array_equal(q.numpy(), rng.integers(0, 4, (8, 192)))
+    np.testing.assert_array_equal(t.numpy(), rng.integers(0, 4, (8, 576)))
+    assert params[0].tolist() == [151, 400, 100, 30, 0, 0, 0, 0]
+
+
+def test_prime_profile_on_cpu(tmp_path, monkeypatch, capsys):
+    fasta, fq = _inputs(tmp_path)
+    monkeypatch.setenv("LARIAT_TORCH_DEVICE", "cpu")
+    assert prime_profile.main([str(fasta), str(fq), "35"]) == 0
+    final = _json_lines(capsys.readouterr().out)[-1]
+    assert final["device"] == "cpu" and final["pairs"] == 35
+    assert final["extend_waves"] > 0 and final["rescue_waves"] > 0
+    assert final["total_s"] == pytest.approx(
+        final["seed_s"] + final["align_s"] + final["rescue_s"])
+    assert set(final["launches"]) >= {"sw_extend", "sw_local",
+                                      "extend_ablate"}
+
+
+def test_tools_refuse_without_cuda(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.delenv("LARIAT_TORCH_DEVICE", raising=False)
+    fasta, fq = _inputs(tmp_path)
+    for run in (lambda: extend_ablate.main(["--B", "8"]),
+                lambda: kernel_roofline.main([]),
+                lambda: prime_profile.main([str(fasta), str(fq), "7"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()
