@@ -16,16 +16,29 @@ Phases (one line each with its seconds, failures end the run nonzero):
   4. data: a chr20-scale synthetic genome (tools/synth_genome.py --scale
      0.0208 --seed 7, ~64 Mbp), 10,000 read pairs of 151 bp
      (tools/sim_reads.py) and the index, under build/smoke/ (reused);
-  5. host-native lariat_tpu (-use_device off -threads 8), a subprocess;
-  6. the port (-use_device on -threads 8), a subprocess whose CLI resets
+  5. seeding kernels: K4a-K4c and K5 on that index (fused occ table about
+     1.0 M rows x 48 B) and 4,096 reads of the FASTQ against their twins,
+     exact, with kernel and plain times (CUDA events, median of 7; the
+     twins' median of 3): K4a at round 1's phase-A budget (and round 2,
+     checked), K4b over every (read, e) lane, K4c, K5 on 65,536 rows; then
+     the device collect (collect_seeds_rbegs_device) on 250 reads of the
+     FASTQ and six low-complexity ones, which blow K4a's step cap, so it
+     runs K4b: seeds and rbegs equal to the native C++ seeder's;
+  6. host-native lariat_tpu (-use_device off -threads 8), a subprocess;
+  7. the port (-use_device on -threads 8), a subprocess whose CLI resets
      the kernel launch counts before its main loop and prints them after;
-  7. tools: the three measurement entry points as subprocesses -- the T1
-     ablation at full size, the kernel roofline, and the priming profile
-     over 2,000 pairs of the data above -- each to a complete final JSON
-     line, every roofline share in (0, 100%];
-  8. checks: BAM records identical file for file, every pair primed on the
-     device, every kernel launched on its own path (K1-K3 in the port
-     run, T1 in the ablation tool).
+  8. the port again with LARIAT_DEVICE_SEED=1: seeding and its SA walks
+     on the device (K4a, K4c, K5);
+  9. tools: the three measurement entry points as subprocesses -- the T1
+     ablation at full size, the kernel roofline (with its smem_seed
+     section), and the priming profile over 2,000 pairs of the data
+     above, once with host and once with device seeding -- each to a
+     complete final JSON line, every roofline share in (0, 100%];
+ 10. checks: BAM records of both port runs identical to host-native file
+     for file, every pair primed on the device, every kernel launched on
+     its own path (K1-K3 in the port run, K4a, K4c and K5 in the
+     device-seeded run, K4b -- which runs only when K4a blows its step cap
+     -- in phase 5's collect, T1 in the ablation tool).
 Then a kernels JSON line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -57,9 +70,24 @@ KERNEL_INFO = {   # name -> (source, the TPU kernel it replaces)
                  "lariat_tpu/ops/sw_local_pallas.py:49"),
     "extend_ablate": ("lariat_tpu_torch/csrc/extend_ablate.cu",
                       "tools/extend_ablate.py:49"),
+    "smem_twoptr": ("lariat_tpu_torch/csrc/smem.cu",
+                    "lariat_tpu/ops/smem_device.py:117"),
+    "smem_exhaustive": ("lariat_tpu_torch/csrc/smem.cu",
+                        "lariat_tpu/ops/smem_device.py:62"),
+    "smem_strategy1": ("lariat_tpu_torch/csrc/smem.cu",
+                       "lariat_tpu/ops/smem_device.py:465"),
+    "sa_walk": ("lariat_tpu_torch/csrc/sa_walk.cu",
+                "lariat_tpu/parallel/align_step.py:86"),
 }
 CLI_KERNELS = ("sw_extend", "sw_global", "traceback", "sw_local")
+SEED_KERNELS = ("smem_twoptr", "smem_strategy1", "sa_walk")
 PROFILE_PAIRS = 2000
+SEED_READS = 4096
+FALLBACK_READS = 250
+# reads whose two-pointer lanes outrun K4a's step cap on a genome of this
+# size (no exact copy of them in the synthetic genome)
+LOW_COMPLEXITY = [b"A" * 151, b"AT" * 75, b"ACG" * 50, b"AC" * 75,
+                  b"AAT" * 50, b"C" * 151]
 
 
 class Phase:
@@ -333,6 +361,175 @@ def phase_data(scale: float, barcodes: int, pairs_per_bc: int):
     return fasta, reads
 
 
+def phase_seeding(fasta, reads_path):
+    """K4a-K4c and K5 against their twins on the chr20-scale index, at the
+    shapes of one 4,096-read seeding batch, then the device collect on a
+    batch whose low-complexity reads send it to K4b (``_fallback_collect``);
+    returns name -> (max abs err, kernel ms, plain ms, shape) and the K4b
+    launches of that collect."""
+    import numpy as np
+    import torch
+    from lariat_tpu.align.engine import encode_read
+    from lariat_tpu.cli import load_reference
+    from lariat_tpu.config import AlignerConfig
+    from lariat_tpu.io.fastq import FastQReader
+    from lariat_tpu_torch.ops import fm_batch, smem_device as sd
+    from lariat_tpu_torch.parallel import align_step
+    dev = torch.device("cuda")
+    fm = load_reference(fasta)
+    opt = AlignerConfig()
+    fmd = fm_batch.DeviceFMIndex.from_host(fm, dev)
+    g = align_step.DeviceGenome.from_host(fm, fmd)
+    print(f"  index: fused {tuple(fmd.fused.shape)} int32 rows, "
+          f"{fmd.idx_dtype}, seq_len {fmd.seq_len:,}")
+    reader = FastQReader(reads_path)
+    seqs = []
+    while len(seqs) < SEED_READS:
+        recs, _ = reader.read_barcode_set(0)
+        if recs is None:
+            break
+        seqs += [s for r in recs for s in (r.read1, r.read2)]
+    qs = [encode_read(s) for s in seqs[:SEED_READS]]
+    R = len(qs)
+    L = -(-max(len(q) for q in qs) // 64) * 64
+    rmat = np.full((R, L), 4, np.uint8)
+    lens = np.zeros(R, np.int32)
+    for i, q in enumerate(qs):
+        rmat[i, :len(q)] = q
+        lens[i] = len(q)
+
+    def put(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    def err(got, want):
+        e = max(_max_abs_err(a, b) for a, b in zip(got, want))
+        if e:
+            raise AssertionError(f"differs from its plain version (max abs "
+                                 f"err {e})")
+        return e
+
+    res = {}
+    rd, lens_d = put(rmat), put(lens)
+    r1 = (put(np.zeros(R), np.int32), lens_d, put(np.ones(R), np.int64), L)
+    r1kw = dict(max_steps=3 * L, min_seed=opt.min_seed_len, cap=sd.CAP1,
+                mid=put(np.full(R, L + 2), np.int32))
+    budget = sd._budget(3 * L)
+
+    def k4a():
+        return sd.min_starts_twoptr(fmd, rd, *r1, **r1kw)
+
+    def p4a():
+        meta, big, aux = sd.min_starts_twoptr_plain(
+            fmd, rd, r1[0], r1[1], r1[2], r1kw["mid"], L, budget, False,
+            opt.min_seed_len, sd.CAP1)
+        sd._twoptr_flags(meta, aux, sd.CAP1)
+        return meta, big
+
+    meta1, big1 = k4a()
+    e = err((meta1, big1), p4a())
+    res["smem_twoptr"] = (e, _median_ms(k4a), _median_ms(p4a, n=3), (R, L))
+    meta1 = meta1.cpu().numpy()
+    print(f"  K4a round 1: flags {int(meta1[0, -1]) & 3}, "
+          f"{int(meta1[:, sd.CAP1].sum())} seeds, "
+          f"{int((meta1[:, sd.CAP1 + 1] == 0).sum())} stragglers")
+    # round 2 on the reseed requests of round 1, as the collect builds them
+    ri1, m1 = sd._slots(meta1, big1.cpu().numpy(), sd.CAP1, R)
+    split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+    re = (m1[:, 4] - m1[:, 3] >= split_len) & (m1[:, 2] <= opt.split_width)
+    n2 = int(re.sum())
+    R2 = sd._pad_pow2(n2)
+    mid2, end2, mi2, rows2 = (np.zeros(R2, np.int64) for _ in range(4))
+    mi2 += 1
+    mid2[:n2] = (m1[re, 3] + m1[re, 4]) >> 1
+    end2[:n2] = lens[ri1[re]]
+    mi2[:n2] = m1[re, 2] + 1
+    rows2[:n2] = ri1[re]
+    a2 = (rd[put(rows2)], put(mid2, np.int32), put(end2, np.int32),
+          put(mi2), L)
+    got = sd.min_starts_twoptr(fmd, *a2, max_steps=4 * L, bwd_init=True,
+                               min_seed=opt.min_seed_len, cap=sd.CAP2,
+                               mid=put(mid2, np.int32))
+    want = sd.min_starts_twoptr_plain(
+        fmd, a2[0], a2[1], a2[2], a2[3], put(mid2, np.int32), L,
+        sd._budget(4 * L), True, opt.min_seed_len, sd.CAP2)
+    sd._twoptr_flags(want[0], want[2], sd.CAP2)
+    err(got, want[:2])
+    print(f"  K4a round 2: {n2} reseed lanes, exact")
+
+    ri = put(np.repeat(np.arange(R), L), np.int32)
+    ee = put(np.tile(np.arange(1, L + 1), R), np.int32)
+    mi = put(np.ones(R * L), np.int64)
+
+    def k4b():
+        return sd.min_starts_kernel(fmd, rd, ri, ee, mi, L)
+
+    def p4b():
+        return sd.min_starts_kernel_plain(fmd, rd, ri, ee, mi, L)
+
+    res["smem_exhaustive"] = (err(k4b(), p4b()), _median_ms(k4b),
+                              _median_ms(p4b, n=3), (R * L,))
+    cap3 = max(2, L // opt.min_seed_len + 2)
+    s1 = (fmd, rd, lens_d, int(opt.max_mem_intv), L, opt.min_seed_len, cap3)
+
+    def k4c():
+        return sd.strategy1(*s1)
+
+    def p4c():
+        return sd.pack_r3(*sd.strategy1_plain(*s1))
+
+    res["smem_strategy1"] = (err(k4c(), p4c()), _median_ms(k4c),
+                             _median_ms(p4c, n=3), (R, L))
+    rng = np.random.default_rng(3)
+    n5 = 1 << 16
+    k5 = (g, put(rng.integers(0, fm.seq_len, n5)).to(fmd.idx_dtype),
+          torch.zeros(n5, dtype=fmd.idx_dtype, device=dev),
+          put(np.zeros(n5), bool), 64)
+
+    def k5k():
+        return align_step.sa_walk_chunk(*k5)
+
+    def p5():
+        return align_step.sa_walk_chunk_plain(*k5)
+
+    res["sa_walk"] = (err([k5k()], [p5()]), _median_ms(k5k),
+                      _median_ms(p5, n=3), (n5,))
+    for name, (e, ms, pms, shape) in res.items():
+        print(f"  {name} {shape}: exact (max abs err {e}); kernel "
+              f"{ms:.3f} ms, plain {pms:.3f} ms")
+    return res, _fallback_collect(fm, fmd, g, qs[:FALLBACK_READS], opt)
+
+
+def _fallback_collect(fm, fmd, g, qs, opt) -> int:
+    """collect_seeds_rbegs_device, the main path's seeding call, on reads of
+    the FASTQ plus low-complexity reads that blow K4a's step cap, so round
+    1 takes the exhaustive fallback (K4b); its seeds and rbegs must equal
+    the native C++ seeder's. Returns K4b's launches in that call."""
+    import numpy as np
+    from lariat_tpu.align.engine import encode_read
+    from lariat_tpu.index import native_ops
+    from lariat_tpu_torch.ops import _build, smem_device as sd
+    reads = qs + [encode_read(s) for s in LOW_COMPLEXITY]
+    want = native_ops.collect_seeds_rbegs_batch(fm, reads, opt)
+    if want is None:
+        raise RuntimeError("native seeding unavailable")
+    _build.reset_launches()
+    got = sd.collect_seeds_rbegs_device(fmd, g, fm, reads, opt)
+    n = _build.launches()["smem_exhaustive"]
+    if not len(got[0]) == len(got[1]) == len(want[0]) == len(reads):
+        raise AssertionError("fallback collect: read count")
+    for i, (gm, gr, wm, wr) in enumerate(zip(*got, *want)):
+        if not (np.array_equal(gm, np.asarray(wm).reshape(-1, 5))
+                and np.array_equal(gr, np.asarray(wr))):
+            raise AssertionError(f"fallback collect: read {i} differs from "
+                                 f"the native seeder")
+    n_mems = sum(len(m) for m in got[0])
+    print(f"  fallback collect: {len(reads)} reads ({len(LOW_COMPLEXITY)} "
+          f"low-complexity), {n_mems} seeds, "
+          f"{sum(len(r) for r in got[1])} rbegs, equal to native; K4b "
+          f"launched {n} times")
+    return n
+
+
 def _bam_records(path: str):
     """(record bytes past the header, record count) of a BAM: BGZF is
     multi-member gzip, so the stdlib reads it."""
@@ -396,10 +593,11 @@ def phase_tools(fasta, reads, env, logs):
     from lariat_tpu_torch.ops import extend_ablate
     from lariat_tpu_torch.tools.kernel_roofline import shares
 
-    def tool(name, *args, timeout=600):
+    def tool(name, *args, log=None, **extra_env):
         return _run([sys.executable, "-m", f"lariat_tpu_torch.tools.{name}",
-                     *args], timeout=timeout,
-                    log=os.path.join(logs, f"{name}.log"), env=env)
+                     *args], timeout=600,
+                    log=os.path.join(logs, f"{log or name}.log"),
+                    env={**env, **extra_env})
 
     out = tool("extend_ablate")
     lines = [json.loads(s) for s in out.splitlines() if s.startswith("{")]
@@ -425,19 +623,54 @@ def phase_tools(fasta, reads, env, logs):
     if len(sh) != 4 or not all(0 < v <= 100 for v in sh.values()):
         raise AssertionError(f"kernel_roofline shares: {sh}")
     print(f"  kernel_roofline peaks {json.dumps(roof['peaks'])}")
-    for k in ("extend", "global_tb", "local_2pass"):
+    for k in ("extend", "global_tb", "local_2pass", "smem_seed"):
         print(f"  kernel_roofline {k}: {json.dumps(roof[k])}")
+    seed = roof["smem_seed"]
+    if not (seed.get("reads_per_s", 0) > 0
+            and seed.get("rbegs_total", 0) >= seed.get("mems_total", 0) > 0):
+        raise AssertionError(f"kernel_roofline smem_seed: {seed}")
 
-    prof = _last_json(
-        tool("prime_profile", fasta, reads, str(PROFILE_PAIRS)),
-        ("device", "card", "pairs", "seed_s", "align_s", "rescue_s",
-         "total_s", "pairs_per_s", "extend_waves", "rescue_waves",
-         "wave_wall_s", "launches"), "prime_profile")
-    if not (prof["pairs"] == PROFILE_PAIRS and prof["extend_waves"] > 0
-            and prof["rescue_waves"] > 0):
-        raise AssertionError(f"prime_profile: {prof}")
-    print(f"  prime_profile: {json.dumps(prof)}")
+    # the same 2,000 pairs seeded by host C++ and on the device
+    for flag, seeder in (("0", "host"), ("1", "device")):
+        prof = _last_json(
+            tool("prime_profile", fasta, reads, str(PROFILE_PAIRS),
+                 log=f"prime_profile_{seeder}", LARIAT_DEVICE_SEED=flag),
+            ("device", "card", "pairs", "seeder", "index_upload_s", "seed_s",
+             "seed_warm_s", "align_s", "rescue_s", "total_s", "pairs_per_s",
+             "seed_profile", "prime_s", "prime_pairs_per_s", "extend_waves",
+             "rescue_waves", "wave_wall_s", "launches"),
+            "prime_profile")
+        if not (prof["pairs"] == PROFILE_PAIRS and prof["seeder"] == seeder
+                and prof["extend_waves"] > 0 and prof["rescue_waves"] > 0
+                and (prof["seed_profile"] is not None) == (seeder == "device")
+                and prof["prime_pairs_per_s"] > 0):
+            raise AssertionError(f"prime_profile: {prof}")
+        print(f"  prime_profile ({seeder} seeding): {json.dumps(prof)}")
     return t1_launches
+
+
+def _port_run(fasta, reads, out, log, env):
+    """One port CLI run: (pairs, pairs/s, primed, host pairs, waves, busy
+    fraction, the run's kernel launch counts)."""
+    stdout, wall = _cli("lariat_tpu_torch.cli", "on", fasta, reads,
+                        os.path.join(SMOKE, out), THREADS, log, env)
+    n, rate = _summary(stdout)
+    m = re.search(r"device waves: (\d+)\s+wave wall ([\d.]+)s\s+busy "
+                  r"fraction ([\d.]+)\s+primed pairs (\d+)\s+host pairs "
+                  r"(\d+)", stdout)
+    if not m:
+        raise AssertionError(f"no device summary line in {out}")
+    lm = re.search(r"kernel launches: (\{.*\})", stdout)
+    if not lm:
+        raise AssertionError(f"no kernel launch line in {out}")
+    launches = json.loads(lm.group(1))
+    dev_line = re.search(r"device priming on (.*)", stdout)
+    print(f"  {out}: {n} pairs, {rate} pairs/s ({wall:.1f}s wall with index "
+          f"load); device waves {m.group(1)}, busy fraction {m.group(3)}; "
+          f"primed {m.group(4)}, host {m.group(5)}; "
+          f"{dev_line.group(1) if dev_line else '?'}")
+    print(f"  kernel launches in {out}: {json.dumps(launches)}")
+    return n, rate, int(m.group(4)), int(m.group(5)), launches
 
 
 def main(argv=None) -> int:
@@ -455,6 +688,9 @@ def main(argv=None) -> int:
         kres = phase_kernels()
     with Phase("data"):
         fasta, reads = phase_data(SCALE, BARCODES, PAIRS_PER_BC)
+    with Phase("seeding kernels vs plain"):
+        sres, exh_launches = phase_seeding(fasta, reads)
+    kres.update(sres)
     env = {k: v for k, v in os.environ.items()
            if k not in ("LARIAT_TORCH_DEVICE", "LARIAT_DEVICE_SEED")}
     with Phase("host-native run"):
@@ -465,56 +701,53 @@ def main(argv=None) -> int:
         n_host, rate_host = _summary(host_out)
         print(f"  host-native: {n_host} pairs, {rate_host} pairs/s "
               f"({host_s:.1f}s wall with index load)")
-    from lariat_tpu_torch.ops import _build
-    _build.reset_launches()   # the run below is a subprocess with its own
+    # each port run is a subprocess whose CLI resets its launch counts
+    # before its main loop and prints them after
+    runs = {}
     with Phase("port run"):
-        port_out, port_s = _cli(
-            "lariat_tpu_torch.cli", "on", fasta, reads,
-            os.path.join(SMOKE, "out_port"), THREADS,
-            os.path.join(args.logs, "port.log"), env)
-        n_port, rate_port = _summary(port_out)
-        m = re.search(r"device waves: (\d+)\s+wave wall ([\d.]+)s\s+busy "
-                      r"fraction ([\d.]+)\s+primed pairs (\d+)\s+host pairs "
-                      r"(\d+)", port_out)
-        if not m:
-            raise AssertionError("no device summary line in the port run")
-        waves, busy = int(m.group(1)), float(m.group(3))
-        primed, host_pairs = int(m.group(4)), int(m.group(5))
-        lm = re.search(r"kernel launches: (\{.*\})", port_out)
-        if not lm:
-            raise AssertionError("no kernel launch line in the port run")
-        launches = json.loads(lm.group(1))
-        dev_line = re.search(r"device priming on (.*)", port_out)
-        print(f"  port: {n_port} pairs, {rate_port} pairs/s ({port_s:.1f}s "
-              f"wall with index load); device waves {waves}, busy "
-              f"fraction {busy}; primed {primed}, host {host_pairs}; "
-              f"{dev_line.group(1) if dev_line else '?'}")
-        print(f"  kernel launches on the main path: {json.dumps(launches)}")
+        runs["out_port"] = _port_run(fasta, reads, "out_port",
+                                     os.path.join(args.logs, "port.log"),
+                                     env)
+    with Phase("port run, device seeding"):
+        runs["out_port_seed"] = _port_run(
+            fasta, reads, "out_port_seed",
+            os.path.join(args.logs, "port_seed.log"),
+            {**env, "LARIAT_DEVICE_SEED": "1"})
+        print(f"  pairs/s: host-seeded port {runs['out_port'][1]}, "
+              f"device-seeded port {runs['out_port_seed'][1]}, host-native "
+              f"{rate_host}")
     with Phase("tools"):
-        launches = {k: launches.get(k, 0) for k in CLI_KERNELS}
+        launches = {k: runs["out_port"][4].get(k, 0) for k in CLI_KERNELS}
+        launches.update({k: runs["out_port_seed"][4].get(k, 0)
+                         for k in SEED_KERNELS})
+        launches["smem_exhaustive"] = exh_launches
         launches["extend_ablate"] = phase_tools(fasta, reads, env, args.logs)
     with Phase("checks"):
         want_pairs = BARCODES * PAIRS_PER_BC
         names = sorted(os.path.basename(f) for f in glob.glob(
             os.path.join(SMOKE, "out_host", "*.bam")))
-        got_names = sorted(os.path.basename(f) for f in glob.glob(
-            os.path.join(SMOKE, "out_port", "*.bam")))
-        if not names or names != got_names:
-            raise AssertionError(f"BAM sets differ: {names} vs {got_names}")
-        n_rec = 0
-        for name in names:
-            a, n = _bam_records(os.path.join(SMOKE, "out_host", name))
-            b, _ = _bam_records(os.path.join(SMOKE, "out_port", name))
-            if a != b:
-                raise AssertionError(f"{name}: records differ from "
-                                     f"host-native")
-            n_rec += n
-        print(f"  {len(names)} BAMs, {n_rec} records byte-identical to "
-              f"host-native")
-        if not (n_host == n_port == primed == want_pairs and host_pairs == 0):
-            raise AssertionError(
-                f"pairs: host {n_host}, port {n_port}, primed {primed}, "
-                f"host-routed {host_pairs}; want {want_pairs} all primed")
+        for out, (n_port, _, primed, host_pairs, _) in runs.items():
+            got_names = sorted(os.path.basename(f) for f in glob.glob(
+                os.path.join(SMOKE, out, "*.bam")))
+            if not names or names != got_names:
+                raise AssertionError(f"BAM sets differ: {names} vs "
+                                     f"{got_names} ({out})")
+            n_rec = 0
+            for name in names:
+                a, n = _bam_records(os.path.join(SMOKE, "out_host", name))
+                b, _ = _bam_records(os.path.join(SMOKE, out, name))
+                if a != b:
+                    raise AssertionError(f"{out}/{name}: records differ from "
+                                         f"host-native")
+                n_rec += n
+            print(f"  {out}: {len(names)} BAMs, {n_rec} records "
+                  f"byte-identical to host-native")
+            if not (n_host == n_port == primed == want_pairs
+                    and host_pairs == 0):
+                raise AssertionError(
+                    f"{out} pairs: host {n_host}, port {n_port}, primed "
+                    f"{primed}, host-routed {host_pairs}; want {want_pairs} "
+                    f"all primed")
         idle = [k for k in KERNEL_INFO if launches.get(k, 0) <= 0]
         if idle:
             raise AssertionError(f"kernels never launched on their "

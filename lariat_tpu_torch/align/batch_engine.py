@@ -10,9 +10,14 @@ sequential control flow between waves exactly as in the reference:
   mate rescue     ``local_align_device``     two-pass K3
   reg2aln         ``_r2s_dispatch``/``_feed`` K2, then K2b's backtrack
 
-Seeding stays on the host C++ seeder (device seeding is not ported yet).
-The engine requires the native sessions and raises without them: the
-reference's Python replay paths are not ported.
+Seeding follows the reference's policy: ``LARIAT_DEVICE_SEED=1`` runs the
+3-round SMEM seeding and its SA walks on the device (``_device_seed``,
+kernels K4a-K4c and K5), ``=0`` keeps the host C++ seeder, and unset turns
+device seeding on for a CUDA device at genomes of
+``DEVICE_SEED_AUTO_MIN_LPAC`` (1 Gbp) and above. The index uploads once, at
+first use; an upload or kernel error raises (no silent fallback to the host
+seeder). The engine requires the native sessions and raises without them:
+the reference's Python replay paths are not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from lariat_tpu.align.extension import AlnReg
 from lariat_tpu.index import native_ops
 
 from ..device import get_device
-from ..ops import _build, resident, sw_global
+from ..ops import _build, fm_batch, resident, smem_device, sw_global
+from ..parallel import align_step
 from . import ksw as tksw
 
 
@@ -67,6 +73,8 @@ class TorchBatchAlignmentEngine(BatchAlignmentEngine):
         self._pac_res = None
         self.abort_prime = False
         self._warmup = None
+        self._seed_lock = threading.Lock()
+        self._seed_state = None     # (DeviceFMIndex, DeviceGenome)
 
     def wait_warmup(self) -> None:
         """No transfer warmup on this backend."""
@@ -93,14 +101,42 @@ class TorchBatchAlignmentEngine(BatchAlignmentEngine):
             raise NotImplementedError("multi-device waves are not ported")
         return arrays, None
 
+    def _seed_index(self):
+        """The device index for seeding, uploaded once, at first use, by
+        the first batch that needs it; an upload error raises."""
+        with self._seed_lock:
+            if self._seed_state is None:
+                fmd = fm_batch.DeviceFMIndex.from_host(self.fm, self.device)
+                # the SA walk shares the seeding index: one copy on the device
+                dg = align_step.DeviceGenome.from_host(self.fm, fmd)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self._seed_state = (fmd, dg)
+            return self._seed_state
+
+    def device_seeding(self) -> bool:
+        """Whether batches seed on the device (the policy above)."""
+        flag = os.environ.get("LARIAT_DEVICE_SEED")
+        if flag:
+            return flag != "0"
+        return (self.device.type == "cuda"
+                and self.fm.l_pac >= self.DEVICE_SEED_AUTO_MIN_LPAC)
+
     def _device_seed(self, nonempty):
-        """None: the host C++ seeder runs. Forcing device seeding
-        (LARIAT_DEVICE_SEED=1) raises, since it is not ported yet."""
+        """Device 3-round SMEM seeding and SA walks, bit-identical to the
+        native C++; None sends the batch to the host C++ seeder.
+
+        LARIAT_DEVICE_SEED=1 forces it on, =0 off; unset, it is on for a
+        CUDA device at l_pac >= DEVICE_SEED_AUTO_MIN_LPAC."""
         self._check_abort()
-        if os.environ.get("LARIAT_DEVICE_SEED") == "1":
-            raise NotImplementedError(
-                "device seeding is not ported to lariat_tpu_torch yet")
-        return None
+        if not (nonempty and self.device_seeding()):
+            return None
+        fmd, dg = self._seed_index()
+        t_dev = time.time()
+        out = smem_device.collect_seeds_rbegs_device(fmd, dg, self.fm,
+                                                     nonempty, self.opt)
+        self._wave_done(time.time() - t_dev)
+        return out
 
     def _opt_key(self, bonus: int) -> tuple:
         opt = self.opt

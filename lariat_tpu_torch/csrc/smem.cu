@@ -1,0 +1,303 @@
+// K4a-K4c: device SMEM seeding (bwa mem_collect_intv's three rounds), one
+// thread per lane, each running its own state machine to its end.
+//
+// Replaces the XLA loops of lariat_tpu/ops/smem_device.py:
+//   K4a `min_starts_twoptr` (emit_direct=True): the two-pointer minimal-
+//       start machine; plateau-end seeds go straight into per-lane slots;
+//   K4b `min_starts_kernel`: the exhaustive per-(read, e) backward
+//       extension, the fallback on a blown step cap or a slot overflow;
+//   K4c `strategy1_kernel` + `_pack_r3`: the round-3 forward-greedy walker.
+// The reference's while/fori loops run every lane in lock step until the
+// slowest is done; here a thread leaves as soon as its own lane is. A
+// finished lane's transition is the identity, so per-lane loops give the
+// reference's outputs lane for lane (K4a's step budget is the reference's
+// cap rounded up to whole unrolled iterations; the wrapper passes it).
+//
+// Bound on the H100: a chain of dependent fused-row gathers (two per
+// extension, fm.cuh), with lanes diverging in branch and trip count; no
+// arithmetic bound. Reads stay in device memory (L1/L2 serve the repeats).
+// Later work: group lanes by expected trip count, and reuse the row when
+// both ranks of an extension fall in one block.
+
+#include <cstdint>
+
+#include "common.cuh"
+#include "fm.cuh"
+
+namespace {
+
+using lariat::FMView;
+
+// ---- K4a ------------------------------------------------------------------
+// meta (R, cap+3) int32 [qb<<16|qe slots | min(n, cap) | lane_done | flags]
+// and big (R, 3*cap) [x0 | x1 | s] arrive zeroed; the wrapper fills the
+// flags column from aux (R, 2) = [n (uncapped), transitions run].
+template <typename IDX>
+__global__ void twoptr_kernel(
+    const uint8_t* __restrict__ reads, const int32_t* __restrict__ start_v,
+    const int32_t* __restrict__ end_v, const IDX* __restrict__ min_intv_v,
+    const int32_t* __restrict__ mid_v, const int32_t* __restrict__ fused,
+    const IDX* __restrict__ L2, long long primary, long long seq_len, int R,
+    int L, int budget, int bwd_init, int min_seed, int cap,
+    int32_t* __restrict__ meta, IDX* __restrict__ big,
+    int32_t* __restrict__ aux) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= R) return;
+  const FMView<IDX> f = lariat::fm_view(fused, L2, primary, seq_len);
+  const uint8_t* q = reads + static_cast<size_t>(lane) * L;
+  const int start_e = start_v[lane], end_e = end_v[lane], mid = mid_v[lane];
+  const IDX min_intv = lariat::at_least_one(min_intv_v[lane]);
+  // state: [b, e) with interval (x0, x1, s); in BWD, the scratch interval
+  // (bx0, bx1, bs) of [p, etgt)
+  int e, b, p, etgt;
+  bool bwd;
+  IDX x0 = 1, x1 = 1, s = 0, bx0 = 1, bx1 = 1, bs = 0;
+  if (bwd_init) {
+    // round-2 reseeds: b(start_e + 1) by a fresh backward scan; an N at
+    // start_e leaves the machine empty at start_e + 1
+    const int c0 = q[min(max(start_e, 0), L - 1)];
+    const bool is_n0 = c0 >= 4;
+    e = b = is_n0 ? start_e + 1 : start_e;
+    bwd = !is_n0;
+    p = start_e;
+    etgt = start_e + 1;
+    if (!is_n0) lariat::single_char(f, c0, bx0, bx1, bs);
+  } else {
+    e = b = start_e;
+    bwd = false;
+    p = etgt = 0;
+  }
+  int32_t* slots = meta + static_cast<size_t>(lane) * (cap + 3);
+  IDX* bl = big + static_cast<size_t>(lane) * 3 * cap;
+  int n = 0, used = 0;
+  while (used < budget) {
+    const bool fwd_live = !bwd && e + 1 <= end_e;
+    const bool bwd_live = bwd && etgt <= end_e;
+    if (!fwd_live && !bwd_live) break;
+    ++used;
+    const int c_f = (e >= 0 && e < L) ? q[e] : 4;
+    const int c_b = (p - 1 >= 0 && p - 1 < L) ? q[p - 1] : 4;
+    const bool empty = fwd_live && b == e;
+    const bool nf = c_f >= 4;
+    const bool bwd_free = bwd_live && (p <= 0 || c_b >= 4);
+    const bool do_bwd = bwd_live && !bwd_free;
+    const bool do_fwd = fwd_live && !empty && !nf;
+    IDX nx0 = 0, nx1 = 0, ns = 0;
+    bool acc = false;
+    if (do_bwd || do_fwd) {
+      lariat::extend_dir(f, do_bwd ? bx0 : x0, do_bwd ? bx1 : x1,
+                         do_bwd ? bs : s, do_bwd ? c_b : c_f, do_bwd, nx0,
+                         nx1, ns);
+      acc = ns >= min_intv;
+    }
+    IDX sc0, sc1, scs;
+    lariat::single_char(f, c_f, sc0, sc1, scs);
+    const bool fwd_emit = fwd_live && (empty || nf || acc);
+    const bool bwd_exit = bwd_free || (do_bwd && !acc);
+    const bool fwd_acc = do_fwd && acc, bwd_acc = do_bwd && acc;
+    const bool fresh = empty && !nf;
+    int n_e = fwd_emit ? e + 1 : (bwd_exit ? etgt : e);
+    const int n_b = (fwd_live && nf) ? e + 1 : (bwd_exit ? p : b);
+    const IDX n_x0 = bwd_exit ? bx0 : (fresh ? sc0 : (fwd_acc ? nx0 : x0));
+    const IDX n_x1 = bwd_exit ? bx1 : (fresh ? sc1 : (fwd_acc ? nx1 : x1));
+    IDX n_s = bwd_exit ? bs
+                       : ((fwd_live && nf) ? IDX(0)
+                                           : (empty ? scs
+                                                    : (fwd_acc ? ns : s)));
+    if (empty && nf) n_s = 0;
+    const bool enter_bwd = do_fwd && !acc;
+    const bool n_bwd = bwd_exit ? false : (bwd || enter_bwd);
+    const int n_p = enter_bwd ? e : (bwd_acc ? p - 1 : p);
+    const int n_etgt = enter_bwd ? e + 1 : etgt;
+    const IDX n_bx0 = enter_bwd ? sc0 : (bwd_acc ? nx0 : bx0);
+    const IDX n_bx1 = enter_bwd ? sc1 : (bwd_acc ? nx1 : bx1);
+    const IDX n_bs = enter_bwd ? scs : (bwd_acc ? ns : bs);
+    // midpoint pruning: a FWD lane whose b passed mid never emits again
+    if (!n_bwd && n_b > mid) n_e = end_e + 1;
+    // a plateau ends when FWD fails, an N breaks it, or the lane reaches
+    // end_e: its seed is [b, e), or the new state's at end_e
+    const bool em1 = (enter_bwd || (fwd_live && nf)) && b < e;
+    const bool em2 = (fwd_emit || bwd_exit) && n_e == end_e && n_b < n_e;
+    if (em1 || em2) {
+      const int sqb = em2 ? n_b : b, sqe = em2 ? n_e : e;
+      if (sqe - sqb >= min_seed && sqb <= mid && sqe > start_e) {
+        if (n < cap) {
+          slots[n] = (sqb << 16) | sqe;
+          bl[n] = em2 ? n_x0 : x0;
+          bl[cap + n] = em2 ? n_x1 : x1;
+          bl[2 * cap + n] = em2 ? n_s : s;
+        }
+        ++n;
+      }
+    }
+    e = n_e; b = n_b; x0 = n_x0; x1 = n_x1; s = n_s;
+    bwd = n_bwd; p = n_p; etgt = n_etgt; bx0 = n_bx0; bx1 = n_bx1; bs = n_bs;
+  }
+  const bool live = bwd ? etgt <= end_e : e + 1 <= end_e;
+  slots[cap] = min(n, cap);
+  slots[cap + 1] = live ? 0 : 1;
+  aux[2 * lane] = n;
+  aux[2 * lane + 1] = used;
+}
+
+// ---- K4b ------------------------------------------------------------------
+template <typename IDX>
+__global__ void exhaustive_kernel(
+    const uint8_t* __restrict__ reads, const int32_t* __restrict__ read_idx,
+    const int32_t* __restrict__ e_v, const IDX* __restrict__ min_intv_v,
+    const int32_t* __restrict__ fused, const IDX* __restrict__ L2,
+    long long primary, long long seq_len, int N, int L,
+    int32_t* __restrict__ b_out, IDX* __restrict__ x0_out,
+    IDX* __restrict__ x1_out, IDX* __restrict__ s_out,
+    bool* __restrict__ valid_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  const FMView<IDX> f = lariat::fm_view(fused, L2, primary, seq_len);
+  const uint8_t* q = reads + static_cast<size_t>(read_idx[i]) * L;
+  const int e = e_v[i];
+  const IDX min_intv = lariat::at_least_one(min_intv_v[i]);
+  const int c0 = q[min(max(e - 1, 0), L - 1)];
+  const bool valid = e >= 1 && c0 < 4;
+  IDX x0, x1, s;
+  lariat::single_char(f, c0, x0, x1, s);
+  int b = valid ? e - 1 : e;
+  if (valid) {
+    // greedy backward extension until an N, the read start, or the
+    // interval size falls below min_intv (the reference stops at L - 1
+    // steps, which pos >= 0 already implies)
+    for (int pos = e - 2; pos >= 0 && e - 2 - pos < L - 1; --pos) {
+      const int c = q[min(pos, L - 1)];
+      if (c >= 4) break;
+      IDX n0, n1, ns;
+      lariat::extend_dir(f, x0, x1, s, c, true, n0, n1, ns);
+      if (ns < min_intv) break;
+      x0 = n0; x1 = n1; s = ns; b = pos;
+    }
+  }
+  b_out[i] = b;
+  x0_out[i] = x0;
+  x1_out[i] = x1;
+  s_out[i] = s;
+  valid_out[i] = valid;
+}
+
+// ---- K4c ------------------------------------------------------------------
+// meta (R, cap+1) int32 [qb<<16|qe slots | n] and big (R, 3*cap) [x0 | x1 |
+// s] arrive zeroed.
+template <typename IDX>
+__global__ void strategy1_kernel(
+    const uint8_t* __restrict__ reads, const int32_t* __restrict__ lens,
+    const int32_t* __restrict__ fused, const IDX* __restrict__ L2,
+    long long primary, long long seq_len, long long max_intv_ll, int R,
+    int L, int min_len, int cap, int32_t* __restrict__ meta,
+    IDX* __restrict__ big) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const FMView<IDX> f = lariat::fm_view(fused, L2, primary, seq_len);
+  const uint8_t* q = reads + static_cast<size_t>(r) * L;
+  const int len = min(lens[r], L);
+  const IDX max_intv = static_cast<IDX>(max_intv_ll);
+  int32_t* mrow = meta + static_cast<size_t>(r) * (cap + 1);
+  IDX* brow = big + static_cast<size_t>(r) * 3 * cap;
+  // scan start x; interval of q[x..t)
+  int x = 0, n = 0;
+  IDX x0 = 1, x1 = 1, s = 0;
+  for (int t = 0; t < len; ++t) {
+    const int c = q[t];
+    if (c >= 4) {            // an N restarts the scan past it
+      x = t + 1;
+      continue;
+    }
+    if (t == x) {            // scan start: the single-base interval
+      lariat::single_char(f, c, x0, x1, s);
+      continue;
+    }
+    IDX n0, n1, ns;
+    lariat::extend_dir(f, x0, x1, s, c, false, n0, n1, ns);
+    if (ns < max_intv && t - x >= min_len && n < cap) {
+      mrow[n] = (x << 16) | (t + 1);
+      brow[n] = n0;
+      brow[cap + n] = n1;
+      brow[2 * cap + n] = ns;
+      ++n;
+      x = t + 1;
+    }
+    x0 = n0; x1 = n1; s = ns;
+  }
+  mrow[cap] = n;
+}
+
+int grid(int n) { return lariat::blocks_for(n); }
+
+}  // namespace
+
+// reads (R, L) uint8; start_e/end_e/mid (R,) int32; min_intv (R,) IDX;
+// fused (n_blocks+1, 12) int32; L2 (5,) IDX; idx64 picks IDX = int64_t.
+extern "C" int lariat_smem_twoptr(
+    const uint8_t* reads, const int32_t* start_e, const int32_t* end_e,
+    const void* min_intv, const int32_t* mid, const int32_t* fused,
+    const void* L2, long long primary, long long seq_len, int idx64, int R,
+    int L, int budget, int bwd_init, int min_seed, int cap, int32_t* meta,
+    void* big, int32_t* aux, void* stream) {
+  if (R <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (idx64)
+    twoptr_kernel<int64_t><<<grid(R), lariat::kThreads, 0, st>>>(
+        reads, start_e, end_e, static_cast<const int64_t*>(min_intv), mid,
+        fused, static_cast<const int64_t*>(L2), primary, seq_len, R, L,
+        budget, bwd_init, min_seed, cap, meta, static_cast<int64_t*>(big),
+        aux);
+  else
+    twoptr_kernel<int32_t><<<grid(R), lariat::kThreads, 0, st>>>(
+        reads, start_e, end_e, static_cast<const int32_t*>(min_intv), mid,
+        fused, static_cast<const int32_t*>(L2), primary, seq_len, R, L,
+        budget, bwd_init, min_seed, cap, meta, static_cast<int32_t*>(big),
+        aux);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// N lanes (read_idx[i], e[i], min_intv[i]) -> b (N,) int32, x0/x1/s (N,)
+// IDX, valid (N,) bool.
+extern "C" int lariat_smem_exhaustive(
+    const uint8_t* reads, const int32_t* read_idx, const int32_t* e,
+    const void* min_intv, const int32_t* fused, const void* L2,
+    long long primary, long long seq_len, int idx64, int N, int L,
+    int32_t* b, void* x0, void* x1, void* s, bool* valid, void* stream) {
+  if (N <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (idx64)
+    exhaustive_kernel<int64_t><<<grid(N), lariat::kThreads, 0, st>>>(
+        reads, read_idx, e, static_cast<const int64_t*>(min_intv), fused,
+        static_cast<const int64_t*>(L2), primary, seq_len, N, L, b,
+        static_cast<int64_t*>(x0), static_cast<int64_t*>(x1),
+        static_cast<int64_t*>(s), valid);
+  else
+    exhaustive_kernel<int32_t><<<grid(N), lariat::kThreads, 0, st>>>(
+        reads, read_idx, e, static_cast<const int32_t*>(min_intv), fused,
+        static_cast<const int32_t*>(L2), primary, seq_len, N, L, b,
+        static_cast<int32_t*>(x0), static_cast<int32_t*>(x1),
+        static_cast<int32_t*>(s), valid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// reads (R, L) uint8, lens (R,) int32 -> meta (R, cap+1) int32, big
+// (R, 3*cap) IDX, both zeroed by the caller.
+extern "C" int lariat_smem_strategy1(
+    const uint8_t* reads, const int32_t* lens, const int32_t* fused,
+    const void* L2, long long primary, long long seq_len, long long max_intv,
+    int idx64, int R, int L, int min_len, int cap, int32_t* meta, void* big,
+    void* stream) {
+  if (R <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (idx64)
+    strategy1_kernel<int64_t><<<grid(R), lariat::kThreads, 0, st>>>(
+        reads, lens, fused, static_cast<const int64_t*>(L2), primary,
+        seq_len, max_intv, R, L, min_len, cap, meta,
+        static_cast<int64_t*>(big));
+  else
+    strategy1_kernel<int32_t><<<grid(R), lariat::kThreads, 0, st>>>(
+        reads, lens, fused, static_cast<const int32_t*>(L2), primary,
+        seq_len, max_intv, R, L, min_len, cap, meta,
+        static_cast<int32_t*>(big));
+  return static_cast<int>(cudaGetLastError());
+}

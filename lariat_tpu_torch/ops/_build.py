@@ -1,10 +1,11 @@
 """Build, load and launch the port's CUDA kernels; count the launches.
 
-Every ``lariat_tpu_torch/csrc/*.cu`` compiles with one ``nvcc`` call into a
-shared library with a plain C interface, loaded with ctypes (no PyTorch
-headers, so a build takes seconds). The library lands in ``build/kernels/``
-at the repository root, named by a hash of the sources and flags, and is
-built at first use: importing this module compiles nothing.
+Every ``lariat_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc`` process,
+all started together, and one more links the objects into a shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers, so a
+build takes seconds). The library lands in ``build/kernels/`` at the
+repository root, named by a hash of the sources and flags, and is built at
+first use: importing this module compiles nothing.
 
 Each C entry launches one kernel on the stream it is given (PyTorch's
 current stream) and returns ``cudaGetLastError()``; ``launch`` raises when
@@ -28,9 +29,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # kernel name -> (C entry, argtypes; every entry ends with the stream)
 KERNELS = {
     "sw_extend": ("lariat_sw_extend", [_P] * 6 + [_I] * 12 + [_P] * 4),
@@ -39,6 +40,13 @@ KERNELS = {
     "sw_local": ("lariat_sw_local", [_P] * 5 + [_I] * 10 + [_P] * 5),
     "extend_ablate": ("lariat_extend_ablate",
                       [_P] * 3 + [_I] * 14 + [_P] * 4),
+    "smem_twoptr": ("lariat_smem_twoptr",
+                    [_P] * 7 + [_L] * 2 + [_I] * 7 + [_P] * 4),
+    "smem_exhaustive": ("lariat_smem_exhaustive",
+                        [_P] * 6 + [_L] * 2 + [_I] * 3 + [_P] * 6),
+    "smem_strategy1": ("lariat_smem_strategy1",
+                       [_P] * 4 + [_L] * 3 + [_I] * 5 + [_P] * 3),
+    "sa_walk": ("lariat_sa_walk", [_P] * 5 + [_L] * 3 + [_I] * 3 + [_P] * 2),
 }
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -90,13 +98,27 @@ def build(ptxas_report: bool = False) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     extra = ["-Xptxas", "-v"] if ptxas_report else []
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, *_sources()]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}\n"
-                           f"{r.stderr}")
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *extra, "-c", "-o", obj,
+                               src], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for p, log in zip(procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{log}")
+        r = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stdout}\n{r.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, path)
-    return r.stdout + r.stderr
+    return "".join(logs)
 
 
 def load() -> ctypes.CDLL:

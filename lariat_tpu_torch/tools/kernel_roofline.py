@@ -7,7 +7,8 @@ shapes: K1 seed extension at 8192 x 192 x 576 (``ops/sw_extend``), K2
 banded global DP and K2b backtrack at 2048 x 192 x 192 (``ops/sw_global``;
 DP, traceback and combined times, the JAX tool's split), and the K3
 two-pass local SW at 2048 x 192 x 704 (``ops/sw_local.local_two_pass``,
-the rescue path's). Prints one JSON line.
+the rescue path's); then device seeding (``smem_seed``, below). Prints
+one JSON line.
 
 Peaks come from the device (cudaDeviceGetAttribute, ``_build.
 device_attributes``), not from constants:
@@ -41,22 +42,35 @@ back as its gap term, so its left side stays at most o_del. Every lane
 runs until its band leaves the query (row qlen + w); ``_check_k1`` checks
 the score and ends that this implies.
 
-The fm_rank and smem_seed sections of the JAX tool need device seeding,
-which the port does not have yet; they are left out.
+``smem_seed`` is the JAX tool's section of the same name: the whole device
+seeding (``ops/smem_device.collect_seeds_rbegs_device``, K4a-K4c and K5)
+over 2,048 reads of 151 bp, each with one substitution, from a 1 Mbp
+random genome (index built in a temporary directory): reads/s of a warm
+call, the first call's ms, and the mems and rbegs totals. It reports no
+share of a peak. The JAX tool's ``fm_rank`` section times ``occ1_batch``,
+which is not ported yet; it is left out.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
+import time
 from typing import Dict
 
 import numpy as np
 import torch
 
+from lariat_tpu.config import AlignerConfig
+from lariat_tpu.index import fmindex
+
 from ..device import get_device
-from ..ops import _build, sw_extend, sw_global, sw_local
+from ..ops import (_build, fm_batch, smem_device, sw_extend, sw_global,
+                   sw_local)
+from ..parallel.align_step import DeviceGenome
 from . import card, median_ms
 
 INT32_LANES_PER_SM_CLOCK = 64
@@ -189,8 +203,43 @@ def measure(dev: torch.device, iters: int = 7) -> dict:
         "padded_cells_per_s": 2.0 * B * Lq * Lt / (ms * 1e-3),
         "ops_per_cell": OPS_PER_CELL["local"],
         "int32_sol_pct": share(cells, OPS_PER_CELL["local"], ms, int_peak)}
+    res["smem_seed"] = smem_seed(dev, rng)
     res["peaks"] = pk
     return res
+
+
+def smem_seed(dev: torch.device, rng, n_reads: int = 2048,
+              read_len: int = 151) -> dict:
+    """Device 3-round seeding plus SA walks over reads of a 1 Mbp random
+    genome: the first call's ms, then one warm call timed."""
+    g = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 1 << 20)]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "genome.fa")
+        with open(path, "w") as f:
+            f.write(">c\n" + g.tobytes().decode() + "\n")
+        fm = fmindex.build_index(path)
+    fmd = fm_batch.DeviceFMIndex.from_host(fm, dev)
+    dg = DeviceGenome.from_host(fm, fmd)
+    codes = fm.get_seq_codes(0, fm.l_pac)
+    reads = []
+    for _ in range(n_reads):
+        p = int(rng.integers(0, fm.l_pac - read_len))
+        seg = codes[p:p + read_len].copy()
+        seg[int(rng.integers(0, read_len))] = (seg[0] + 1) % 4
+        reads.append(seg)
+    opt = AlignerConfig()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        # the result is downloaded to the host: the call ends synchronised
+        mems, rbegs = smem_device.collect_seeds_rbegs_device(
+            fmd, dg, fm, reads, opt)
+        times.append(time.perf_counter() - t0)
+    return {"reads": n_reads, "read_len": read_len, "genome_bp": fm.l_pac,
+            "ms": times[1] * 1e3, "reads_per_s": n_reads / times[1],
+            "first_run_ms": times[0] * 1e3,
+            "mems_total": int(sum(len(m) for m in mems)),
+            "rbegs_total": int(sum(len(r) for r in rbegs))}
 
 
 def shares(res: dict) -> Dict[str, float]:

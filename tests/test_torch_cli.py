@@ -52,6 +52,7 @@ def _inputs(tmp_path):
 def _env(**extra):
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
     env.pop("LARIAT_TORCH_DEVICE", None)
+    env.pop("LARIAT_DEVICE_SEED", None)
     env.update(extra)
     return env
 
@@ -60,7 +61,10 @@ def test_port_cli_cpu_matches_host_native(tmp_path):
     fasta, fq = _inputs(tmp_path)
     runs = {"host": ("lariat_tpu.cli", "off", {}),
             "port": ("lariat_tpu_torch.cli", "on",
-                     {"LARIAT_TORCH_DEVICE": "cpu"})}
+                     {"LARIAT_TORCH_DEVICE": "cpu"}),
+            "port_seed": ("lariat_tpu_torch.cli", "on",
+                          {"LARIAT_TORCH_DEVICE": "cpu",
+                           "LARIAT_DEVICE_SEED": "1"})}
     logs = {}
     for name, (mod, mode, extra) in runs.items():
         r = subprocess.run(
@@ -71,20 +75,24 @@ def test_port_cli_cpu_matches_host_native(tmp_path):
             timeout=600)
         assert r.returncode == 0, r.stderr[-2000:]
         logs[name] = r.stdout
-    assert "primed pairs 35  host pairs 0" in logs["port"], logs["port"]
-    assert "kernel launches: " in logs["port"]
+    for port in ("port", "port_seed"):
+        assert "primed pairs 35  host pairs 0" in logs[port], logs[port]
+        assert "kernel launches: " in logs[port]
+        assert '"smem_twoptr": 0' in logs[port]       # twins on the CPU
     bams = sorted(p.split("/")[-1]
                   for p in glob.glob(str(tmp_path / "host" / "*.bam")))
-    assert bams and bams == sorted(
-        p.split("/")[-1] for p in glob.glob(str(tmp_path / "port" / "*.bam")))
-    for k in bams:   # @PG CL differs: compare records past the header
-        assert list(BamFile(str(tmp_path / "host" / k))) == \
-            list(BamFile(str(tmp_path / "port" / k))), k
+    for port in ("port", "port_seed"):
+        assert bams and bams == sorted(
+            p.split("/")[-1]
+            for p in glob.glob(str(tmp_path / port / "*.bam")))
+        for k in bams:   # @PG CL differs: compare records past the header
+            assert list(BamFile(str(tmp_path / "host" / k))) == \
+                list(BamFile(str(tmp_path / port / k))), (port, k)
 
 
 def test_port_imports_no_jax(tmp_path):
     """The package, its engine, its CLI and its tools import and prime
-    without JAX."""
+    without JAX, with host seeding and with device seeding."""
     fasta, _ = _inputs(tmp_path)
     code = textwrap.dedent(f"""
         import sys
@@ -111,6 +119,11 @@ def test_port_imports_no_jax(tmp_path):
         eng = TorchBatchAlignmentEngine(fm, device="cpu")
         (p,) = eng.prime_regions([rec], 30)
         assert p[2] and p[0] and p[1], p
+        import os
+        os.environ["LARIAT_DEVICE_SEED"] = "1"
+        eng = TorchBatchAlignmentEngine(fm, device="cpu")
+        assert eng.prime_regions([rec], 30) == [p]
+        assert eng._seed_state is not None
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m.startswith("lariat_tpu.ops")]
         assert not bad, bad

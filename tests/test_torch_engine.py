@@ -1,8 +1,10 @@
 """The slice as a whole: TorchBatchAlignmentEngine.prime_regions on the
 explicit CPU device (every wave through the kernels' plain twins) against
 lariat_tpu's BatchAlignmentEngine -- with its three Pallas entries in
-interpret mode, and on its XLA path -- compared field by field. Also the
-engine's refusals: CUDA asked for and absent, forced device seeding."""
+interpret mode, and on its XLA path -- compared field by field. Also
+device seeding (LARIAT_DEVICE_SEED) against host seeding and the JAX
+engine's, and the engine's refusals: CUDA asked for and absent, an upload
+or kernel error under device seeding."""
 
 import dataclasses
 
@@ -100,12 +102,89 @@ def test_engine_raises_without_cuda(dup_genome, monkeypatch):  # noqa: F811
         TorchBatchAlignmentEngine(fm)        # the default is cuda
 
 
-def test_forced_device_seeding_raises(dup_genome, monkeypatch):  # noqa: F811
+def _seed_seqs(genome):
+    """tests/test_smem_device.py's align_batch reads: mutated, some
+    reverse-complemented."""
+    rng = np.random.default_rng(80)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    seqs = []
+    for _ in range(25):
+        ln = int(rng.integers(40, 152))
+        pos = int(rng.integers(0, len(genome) - ln))
+        seg = bytearray(genome[pos:pos + ln])
+        for _ in range(int(rng.integers(0, 4))):
+            seg[int(rng.integers(0, ln))] = b"ACGT"[int(rng.integers(0, 4))]
+        if rng.integers(0, 2):
+            seg = bytearray(bytes(seg).translate(comp)[::-1])
+        seqs.append(bytes(seg))
+    return seqs + [b"", genome[2100:2250]]
+
+
+def test_device_seeding_matches_host_and_jax(dup_genome, monkeypatch):  # noqa: F811
+    """LARIAT_DEVICE_SEED=1 on the CPU: align_batch seeds through the
+    kernels' twins, and its regions equal the host-seeded port's and the
+    JAX engine's with its own device seeding."""
+    fm, genome = dup_genome
+    seqs = _seed_seqs(genome)
+    monkeypatch.setenv("LARIAT_DEVICE_SEED", "0")
+    host = TorchBatchAlignmentEngine(fm, device="cpu")
+    want = host.align_batch(seqs)
+    assert host._seed_state is None and host.wave_stats["n"] > 0
+    monkeypatch.setenv("LARIAT_DEVICE_SEED", "1")
+    port = TorchBatchAlignmentEngine(fm, device="cpu")
+    waves = port.wave_stats["n"]
+    got = port.align_batch(seqs)
+    assert port._seed_state is not None
+    fmd, dg = port._seed_state
+    assert dg.fmd is fmd                       # one index on the device
+    assert port.wave_stats["n"] > waves
+    assert got == want
+    jax_eng = BatchAlignmentEngine(fm, use_pallas=False)
+    assert jax_eng.align_batch(seqs) == want
+
+
+def test_device_seeding_policy(dup_genome, monkeypatch):  # noqa: F811
+    """Unset on the CPU (and below the genome-size threshold) or =0: the
+    host seeder runs and nothing is uploaded."""
     fm, genome = dup_genome
     port = TorchBatchAlignmentEngine(fm, device="cpu")
+    q = [np.frombuffer(genome[100:200], np.uint8) % 4]
+    monkeypatch.delenv("LARIAT_DEVICE_SEED", raising=False)
+    monkeypatch.setattr(TorchBatchAlignmentEngine,
+                        "DEVICE_SEED_AUTO_MIN_LPAC", 0)
+    assert port._device_seed(q) is None      # auto: CUDA only
+    monkeypatch.setenv("LARIAT_DEVICE_SEED", "0")
+    assert port._device_seed(q) is None
     monkeypatch.setenv("LARIAT_DEVICE_SEED", "1")
-    with pytest.raises(NotImplementedError):
+    assert port._device_seed([]) is None
+    assert port._seed_state is None
+
+
+def test_forced_device_seeding_raises(dup_genome, monkeypatch):  # noqa: F811
+    """An upload error or a kernel error under device seeding raises: no
+    fallback to the host seeder."""
+    from lariat_tpu_torch.ops import fm_batch, smem_device
+    fm, genome = dup_genome
+    monkeypatch.setenv("LARIAT_DEVICE_SEED", "1")
+
+    def fail(*a, **kw):
+        raise RuntimeError("smem_twoptr kernel launch failed")
+
+    monkeypatch.setattr(smem_device, "min_starts_twoptr", fail)
+    port = TorchBatchAlignmentEngine(fm, device="cpu")
+    with pytest.raises(RuntimeError, match="launch failed"):
         port.align_batch([genome[100:200]])
+
+    def fail_upload(*a, **kw):
+        raise RuntimeError("index upload failed")
+
+    monkeypatch.setattr(fm_batch.DeviceFMIndex, "from_host", fail_upload)
+    port = TorchBatchAlignmentEngine(fm, device="cpu")
+    with pytest.raises(RuntimeError, match="upload failed"):
+        port.align_batch([genome[100:200]])
+    with pytest.raises(RuntimeError, match="upload failed"):   # stays so
+        port.align_batch([genome[100:200]])
+    assert port._seed_state is None
 
 
 def test_missing_native_sessions_raise(dup_genome, monkeypatch):  # noqa: F811

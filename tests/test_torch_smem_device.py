@@ -1,0 +1,406 @@
+"""The port's device seeding against lariat_tpu's (ops/smem_device.py and
+parallel/align_step.py, XLA on the CPU) and the native C++ seeder: the
+twins of K4a (two-pointer machine), K4b (exhaustive fallback), K4c
+(strategy-1 walker + pack) and K5 (SA walk), and the whole
+collect_seeds_rbegs_device on messy, segdup-heavy and low-complexity reads,
+with the straggler split, the exhaustive fallback, slot overflow and int64
+indices forced. Integer outputs: tolerance 0. The ``cuda`` cases hold each
+kernel against its twin on the card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lariat_tpu.align.engine import encode_read
+from lariat_tpu.config import AlignerConfig
+from lariat_tpu.index import native_ops
+from lariat_tpu.ops import fm_batch as jfm
+from lariat_tpu.ops import smem_device as jsd
+from lariat_tpu.parallel import align_step as jas
+from lariat_tpu_torch.ops import fm_batch as tfm
+from lariat_tpu_torch.ops import smem_device as tsd
+from lariat_tpu_torch.parallel import align_step as tas
+
+from test_rfa import dup_genome  # noqa: F401
+from test_smem_device import _messy_reads
+from test_torch_sw_extend import cuda_device  # noqa: F401
+
+torch.set_num_threads(1)
+
+L = 192
+
+
+def _low_complexity(genome):
+    return [encode_read(b"A" * 151), encode_read(b"AT" * 75),
+            encode_read(b"ACG" * 50), encode_read((b"A" * 30 + b"N") * 4),
+            encode_read(genome[100:151] + b"A" * 40)]
+
+
+def _segdup(genome, rng):
+    """Reads inside the duplicated segment [2000:3000] (multi-occurrence
+    seeds) and across its edges (round 2 re-seeds them and emits)."""
+    out = []
+    for _ in range(30):
+        pos = 2000 + int(rng.integers(0, 900))
+        out.append(encode_read(genome[pos:pos + int(rng.integers(60, 152))]))
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    for pos in (1950, 2900, 41950, 42900):
+        seg = genome[pos:pos + 150]
+        out += [encode_read(seg), encode_read(seg.translate(comp)[::-1])]
+    return out
+
+
+def _corpus(name, genome):
+    if name == "messy":
+        return _messy_reads(genome, np.random.default_rng(77))
+    if name == "segdup":
+        return _segdup(genome, np.random.default_rng(78))
+    return _low_complexity(genome)
+
+
+def _batch(reads, R=128):
+    rmat = np.full((R, L), 4, np.uint8)
+    lens = np.zeros(R, np.int32)
+    for i, r in enumerate(reads):
+        rmat[i, :len(r)] = r
+        lens[i] = len(r)
+    return rmat, lens
+
+
+@pytest.fixture(scope="module")
+def idx(dup_genome):  # noqa: F811
+    fm, genome = dup_genome
+    jdfm = jfm.DeviceFMIndex.from_host(fm)
+    fmd = tfm.DeviceFMIndex.from_host(fm, "cpu")
+    fmd64 = tfm.DeviceFMIndex.from_numpy(
+        np.asarray(jdfm.fused), fm.L2.astype(np.int64), fm.primary,
+        fm.seq_len, "cpu")
+    return fm, genome, jdfm, fmd, fmd64
+
+
+def _twoptr_inputs(rmat, lens, bwd_init, seed=3):
+    R = len(lens)
+    rng = np.random.default_rng(seed)
+    if not bwd_init:
+        return (np.zeros(R, np.int32), np.ones(R, np.int64),
+                np.full(R, L + 2, np.int32))
+    mid = rng.integers(0, np.maximum(lens, 1)).astype(np.int32)
+    return mid, rng.integers(1, 6, R).astype(np.int64), mid.copy()
+
+
+# (bwd_init, max_steps, cap): round 1 at its phase-A budget, round 2 at
+# its, a budget small enough to leave stragglers, and caps small enough to
+# overflow
+TWOPTR_CASES = [(False, 3 * L, 32), (True, 4 * L, 16), (False, 24, 32),
+                (True, 30, 16), (False, 8 * L, 2), (True, 32 * L, 1)]
+
+
+@pytest.mark.parametrize("bwd_init,max_steps,cap", TWOPTR_CASES)
+def test_twoptr_twin_matches_jax(idx, bwd_init, max_steps, cap):
+    fm, genome, jdfm, fmd, _ = idx
+    reads = (_messy_reads(genome, np.random.default_rng(5), n=40)
+             + _low_complexity(genome) + _segdup(genome,
+                                                 np.random.default_rng(6)))
+    rmat, lens = _batch(reads)
+    start, mi, mid = _twoptr_inputs(rmat, lens, bwd_init)
+    want = jsd.min_starts_twoptr(
+        jdfm, jnp.asarray(rmat), jnp.asarray(start), jnp.asarray(lens),
+        jnp.asarray(mi), L, max_steps=max_steps, bwd_init=bwd_init,
+        emit_direct=True, min_seed=19, cap=cap, mid=jnp.asarray(mid))
+    got = tsd.min_starts_twoptr(
+        fmd, torch.from_numpy(rmat), torch.from_numpy(start),
+        torch.from_numpy(lens), torch.from_numpy(mi), L,
+        max_steps=max_steps, bwd_init=bwd_init, min_seed=19, cap=cap,
+        mid=torch.from_numpy(mid))
+    wmeta, wbig = (np.asarray(a) for a in want)
+    gmeta, gbig = (a.numpy() for a in got)
+    # flags bits 2+ are the reference's transition count: equal too
+    np.testing.assert_array_equal(gmeta, wmeta)
+    np.testing.assert_array_equal(gbig, wbig)
+    assert gbig.dtype == np.int32
+    flags = int(gmeta[0, -1]) & 3
+    if max_steps < 64:
+        assert not flags & 1, "the small budget left no straggler"
+    if cap <= 2 and not bwd_init:
+        assert flags & 2, "the small cap did not overflow"
+
+
+def test_exhaustive_twin_matches_jax(idx):
+    fm, genome, jdfm, fmd, _ = idx
+    reads = _messy_reads(genome, np.random.default_rng(8), n=20) + \
+        _low_complexity(genome)
+    rmat, lens = _batch(reads, R=len(reads))
+    R = len(reads)
+    ri = np.repeat(np.arange(R), L).astype(np.int32)
+    e = np.tile(np.arange(0, L), R).astype(np.int32)      # e = 0 included
+    mi = np.random.default_rng(9).integers(1, 5, R * L).astype(np.int64)
+    want = jsd.min_starts_kernel(jdfm, jnp.asarray(rmat), jnp.asarray(ri),
+                                 jnp.asarray(e), jnp.asarray(mi), L)
+    got = tsd.min_starts_kernel(fmd, torch.from_numpy(rmat),
+                                torch.from_numpy(ri), torch.from_numpy(e),
+                                torch.from_numpy(mi), L)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_strategy1_twin_and_pack_match_jax(idx):
+    fm, genome, jdfm, fmd, _ = idx
+    reads = _messy_reads(genome, np.random.default_rng(10)) + \
+        _low_complexity(genome)
+    rmat, lens = _batch(reads)
+    cap3 = L // 19 + 2
+    want = jsd.strategy1_kernel(jdfm, jnp.asarray(rmat), jnp.asarray(lens),
+                                20, L, 19, cap3)
+    got = tsd.strategy1_plain(fmd, torch.from_numpy(rmat),
+                              torch.from_numpy(lens), 20, L, 19, cap3)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(got[0].sum()) > 0
+    wpk = jsd._pack_r3(*want)
+    gpk = tsd.strategy1(fmd, torch.from_numpy(rmat), torch.from_numpy(lens),
+                        20, L, 19, cap3)
+    for g, w in zip(gpk, wpk):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for g, w in zip(tsd.pack_r3(*got), wpk):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _native(fm, reads, opt):
+    want = native_ops.collect_seeds_rbegs_batch(fm, reads, opt)
+    assert want is not None, "native seeding unavailable"
+    return want
+
+
+def _assert_same(got, want):
+    (g_m, g_r), (w_m, w_r) = got, want
+    assert len(g_m) == len(w_m) and len(g_r) == len(w_r)
+    for i in range(len(w_m)):
+        np.testing.assert_array_equal(
+            g_m[i], np.asarray(w_m[i]).reshape(-1, 5), err_msg=f"mems {i}")
+        np.testing.assert_array_equal(g_r[i], np.asarray(w_r[i]),
+                                      err_msg=f"rbegs {i}")
+
+
+def _port_collect(fm, fmd, reads, opt):
+    dg = tas.DeviceGenome.from_host(fm, fmd)
+    return tsd.collect_seeds_rbegs_device(fmd, dg, fm, reads, opt)
+
+
+@pytest.mark.parametrize("corpus", ["messy", "segdup", "low_complexity"])
+def test_collect_matches_native_and_jax(idx, corpus):
+    fm, genome, jdfm, fmd, fmd64 = idx
+    opt = AlignerConfig()
+    reads = _corpus(corpus, genome)
+    want = _native(fm, reads, opt)
+    got = _port_collect(fm, fmd, reads, opt)
+    _assert_same(got, want)
+    assert sum(len(m) for m in got[0]) > 0
+    jgot = jsd.collect_seeds_rbegs_device(
+        jdfm, jas.DeviceGenome.from_host(fm), fm, reads, opt)
+    _assert_same(got, jgot)
+    _assert_same(_port_collect(fm, fmd64, reads, opt), want)
+    assert tsd.collect_seeds_device(fmd, fm, reads, opt) == [
+        [tuple(int(v) for v in row) for row in np.asarray(m).reshape(-1, 5)]
+        for m in want[0]]
+
+
+def test_forced_straggler_split(idx, monkeypatch):
+    """Tiny phase-A budgets send (almost) every lane to the narrow rerun;
+    the spliced result still equals the native C++."""
+    fm, genome, _, fmd, fmd64 = idx
+    opt = AlignerConfig()
+    reads = _messy_reads(genome, np.random.default_rng(123), n=40)
+    want = _native(fm, reads, opt)
+    orig = tsd.min_starts_twoptr
+    calls = {"n": 0, "rerun": 0}
+
+    def clamped(*a, **kw):
+        calls["n"] += 1
+        if kw.get("max_steps", 0) in (3 * L, 4 * L):
+            kw["max_steps"] = 24      # phase A of rounds 1 and 2
+        else:
+            calls["rerun"] += 1
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(tsd, "min_starts_twoptr", clamped)
+    for f in (fmd, fmd64):
+        _assert_same(_port_collect(fm, f, reads, opt), want)
+    assert calls["rerun"] >= 2 and calls["n"] >= 6
+
+
+def test_forced_exhaustive_fallback(idx, monkeypatch):
+    """Every two-pointer call reports a blown step cap (no lane done): the
+    straggler rerun fails too, and both rounds fall back to K4b with host
+    emission from its full planes."""
+    fm, genome, _, fmd, fmd64 = idx
+    opt = AlignerConfig()
+    reads = (_messy_reads(genome, np.random.default_rng(124), n=30)
+             + _low_complexity(genome))
+    want = _native(fm, reads, opt)
+    orig_twoptr, orig_exh = tsd.min_starts_twoptr, tsd.min_starts_kernel
+    calls = {"exh": 0}
+
+    def blown(*a, **kw):
+        meta, big = orig_twoptr(*a, **kw)
+        cap = kw["cap"]
+        meta[:, cap + 1] = 0
+        meta[:, cap + 2] &= ~1
+        return meta, big
+
+    def exh(*a, **kw):
+        calls["exh"] += 1
+        return orig_exh(*a, **kw)
+
+    monkeypatch.setattr(tsd, "min_starts_twoptr", blown)
+    monkeypatch.setattr(tsd, "min_starts_kernel", exh)
+    for f in (fmd, fmd64):
+        _assert_same(_port_collect(fm, f, reads, opt), want)
+    assert calls["exh"] == 4       # rounds 1 and 2, both indices
+
+
+@pytest.mark.parametrize("cap1,cap2", [(1, 16), (32, 0)])
+def test_forced_slot_overflow(idx, monkeypatch, cap1, cap2):
+    """A slot cap too small for round 1 (1 slot), or for round 2 (none):
+    the round overflows, the exhaustive fallback serves it, and the result
+    still equals the native C++."""
+    fm, genome, _, fmd, _ = idx
+    opt = AlignerConfig()
+    reads = (_corpus("messy", genome) + _corpus("segdup", genome)
+             + _low_complexity(genome))
+    want = _native(fm, reads, opt)
+    monkeypatch.setattr(tsd, "CAP1", cap1)
+    monkeypatch.setattr(tsd, "CAP2", cap2)
+    orig = tsd.min_starts_kernel
+    calls = {"exh": 0}
+
+    def exh(*a, **kw):
+        calls["exh"] += 1
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(tsd, "min_starts_kernel", exh)
+    _assert_same(_port_collect(fm, fmd, reads, opt), want)
+    assert calls["exh"] == 1
+
+
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+def test_sa_lookup_batch_host_matches_scalar(idx, dt):
+    fm, _, jdfm, fmd, fmd64 = idx
+    f = fmd if dt == "int32" else fmd64
+    dg = tas.DeviceGenome.from_host(fm, f)
+    rng = np.random.default_rng(5)
+    rows = rng.integers(0, fm.seq_len, 700).astype(np.int64)
+    rows[:3] = [fm.primary, fm.primary - 1, fm.primary + 1]
+    got = tas.sa_lookup_batch_host(dg, fm, rows, phase_steps=4)
+    want = np.array([fm.sa_lookup(int(r)) for r in rows], np.int64)
+    np.testing.assert_array_equal(got, want)
+    # one chunk against the JAX walk
+    k = rows[:256].astype(np.int32)
+    steps = rng.integers(0, 3, 256).astype(np.int32)
+    done = rng.random(256) < 0.1
+    w = jas.sa_walk_chunk(jas.DeviceGenome.from_host(fm), jnp.asarray(k),
+                          jnp.asarray(steps), jnp.asarray(done), 7)
+    g = tas.sa_walk_chunk(dg, torch.from_numpy(k).to(f.idx_dtype),
+                          torch.from_numpy(steps).to(f.idx_dtype),
+                          torch.from_numpy(done), 7)
+    np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# ---- the kernels against their twins on the card --------------------------
+
+
+def _cuda_index(fm, dev, dt):
+    L2 = fm.L2.astype(np.int64 if dt == "int64" else np.int32)
+    return tfm.DeviceFMIndex.from_numpy(tfm.fused_table(fm), L2, fm.primary,
+                                        fm.seq_len, dev)
+
+
+def _both(fn, dev):
+    """fn(device) on the card (kernel) and on the CPU (twin), synced."""
+    got = fn(dev)
+    torch.cuda.synchronize()
+    return got, fn(torch.device("cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+@pytest.mark.parametrize("bwd_init,max_steps,cap", TWOPTR_CASES)
+def test_twoptr_kernel_matches_twin(idx, cuda_device, dt, bwd_init,  # noqa: F811
+                                    max_steps, cap):
+    fm, genome, *_ = idx
+    reads = (_messy_reads(genome, np.random.default_rng(5), n=40)
+             + _low_complexity(genome))
+    rmat, lens = _batch(reads)
+    start, mi, mid = _twoptr_inputs(rmat, lens, bwd_init)
+
+    def run(dev):
+        f = _cuda_index(fm, dev, dt)
+        put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        return tsd.min_starts_twoptr(
+            f, put(rmat), put(start), put(lens), put(mi), L,
+            max_steps=max_steps, bwd_init=bwd_init, min_seed=19, cap=cap,
+            mid=put(mid))
+
+    got, want = _both(run, cuda_device)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+def test_exhaustive_kernel_matches_twin(idx, cuda_device, dt):  # noqa: F811
+    fm, genome, *_ = idx
+    reads = _messy_reads(genome, np.random.default_rng(8), n=20) + \
+        _low_complexity(genome)
+    rmat, _ = _batch(reads, R=len(reads))
+    R = len(reads)
+    ri = np.repeat(np.arange(R), L).astype(np.int32)
+    e = np.tile(np.arange(0, L), R).astype(np.int32)
+    mi = np.random.default_rng(9).integers(1, 5, R * L).astype(np.int64)
+
+    def run(dev):
+        put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        return tsd.min_starts_kernel(_cuda_index(fm, dev, dt), put(rmat),
+                                     put(ri), put(e), put(mi), L)
+
+    got, want = _both(run, cuda_device)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+def test_strategy1_kernel_matches_twin(idx, cuda_device, dt):  # noqa: F811
+    fm, genome, *_ = idx
+    rmat, lens = _batch(_messy_reads(genome, np.random.default_rng(10))
+                        + _low_complexity(genome))
+
+    def run(dev):
+        put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        return tsd.strategy1(_cuda_index(fm, dev, dt), put(rmat), put(lens),
+                             20, L, 19, L // 19 + 2)
+
+    got, want = _both(run, cuda_device)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+def test_sa_walk_kernel_matches_twin(idx, cuda_device, dt):  # noqa: F811
+    fm = idx[0]
+    rng = np.random.default_rng(12)
+    k = rng.integers(0, fm.seq_len, 4096)
+    k[:3] = [fm.primary, fm.primary - 1, fm.primary + 1]
+    steps = rng.integers(0, 3, 4096)
+    done = rng.random(4096) < 0.1
+
+    def run(dev):
+        g = tas.DeviceGenome.from_host(fm, _cuda_index(fm, dev, dt))
+        tdt = g.fmd.idx_dtype
+        return tas.sa_walk_chunk(g, torch.from_numpy(k).to(dev, tdt),
+                                 torch.from_numpy(steps).to(dev, tdt),
+                                 torch.from_numpy(done).to(dev), 64)
+
+    got, want = _both(run, cuda_device)
+    assert torch.equal(got.cpu(), want)

@@ -71,17 +71,44 @@ def test_extend_ablate_tool_inputs_are_the_jax_tools():
     assert params[0].tolist() == [151, 400, 100, 30, 0, 0, 0, 0]
 
 
-def test_prime_profile_on_cpu(tmp_path, monkeypatch, capsys):
+@pytest.mark.parametrize("flag,seeder", [(None, "host"), ("0", "host"),
+                                         ("1", "device")])
+def test_prime_profile_on_cpu(tmp_path, monkeypatch, capsys, flag, seeder):
     fasta, fq = _inputs(tmp_path)
     monkeypatch.setenv("LARIAT_TORCH_DEVICE", "cpu")
+    if flag is None:
+        monkeypatch.delenv("LARIAT_DEVICE_SEED", raising=False)
+    else:
+        monkeypatch.setenv("LARIAT_DEVICE_SEED", flag)
     assert prime_profile.main([str(fasta), str(fq), "35"]) == 0
     final = _json_lines(capsys.readouterr().out)[-1]
     assert final["device"] == "cpu" and final["pairs"] == 35
+    assert final["seeder"] == seeder
+    assert (final["index_upload_s"] > 0) == (seeder == "device")
     assert final["extend_waves"] > 0 and final["rescue_waves"] > 0
     assert final["total_s"] == pytest.approx(
         final["seed_s"] + final["align_s"] + final["rescue_s"])
+    # the one-thread priming passes; no profiler split on the CPU
+    assert len(final["prime_s"]) == prime_profile.PRIME_REPEATS
+    assert min(final["prime_s"]) > 0
+    assert final["prime_pairs_per_s"] == pytest.approx(
+        35 / sorted(final["prime_s"])[1])
+    assert final["seed_profile"] is None
     assert set(final["launches"]) >= {"sw_extend", "sw_local",
                                       "extend_ablate"}
+
+
+def test_roofline_smem_seed_on_cpu():
+    """The smem_seed section's arithmetic, run through the twins on a few
+    reads: every read seeds, and every seed has at least one rbeg."""
+    out = kernel_roofline.smem_seed(torch.device("cpu"),
+                                    np.random.default_rng(5), n_reads=12)
+    assert set(out) == {"reads", "read_len", "genome_bp", "ms",
+                        "reads_per_s", "first_run_ms", "mems_total",
+                        "rbegs_total"}
+    assert out["reads"] == 12 and out["genome_bp"] == 1 << 20
+    assert out["mems_total"] >= 12 and out["rbegs_total"] >= \
+        out["mems_total"]
 
 
 def test_tools_refuse_without_cuda(tmp_path, monkeypatch):
