@@ -6,13 +6,20 @@
 Phases (one line each with its seconds, failures end the run nonzero):
   1. environment: the card (nvidia-smi name, power limit), torch, nvcc;
      requires torch.cuda.is_available();
-  2. build: every kernel from lariat_tpu_torch/csrc with nvcc (sm_90a);
+  2. build: every kernel from lariat_tpu_torch/csrc with nvcc (sm_90a),
+     ptxas's registers and spills, and the DPX and PRMT instructions that
+     `cuobjdump -sass` finds in each kernel;
   3. kernels: each kernel's wrapper on the card at main-path shapes against
      its plain PyTorch version on the same inputs, exact (tolerance 0:
      integer DP), with kernel and plain times (CUDA events, median of 7;
-     T1's plain times median of 3): K1-K3, and T1 in all six variants at
-     8192 x 192 x 576 on planted inputs and on the ablation tool's random
-     ones;
+     T1's plain times median of 3) and the kernel's bound (the larger of
+     its operations over the int32 peak and its bytes over the memory
+     peak, both from the card's attributes; tools/kernel_roofline.py):
+     K1-K3, K3 and K2 (with K2b on its z) again on their edge shapes (the
+     tiled path past 192 query columns, qlen 0, tlen 0, tlen < 32, qlen
+     not a multiple of 6, N codes, minsc 0; w 0, w >= qlen, rows past
+     qlen + w), and T1 in all six variants at 8192 x 192 x 576 on planted
+     inputs and on the ablation tool's random ones;
   4. data: a chr20-scale synthetic genome (tools/synth_genome.py --scale
      0.0208 --seed 7, ~64 Mbp), 10,000 read pairs of 151 bp
      (tools/sim_reads.py) and the index, under build/smoke/ (reused);
@@ -39,7 +46,10 @@ Phases (one line each with its seconds, failures end the run nonzero):
      its own path (K1-K3 in the port run, K4a, K4c and K5 in the
      device-seeded run, K4b -- which runs only when K4a blows its step cap
      -- in phase 5's collect, T1 in the ablation tool).
-Then a kernels JSON line and, last, {"ok": true, "device": {...}}.
+Then a kernels JSON line (each kernel's launches on its path, max abs
+error, ms, plain ms, bound ms and what sets it, and library_ms: null, since
+no single PyTorch call computes any of these recurrences) and, last,
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -146,6 +156,63 @@ def phase_build():
             print(f"  ptxas: {line.strip()}")
     _build.load()
     print(f"  library {os.path.relpath(_build.library_path(), REPO)}")
+    _sass_report(_build.library_path(), os.path.dirname(_build._nvcc()))
+
+
+def _sass_report(lib, bin_dir):
+    """Count, per kernel of the library, the DPX (VI*) and PRMT
+    instructions of its sm_90a SASS."""
+    tool = os.path.join(bin_dir, "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        print("  sass: cuobjdump not found")
+        return
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=120).stdout
+    fn, counts = None, {}
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                     line)
+        if fn and m and (m.group(1).startswith("VI") or m.group(1) == "PRMT"):
+            c = counts.setdefault(fn, {})
+            c[m.group(1)] = c.get(m.group(1), 0) + 1
+    for fn, c in counts.items():
+        print(f"  sass {fn}: {json.dumps(dict(sorted(c.items())))}")
+
+
+def _peaks():
+    """int32 ops/s and bytes/s of the card, from its attributes."""
+    from lariat_tpu_torch.ops import _build
+    from lariat_tpu_torch.tools.kernel_roofline import peaks
+    return peaks(_build.device_attributes(0))
+
+
+def _bound(pk, ops, nbytes):
+    """(ms, what sets it): the larger of ops over the int32 peak and bytes
+    over the memory peak."""
+    t_ops = ops / pk["int32_ops_s"] * 1e3
+    t_bytes = nbytes / pk["mem_B_s"] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _band_cells(qlen, rows, w) -> int:
+    """Cells of banded DPs: task b over its rows 0..rows[b]-1, band
+    [max(i - w, 0), min(i + w + 1, qlen))."""
+    import numpy as np
+    qlen, rows, w = (np.asarray(a, np.int64)[:, None] for a in (qlen, rows, w))
+    i = np.arange(max(int(rows.max(initial=0)), 1))[None, :]
+    n = np.clip(np.minimum(i + w + 1, qlen) - np.maximum(i - w, 0), 0, None)
+    return int(np.where(i < rows, n, 0).sum())
+
+
+def _nbytes(*tensors) -> int:
+    from lariat_tpu_torch.tools.kernel_roofline import nbytes
+    return nbytes(*tensors)
 
 
 def _median_ms(fn, n=7):
@@ -180,10 +247,14 @@ def _planted(rng, qlen, tlen, Lq, Lt, n_frac=0.01):
     return q, t
 
 
-def phase_kernels(seed=1):
+def phase_kernels(pk, seed=1):
+    """K1-K3 and K2b at main-path shapes, K2/K2b/K3 on their edge shapes,
+    and T1; returns name -> (max abs err, kernel ms, plain ms, shape,
+    bound ms, what sets the bound)."""
     import numpy as np
     import torch
     from lariat_tpu_torch.ops import sw_batch, sw_extend, sw_global, sw_local
+    from lariat_tpu_torch.tools.kernel_roofline import OPS_PER_CELL as OPS
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     D = dict(o_del=6, e_del=1, o_ins=6, e_ins=1)
@@ -219,7 +290,16 @@ def phase_kernels(seed=1):
     if err or int(got[6:].abs().max()):
         raise AssertionError(f"K1 sw_extend differs from its plain version "
                              f"(max abs err {err})")
-    res["sw_extend"] = (err, _median_ms(k1), _median_ms(p1), (B, Lq, Lt))
+    # operations: the band cells of the rows each lane surely visited (up
+    # to its best row, tle, and its best to-the-end row, gtle), at the band
+    # ksw_extend2 narrows w to; later rows, cut by z-drop, are not counted
+    o = got.cpu().numpy()
+    w_eff = sw_batch._adjust_w(torch.from_numpy(qlen), torch.from_numpy(w),
+                               1, 5, 6, 1, 6, 1).numpy()
+    ops = OPS["extend"] * _band_cells(qlen, np.maximum(o[2], o[3]), w_eff)
+    res["sw_extend"] = (err, _median_ms(k1), _median_ms(p1), (B, Lq, Lt),
+                        *_bound(pk, ops, _nbytes(qd, qld, td, tld, wd, h0d,
+                                                 got)))
 
     # K2 + K2b at the reg2aln chunk 2048 x 192 x 384
     B, Lq, Lt = 2048, 192, 384
@@ -242,7 +322,10 @@ def phase_kernels(seed=1):
     err = max(_max_abs_err(gs, ws), _max_abs_err(gz, wz))
     if err:
         raise AssertionError(f"K2 sw_global differs (max abs err {err})")
-    res["sw_global"] = (err, _median_ms(k2), _median_ms(p2), (B, Lq, Lt))
+    ops = OPS["global"] * _band_cells(qlen, tlen, w)
+    res["sw_global"] = (err, _median_ms(k2), _median_ms(p2), (B, Lq, Lt),
+                        *_bound(pk, ops, _nbytes(qd, qld, td, tld, wd, gs,
+                                                 gz)))
 
     def k2b():
         return sw_global.traceback_ops_fused(gz, qld, tld, wd, gs, S)
@@ -255,7 +338,14 @@ def phase_kernels(seed=1):
     err = _max_abs_err(got, want)
     if err:
         raise AssertionError(f"K2b traceback differs (max abs err {err})")
-    res["traceback"] = (err, _median_ms(k2b), _median_ms(p2b), (B, S))
+    # bytes: one 32-byte sector of z a walk step, the lengths in, the blob
+    # out
+    ops_b = got[:, :S // 4].cpu().numpy()
+    steps = int(sum(int((((ops_b >> (2 * k)) & 3) != 3).sum())
+                    for k in range(4)))
+    res["traceback"] = (err, _median_ms(k2b), _median_ms(p2b), (B, S),
+                        *_bound(pk, 0, 32 * steps
+                                + _nbytes(qld, tld, wd, gs, got)))
 
     # K3: 4096 rescue DPs, read 151 (Lq 192) in the pestat window
     # high - low + 151 = 686 (Lt 704)
@@ -277,22 +367,74 @@ def phase_kernels(seed=1):
     err = _max_abs_err(got, want)
     if err:
         raise AssertionError(f"K3 sw_local differs (max abs err {err})")
-    res["sw_local"] = (err, _median_ms(k3), _median_ms(p3), (B, Lq, Lt))
-    for name, (e, ms, pms, shape) in res.items():
+    ops = OPS["local"] * int((qlen.astype(np.int64) * tlen).sum())
+    res["sw_local"] = (err, _median_ms(k3), _median_ms(p3), (B, Lq, Lt),
+                       *_bound(pk, ops, _nbytes(qd, qld, td, tld, md, got)))
+    for name, (e, ms, pms, shape, bms, by) in res.items():
         print(f"  {name} {shape}: exact (max abs err {e}); kernel "
-              f"{ms:.3f} ms, plain {pms:.3f} ms")
-    res["extend_ablate"] = _t1_vs_plain(rng, cuda)
+              f"{ms:.3f} ms, plain {pms:.3f} ms; bound {bms:.4f} ms "
+              f"({by}), {100 * bms / ms:.1f}% of it")
+    _edges(cuda, D, S3)
+    res["extend_ablate"] = _t1_vs_plain(rng, cuda, pk)
     return res
 
 
-def _t1_vs_plain(rng, cuda):
+def _edges(cuda, D, S3):
+    """K3 (both passes) and K2 with K2b on their edge shapes, exact
+    against the twins: query columns past one tile (Lq 448), qlen 0, tlen
+    0, tlen < 32, qlen not a multiple of 6, N codes, minsc 0; w 0,
+    w >= qlen, rows past qlen + w (empty bands)."""
+    import numpy as np
+    import torch
+    from lariat_tpu_torch.ops import sw_global, sw_local
+    rng = np.random.default_rng(11)
+    B, Lq, Lt = 512, 448, 704
+    qlen = rng.integers(1, Lq + 1, B).astype(np.int32)
+    tlen = rng.integers(1, Lt + 1, B).astype(np.int32)
+    qlen[[0, 3, 4, 5, 6]] = 0, 151, 448, 193, 192
+    tlen[[1, 2, 7]] = 0, 20, 31
+    minsc = np.where(rng.random(B) < 0.3, 0, 19).astype(np.int32)
+    q, t = _planted(rng, qlen, tlen, Lq, Lt, n_frac=0.05)
+    args = cuda(q, qlen, t, tlen, minsc)
+    got = sw_local.local_two_pass(*args, **D, **S3)
+    want = sw_local.local_two_pass(*(a.cpu() for a in args), **D, **S3)
+    torch.cuda.synchronize()
+    if _max_abs_err(got, want):
+        raise AssertionError("K3 sw_local differs on the edge shapes")
+    B, Lq, Lt = 512, 448, 512
+    qlen = rng.integers(0, Lq + 1, B).astype(np.int32)
+    tlen = np.clip(qlen + rng.integers(-40, 41, B), 1, Lt).astype(np.int32)
+    w = rng.integers(0, 60, B).astype(np.int32)
+    w[0], qlen[1], tlen[2], tlen[3], tlen[4] = 0, 0, 0, 10, 31
+    w[5] = qlen[5] + 5                                  # w >= qlen
+    w[6], tlen[6] = 3, min(int(qlen[6]) + 40, Lt)       # rows past qlen + w
+    q, t = _planted(rng, qlen, tlen, Lq, Lt, n_frac=0.05)
+    args = cuda(q, qlen, t, tlen, w)
+    gs, gz = sw_global.global_batch(*args, **D, **S3)
+    ws, wz = sw_global.global_batch_plain(*args, **D, **S3)
+    torch.cuda.synchronize()
+    if max(_max_abs_err(gs, ws), _max_abs_err(gz, wz)):
+        raise AssertionError("K2 sw_global differs on the edge shapes")
+    S = Lq + Lt
+    got = sw_global.traceback_ops_fused(gz, args[1], args[3], args[4], gs, S)
+    want = sw_global.traceback_ops_fused_plain(wz, args[1], args[3],
+                                               args[4], ws, S)
+    torch.cuda.synchronize()
+    if _max_abs_err(got, want):
+        raise AssertionError("K2b traceback differs on the edge shapes")
+    print("  edge shapes: K3 two-pass (512, 448, 704), K2 + K2b (512, 448, "
+          "512): exact")
+
+
+def _t1_vs_plain(rng, cuda, pk):
     """T1 against its twin in all six variants at 8192 x 192 x 576, on
     planted inputs (timed, kernel and twin) and on the ablation tool's
     random inputs (timed, kernel only: most lanes die within a few
-    rows)."""
+    rows). The bound is the baseline's on the planted inputs."""
     import numpy as np
     import torch
     from lariat_tpu_torch.ops import extend_ablate
+    from lariat_tpu_torch.tools.kernel_roofline import OPS_PER_CELL
     from lariat_tpu_torch.tools.extend_ablate import inputs
     B, Lq, Lt = 8192, 192, 576
     qlen = rng.integers(0, 152, B).astype(np.int32)
@@ -327,12 +469,19 @@ def _t1_vs_plain(rng, cuda):
             if kind == "planted":
                 times["plain"] = _median_ms(p, n=3)
                 if base is None:
-                    base = (times[kind], times["plain"])
+                    # the band cells up to the rows the baseline's outputs
+                    # prove visited (its best row max_i, its best
+                    # to-the-end row max_ie)
+                    o = got.cpu().numpy()
+                    ops = OPS_PER_CELL["extend"] * _band_cells(
+                        qlen, np.maximum(o[2], o[4]) + 1, params[:, 2])
+                    base = (times[kind], times["plain"],
+                            *_bound(pk, ops, _nbytes(qd, td, pd, got)))
         print(f"  extend_ablate {name} ({B}, {Lq}, {Lv}): exact; planted "
               f"kernel {times['planted']:.3f} ms, plain "
               f"{times['plain']:.3f} ms; random kernel "
               f"{times['random']:.3f} ms")
-    return (err, base[0], base[1], (B, Lq, Lt))
+    return (err, base[0], base[1], (B, Lq, Lt), base[2], base[3])
 
 
 def phase_data(scale: float, barcodes: int, pairs_per_bc: int):
@@ -352,7 +501,8 @@ def phase_data(scale: float, barcodes: int, pairs_per_bc: int):
     # the index, built (or loaded) and saved beside the FASTA by the CLIs'
     # own load_reference, in a subprocess
     info = _run([sys.executable, "-c",
-                 "import sys; from lariat_tpu.cli import load_reference; "
+                 "import sys; "
+                 "from lariat_tpu_torch.cli import load_reference; "
                  "fm = load_reference(sys.argv[1]); "
                  "print(fm.l_pac, len(fm.contigs))", fasta], timeout=900)
     l_pac, n_contigs = (int(v) for v in info.split()[-2:])
@@ -361,18 +511,24 @@ def phase_data(scale: float, barcodes: int, pairs_per_bc: int):
     return fasta, reads
 
 
-def phase_seeding(fasta, reads_path):
+def phase_seeding(fasta, reads_path, pk):
     """K4a-K4c and K5 against their twins on the chr20-scale index, at the
     shapes of one 4,096-read seeding batch, then the device collect on a
     batch whose low-complexity reads send it to K4b (``_fallback_collect``);
-    returns name -> (max abs err, kernel ms, plain ms, shape) and the K4b
-    launches of that collect."""
+    returns name -> (max abs err, kernel ms, plain ms, shape, bound ms,
+    what sets it) and the K4b launches of that collect.
+
+    The FM walks' lengths depend on the data and K4a-K4c do not report
+    them, so their bounds count only the bytes of their own inputs and
+    outputs (not the index rows they read, nor their operations): a floor
+    that understates. K5 reports its steps: its bound adds one 48-byte
+    fused row a step."""
     import numpy as np
     import torch
-    from lariat_tpu.align.engine import encode_read
-    from lariat_tpu.cli import load_reference
-    from lariat_tpu.config import AlignerConfig
-    from lariat_tpu.io.fastq import FastQReader
+    from lariat_tpu_torch.align.engine import encode_read
+    from lariat_tpu_torch.cli import load_reference
+    from lariat_tpu_torch.config import AlignerConfig
+    from lariat_tpu_torch.io.fastq import FastQReader
     from lariat_tpu_torch.ops import fm_batch, smem_device as sd
     from lariat_tpu_torch.parallel import align_step
     dev = torch.device("cuda")
@@ -427,7 +583,9 @@ def phase_seeding(fasta, reads_path):
 
     meta1, big1 = k4a()
     e = err((meta1, big1), p4a())
-    res["smem_twoptr"] = (e, _median_ms(k4a), _median_ms(p4a, n=3), (R, L))
+    res["smem_twoptr"] = (e, _median_ms(k4a), _median_ms(p4a, n=3), (R, L),
+                          *_bound(pk, 0, _nbytes(rd, lens_d, r1[0], r1[2],
+                                                 r1kw["mid"], meta1, big1)))
     meta1 = meta1.cpu().numpy()
     print(f"  K4a round 1: flags {int(meta1[0, -1]) & 3}, "
           f"{int(meta1[:, sd.CAP1].sum())} seeds, "
@@ -466,8 +624,11 @@ def phase_seeding(fasta, reads_path):
     def p4b():
         return sd.min_starts_kernel_plain(fmd, rd, ri, ee, mi, L)
 
-    res["smem_exhaustive"] = (err(k4b(), p4b()), _median_ms(k4b),
-                              _median_ms(p4b, n=3), (R * L,))
+    out4b = k4b()
+    res["smem_exhaustive"] = (err(out4b, p4b()), _median_ms(k4b),
+                              _median_ms(p4b, n=3), (R * L,),
+                              *_bound(pk, 0, _nbytes(rd, ri, ee, mi,
+                                                     *out4b)))
     cap3 = max(2, L // opt.min_seed_len + 2)
     s1 = (fmd, rd, lens_d, int(opt.max_mem_intv), L, opt.min_seed_len, cap3)
 
@@ -477,8 +638,10 @@ def phase_seeding(fasta, reads_path):
     def p4c():
         return sd.pack_r3(*sd.strategy1_plain(*s1))
 
-    res["smem_strategy1"] = (err(k4c(), p4c()), _median_ms(k4c),
-                             _median_ms(p4c, n=3), (R, L))
+    out4c = k4c()
+    res["smem_strategy1"] = (err(out4c, p4c()), _median_ms(k4c),
+                             _median_ms(p4c, n=3), (R, L),
+                             *_bound(pk, 0, _nbytes(rd, lens_d, *out4c)))
     rng = np.random.default_rng(3)
     n5 = 1 << 16
     k5 = (g, put(rng.integers(0, fm.seq_len, n5)).to(fmd.idx_dtype),
@@ -491,11 +654,15 @@ def phase_seeding(fasta, reads_path):
     def p5():
         return align_step.sa_walk_chunk_plain(*k5)
 
-    res["sa_walk"] = (err([k5k()], [p5()]), _median_ms(k5k),
-                      _median_ms(p5, n=3), (n5,))
-    for name, (e, ms, pms, shape) in res.items():
+    out5 = k5k()
+    steps5 = int(out5[1].sum())
+    res["sa_walk"] = (err([out5], [p5()]), _median_ms(k5k),
+                      _median_ms(p5, n=3), (n5,),
+                      *_bound(pk, 0, 48 * steps5 + _nbytes(*k5[1:4], out5)))
+    for name, (e, ms, pms, shape, bms, by) in res.items():
         print(f"  {name} {shape}: exact (max abs err {e}); kernel "
-              f"{ms:.3f} ms, plain {pms:.3f} ms")
+              f"{ms:.3f} ms, plain {pms:.3f} ms; bound {bms:.4f} ms "
+              f"({by}), {100 * bms / ms:.1f}% of it")
     return res, _fallback_collect(fm, fmd, g, qs[:FALLBACK_READS], opt)
 
 
@@ -505,8 +672,8 @@ def _fallback_collect(fm, fmd, g, qs, opt) -> int:
     1 takes the exhaustive fallback (K4b); its seeds and rbegs must equal
     the native C++ seeder's. Returns K4b's launches in that call."""
     import numpy as np
-    from lariat_tpu.align.engine import encode_read
-    from lariat_tpu.index import native_ops
+    from lariat_tpu_torch.align.engine import encode_read
+    from lariat_tpu_torch.index import native_ops
     from lariat_tpu_torch.ops import _build, smem_device as sd
     reads = qs + [encode_read(s) for s in LOW_COMPLEXITY]
     want = native_ops.collect_seeds_rbegs_batch(fm, reads, opt)
@@ -620,7 +787,7 @@ def phase_tools(fasta, reads, env, logs):
                        "global_tb", "local_2pass", "launches"),
                       "kernel_roofline")
     sh = shares(roof)
-    if len(sh) != 4 or not all(0 < v <= 100 for v in sh.values()):
+    if len(sh) != 5 or not all(0 < v <= 100 for v in sh.values()):
         raise AssertionError(f"kernel_roofline shares: {sh}")
     print(f"  kernel_roofline peaks {json.dumps(roof['peaks'])}")
     for k in ("extend", "global_tb", "local_2pass", "smem_seed"):
@@ -684,12 +851,14 @@ def main(argv=None) -> int:
     import torch
     with Phase("build"):
         phase_build()
+    pk = _peaks()
+    print(f"  peaks (card attributes): {json.dumps(pk)}")
     with Phase("kernels vs plain"):
-        kres = phase_kernels()
+        kres = phase_kernels(pk)
     with Phase("data"):
         fasta, reads = phase_data(SCALE, BARCODES, PAIRS_PER_BC)
     with Phase("seeding kernels vs plain"):
-        sres, exh_launches = phase_seeding(fasta, reads)
+        sres, exh_launches = phase_seeding(fasta, reads, pk)
     kres.update(sres)
     env = {k: v for k, v in os.environ.items()
            if k not in ("LARIAT_TORCH_DEVICE", "LARIAT_DEVICE_SEED")}
@@ -754,10 +923,12 @@ def main(argv=None) -> int:
                                  f"path: {idle}")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
-        err, ms, pms, _ = kres[name]
+        err, ms, pms, _, bms, by = kres[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": pms})
+                        "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                        "bound_ms": bms, "bound_by": by,
+                        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """The batch alignment engine on PyTorch: every DP wave of the priming pass
 runs through the port's kernels.
 
-``TorchBatchAlignmentEngine`` subclasses lariat_tpu's
-``BatchAlignmentEngine`` and overrides each method that reaches JAX; the
-C++ sessions (native/align1.cpp ``a1s_*`` / ``r2s_*``) replay BWA-MEM's
+``TorchBatchAlignmentEngine`` is the host control flow of lariat_tpu's
+``BatchAlignmentEngine`` (``align_batch``, ``prime_regions`` and the
+reg2aln session driver), copied without its JAX, Pallas and mesh branches.
+The C++ sessions (native/align1.cpp ``a1s_*`` / ``r2s_*``) replay BWA-MEM's
 sequential control flow between waves exactly as in the reference:
 
   seed extension  ``_align_batch_session``  resident gather + K1
@@ -25,31 +26,35 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from lariat_tpu.align import native_engine
-from lariat_tpu.align.batch_engine import BatchAlignmentEngine
-from lariat_tpu.align.engine import AlignmentEngine, encode_read
-from lariat_tpu.align.extension import AlnReg
-from lariat_tpu.index import native_ops
-
 from ..device import get_device
+from ..index import native_ops
 from ..ops import _build, fm_batch, resident, smem_device, sw_global
 from ..parallel import align_step
-from . import ksw as tksw
+from . import ksw, native_engine
+from .engine import AlignmentEngine, SingleReadAlignment, encode_read
+from .extension import AlnReg
 
 
-class TorchBatchAlignmentEngine(BatchAlignmentEngine):
-    """Drop-in engine whose DP waves run as the port's kernels on
-    ``device`` (``lariat_tpu_torch.device.get_device`` picks it)."""
+class TorchBatchAlignmentEngine(AlignmentEngine):
+    """Engine whose DP waves run as the port's kernels on ``device``
+    (``lariat_tpu_torch.device.get_device`` picks it)."""
+
+    # genome scale above which device seeding is on by default: host C++
+    # seeding is FM-cache-miss-bound at gigabase scale; small genomes keep
+    # the (very fast there) host seeder
+    DEVICE_SEED_AUTO_MIN_LPAC = 1_000_000_000
+
+    # reg2aln tasks per session: every chunk's wave is dispatched before any
+    # is downloaded
+    R2ALN_CHUNK = 2048
 
     def __init__(self, fm, opt=None, pair=None, device=None):
-        # BatchAlignmentEngine.__init__ probes jax and starts a thread that
-        # imports it: set its fields here instead
-        AlignmentEngine.__init__(self, fm, opt, pair)
+        super().__init__(fm, opt, pair)
         if not (native_engine.Align1Session.available()
                 and native_engine.Reg2AlnSession.available()):
             raise RuntimeError(
@@ -63,25 +68,16 @@ class TorchBatchAlignmentEngine(BatchAlignmentEngine):
         self.device = get_device(device)
         if self.device.type == "cuda":
             _build.load()           # build the kernels now, not mid-wave
-        self.use_pallas = False     # no Pallas here: the tensors' device
-        self.mesh = None            # picks kernel or plain twin
-        self.shard_waves = 0
-        self.shard_log: list = []
+        # wall time with a wave dispatched or downloading, summed across
+        # priming threads: the CLI reports wall / elapsed as the busy proxy
         self.wave_stats = {"wall": 0.0, "n": 0}
         self._stats_lock = threading.Lock()
         self._pac_lock = threading.Lock()
         self._pac_res = None
-        self.abort_prime = False
-        self._warmup = None
         self._seed_lock = threading.Lock()
         self._seed_state = None     # (DeviceFMIndex, DeviceGenome)
 
-    def wait_warmup(self) -> None:
-        """No transfer warmup on this backend."""
-
     def _wave_done(self, seconds: float, n: int = 1) -> None:
-        # the inherited reg2aln driver (_reg2aln_session) adds to
-        # wave_stats without this lock, as the reference engine does
         with self._stats_lock:
             self.wave_stats["wall"] += seconds
             self.wave_stats["n"] += n
@@ -95,11 +91,6 @@ class TorchBatchAlignmentEngine(BatchAlignmentEngine):
                     resident.pac_words_from_fm(self.fm, self.device),
                     int(self.fm.l_pac))
             return self._pac_res
-
-    def _shard_wave(self, *arrays, real=None):
-        if self.mesh is not None:
-            raise NotImplementedError("multi-device waves are not ported")
-        return arrays, None
 
     def _seed_index(self):
         """The device index for seeding, uploaded once, at first use, by
@@ -128,7 +119,6 @@ class TorchBatchAlignmentEngine(BatchAlignmentEngine):
 
         LARIAT_DEVICE_SEED=1 forces it on, =0 off; unset, it is on for a
         CUDA device at l_pac >= DEVICE_SEED_AUTO_MIN_LPAC."""
-        self._check_abort()
         if not (nonempty and self.device_seeding()):
             return None
         fmd, dg = self._seed_index()
@@ -144,10 +134,11 @@ class TorchBatchAlignmentEngine(BatchAlignmentEngine):
                 opt.gap_extend_ins, bonus, opt.zdrop, opt.match_score,
                 -opt.mismatch_penalty)
 
-    def _align_batch_session(self, seqs: List[bytes]
-                             ) -> Optional[List[List[AlnReg]]]:
-        """Seed extension: the C++ session replays chain2aln while each
-        wave of speculative extensions runs as K1 on resident inputs."""
+    def align_batch(self, seqs: List[bytes]) -> List[List[AlnReg]]:
+        """Candidate regions for a batch of reads (mem_align1_core xN),
+        bit-identical to ``align1`` per read: the C++ session replays
+        chain2aln while each wave of speculative extensions runs as K1 on
+        resident inputs."""
         opt = self.opt
         qs = [encode_read(s) for s in seqs]
         nonempty = [q for q in qs if len(q)]
@@ -176,7 +167,6 @@ class TorchBatchAlignmentEngine(BatchAlignmentEngine):
             reads = resident.put_reads(qs, self.device).codes
             pac_words, l_pac = self._pac_resident()
             while sess.pending():
-                self._check_abort()
                 bonus = opt.pen_clip5 if sess.phase() == 0 else opt.pen_clip3
                 (rid, qstart, qdir, qlen, tstart, tdir, tlen, h0, w,
                  Lq, Lt) = sess.wave_descs()
@@ -195,26 +185,120 @@ class TorchBatchAlignmentEngine(BatchAlignmentEngine):
         finally:
             sess.close()
 
-    def _align_batch_python(self, seqs):
-        raise NotImplementedError(
-            "lariat_tpu_torch runs the native Align1Session only")
-
-    def _reg2aln_python(self, tasks):
-        raise NotImplementedError(
-            "lariat_tpu_torch runs the native Reg2AlnSession only")
-
     def local_align_device(self, tasks):
         """Mate-rescue local SW for a whole batch as one two-pass K3 wave;
         bit-identical to per-task ksw.local_align."""
-        self._check_abort()
         opt = self.opt
         t_dev = time.time()
-        out = tksw.local_align_batch(
+        out = ksw.local_align_batch(
             tasks, self.mat, opt.gap_open_del, opt.gap_extend_del,
             opt.gap_open_ins, opt.gap_extend_ins,
             opt.min_seed_len * opt.match_score, device=self.device)
         self._wave_done(time.time() - t_dev)
         return out
+
+    def prime_regions(self, recs, score_delta: int) -> List[tuple]:
+        """Candidate regions, mate rescue and the final global SW of many
+        read pairs, every DP on the device. Returns per pair
+        (regs1, regs2, True, sras1, sras2): workers then interpret and walk
+        without touching any DP."""
+        seqs = []
+        for rec in recs:
+            seqs.append(rec.read1)
+            seqs.append(rec.read2)
+        all_regs = self.align_batch(seqs)
+        per_pair = [(all_regs[2 * i] if len(rec.read1) else [],
+                     all_regs[2 * i + 1] if len(rec.read2) else [])
+                    for i, rec in enumerate(recs)]
+        pairs = [(encode_read(rec.read1), encode_read(rec.read2), r1, r2)
+                 for rec, (r1, r2) in zip(recs, per_pair)]
+        self.rescue_pairs_batch(pairs, score_delta,
+                                local_align_fn=self.local_align_device)
+        # final SW for every post-rescue candidate (the task list
+        # get_alignments would build: one per region, in reg order)
+        tasks = []
+        counts = []
+        for rec, (r1, r2) in zip(recs, per_pair):
+            for reg in r1:
+                tasks.append((rec.read1, reg))
+            for reg in r2:
+                tasks.append((rec.read2, reg))
+            counts.append((len(r1), len(r2)))
+        sras = self.reg2aln_batch(tasks) if tasks else []
+        out = []
+        off = 0
+        for (r1, r2), (n1, n2) in zip(per_pair, counts):
+            out.append((r1, r2, True, sras[off:off + n1],
+                        sras[off + n1:off + n1 + n2]))
+            off += n1 + n2
+        return out
+
+    # -------------------------------------------------- batched mem_reg2aln
+
+    def reg2aln_batch(self, tasks) -> List[SingleReadAlignment]:
+        """mem_reg2aln for many (read, region) tasks, bit-identical to
+        ``reg2aln`` per task: chunked sessions (native/align1.cpp r2s_*)
+        replay the w2 band ladder and the NM/clip finish while each wave
+        runs as K2 + K2b. Every live chunk's wave is dispatched before any
+        wave's results are downloaded."""
+        CH = self.R2ALN_CHUNK
+        states = [self._r2s_open(tasks[s:s + CH])
+                  for s in range(0, len(tasks), CH)]
+        try:
+            while True:
+                live = [st for st in states
+                        if st["sess"] is not None and st["sess"].pending()]
+                if not live:
+                    break
+                t_dev = time.time()
+                handles = [(st, self._r2s_dispatch(st)) for st in live]
+                for st, h in handles:
+                    self._r2s_feed(st, h)
+                self._wave_done(time.time() - t_dev, len(handles))
+        finally:
+            metas = []
+            for st in states:
+                sess = st["sess"]
+                if sess is not None:
+                    try:
+                        metas.append(sess.finish())
+                    finally:
+                        sess.close()
+                else:
+                    metas.append(None)
+        out_all: List[Optional[SingleReadAlignment]] = []
+        for st, mc in zip(states, metas):
+            if mc is not None:
+                self._r2s_fill(st, *mc)
+            out_all.extend(st["out"])
+        return out_all
+
+    def _r2s_open(self, tasks):
+        """One reg2aln session state dict (a finished one when no task
+        needs DP)."""
+        out: List[Optional[SingleReadAlignment]] = [None] * len(tasks)
+        reads = []
+        read_key: Dict[int, int] = {}
+        rows = []
+        live = []
+        for idx, (seq, reg) in enumerate(tasks):
+            if reg is None or reg.rb < 0 or reg.re < 0:
+                out[idx] = SingleReadAlignment()
+                continue
+            k = read_key.get(id(seq))
+            if k is None:
+                k = len(reads)
+                read_key[id(seq)] = k
+                reads.append(encode_read(seq))
+            rows.append((k, reg.qb, reg.qe, reg.rb, reg.re, reg.truesc,
+                         reg.w))
+            live.append(idx)
+        st = {"tasks": tasks, "out": out, "rows": rows, "live": live,
+              "sess": None, "reads": reads, "reads_res": None}
+        if rows:
+            st["sess"] = native_engine.Reg2AlnSession(
+                self.fm, self.opt, reads, rows)
+        return st
 
     def _r2s_dispatch(self, st):
         """Launch one reg2aln wave (K2 + K2b) for a session; returns the
@@ -252,3 +336,17 @@ class TorchBatchAlignmentEngine(BatchAlignmentEngine):
         cig_mat, nops = sw_global.cigars_from_ops_packed(packed, i_fin,
                                                          k_fin, S)
         st["sess"].feed(score, cig_mat, nops)
+
+    def _r2s_fill(self, st, meta, cig) -> None:
+        contigs = self.fm.contigs
+        tasks, out = st["tasks"], st["out"]
+        for idx, mrow in zip(st["live"], meta):
+            pos, rid, is_rev, nm, n_pairs, coff = (int(v) for v in mrow)
+            flatc = cig[2 * coff:2 * (coff + n_pairs)].tolist()
+            cigar = tuple(zip(flatc[0::2], flatc[1::2]))
+            reg = tasks[idx][1]
+            out[idx] = SingleReadAlignment(
+                pos=pos - contigs[rid].offset, rid=rid,
+                chrom=contigs[rid].name, reversed_=bool(is_rev),
+                edit_distance=nm, cigar=cigar, score=reg.score,
+                sub=max(reg.sub, reg.csub), read_s=reg.qb, read_e=reg.qe)

@@ -1,4 +1,5 @@
-"""Command-line entry point of the port, with lariat_tpu.cli's flags.
+"""Command-line entry point of the port, with lariat_tpu.cli's flags
+(lariat/main.go:9-48; single- and double-dash).
 
 Usage: python -m lariat_tpu_torch.cli -reads in.fastq.gz -genome ref.fa
        -output dir -threads 8 -use_device on
@@ -15,6 +16,7 @@ host-native workers alone.
 
 from __future__ import annotations
 
+import argparse
 import itertools
 import json
 import os
@@ -23,19 +25,87 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
-from lariat_tpu.align.engine import AlignmentEngine
-from lariat_tpu.cli import _prime_group, build_parser, load_reference
-from lariat_tpu.config import RFAConfig
-from lariat_tpu.index import fmindex
-from lariat_tpu.io.bamwriter import LariatBAMs
-from lariat_tpu.io.fastq import FastQReader
-from lariat_tpu.parallel.host_pipeline import ParallelRunner, write_packed
-from lariat_tpu.rfa.pipeline import (RFAStats, load_centromeres,
-                                     process_barcode, worth_running_rfa)
-
 from . import __version__
+from .align.engine import AlignmentEngine
+from .config import RFAConfig
 from .device import describe
+from .index import fmindex
+from .io.bamwriter import LariatBAMs
+from .io.fastq import FastQReader
 from .ops import _build
+from .parallel.host_pipeline import ParallelRunner, write_packed
+from .rfa.pipeline import (RFAStats, load_centromeres, process_barcode,
+                           worth_running_rfa)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="lariat_tpu_torch", allow_abbrev=False)
+    a = p.add_argument
+    a("-reads", "--reads", required=True,
+      help="fastq.gz input file containing reads")
+    a("-improper_pair_penalty", "--improper_pair_penalty", type=float,
+      default=-4.0, help="penalty for improper pair")
+    a("-simulated", "--simulated", action="store_true", help="simulated data?")
+    a("-output", "--output", required=True,
+      help="directory at which to output bam files")
+    a("-read_groups", "--read_groups",
+      default="sample:library:gem_group:flowcell:lane",
+      help="comma-separated list of read group IDs")
+    a("-sample_id", "--sample_id", default="default_sample_id")
+    a("-threads", "--threads", type=int, default=8)
+    a("-max_bcs", "--max_bcs", type=int, default=-1,
+      help="maximum number of barcodes to process")
+    a("-debug", "--debug", action="store_true")
+    a("-position_chunk_size", "--position_chunk_size", type=int,
+      default=40000000)
+    a("-debugBamTags", "--debugBamTags", action="store_true")
+    a("-debugPrintMove", "--debugPrintMove", action="store_true")
+    a("-genome", "--genome", required=True, help="genome FASTA path")
+    a("-centromeres", "--centromeres", default="")
+    a("-trim_length", "--trim_length", type=int, default=0)
+    a("-first_chunk", "--first_chunk", action="store_true")
+    a("-index", "--index", default="",
+      help="optional prebuilt index prefix (.lariat.npz or bwa-format)")
+    a("-profile", "--profile", default="",
+      help="print per-stage wall times (single-process mode)")
+    a("-use_device", "--use_device", choices=["auto", "on", "off"],
+      default="auto",
+      help="prime candidate-generation DP (seed-extend, mate rescue, "
+           "final global SW) on the GPU (auto and on alike; the CPU only "
+           "with LARIAT_TORCH_DEVICE=cpu); off runs host-native workers")
+    return p
+
+
+def _prime_group(device_engine, buf, config):
+    """Run one device priming pass over a group of barcodes; attach the
+    per-pair candidate regions to each work item."""
+    all_reads = [rec for reads, _ in buf for rec in reads]
+    primes = device_engine.prime_regions(all_reads,
+                                         config.chain_score_delta)
+    off = 0
+    out = []
+    for reads, unique in buf:
+        out.append((reads, unique, primes[off:off + len(reads)]))
+        off += len(reads)
+    return out
+
+
+def load_reference(genome: str, index_prefix: str = ""):
+    """Load or build the genome index: prefers our .lariat.d / .lariat.npz,
+    then a bwa-format index next to the FASTA, then builds from scratch."""
+    prefix = index_prefix or genome
+    if os.path.isdir(prefix + ".lariat.d"):
+        return fmindex.FMIndex.load_dir(prefix)
+    if os.path.exists(prefix + ".lariat.npz"):
+        return fmindex.FMIndex.load(prefix)
+    if os.path.exists(prefix + ".bwt"):
+        return fmindex.load_bwa_index(prefix)
+    fm = fmindex.build_index(genome)
+    try:
+        fm.save(genome)
+    except OSError:
+        pass
+    return fm
 
 
 def main(argv=None) -> int:
@@ -106,7 +176,7 @@ def run(argv=None):
     args = build_parser().parse_args(argv)
     if args.debugPrintMove or args.debug:
         # set before workers fork so every process inherits the switches
-        from lariat_tpu.rfa import debug as rfa_debug
+        from .rfa import debug as rfa_debug
         rfa_debug.PRINT_MOVE = rfa_debug.PRINT_MOVE or args.debugPrintMove
         rfa_debug.DEBUG = rfa_debug.DEBUG or args.debug
     print(f"Starting lariat_tpu_torch. Version: {__version__}")

@@ -14,9 +14,8 @@
 // consumes.
 //
 // Bound on the H100: a dependent chain of single-byte loads (latency); z is
-// task-minor ((Lt, Lq, B)) so neighbouring tasks at one cell share a
-// segment. Later work: fuse into K2 so z stays on chip, or emit run-length
-// CIGARs on the device.
+// K2's task-major (B, Lt, Lq). Later work: fuse into K2 so z stays on chip,
+// or emit run-length CIGARs on the device.
 
 #include <cstdint>
 
@@ -47,7 +46,7 @@ __global__ void traceback_kernel(
   uint32_t acc = 0;
   for (; s < S && i >= 0 && k >= 0; ++s) {
     const int ri = min(i, Lt - 1), ck = min(k, Lq - 1);
-    const int d = z[((size_t)ri * Lq + ck) * B + b];
+    const int d = z[((size_t)b * Lt + ri) * Lq + ck];
     const int wn = (d >> (which << 1)) & 3;
     const int op = wn == 0 ? 0 : (wn == 1 ? 2 : 1);
     i -= wn == 2 ? 0 : 1;  // an insertion consumes no target row
@@ -71,7 +70,7 @@ __global__ void traceback_kernel(
 
 }  // namespace
 
-// z (Lt, Lq, B) uint8 direction bytes from K2; qlen/tlen/w/score (B,)
+// z (B, Lt, Lq) uint8 direction bytes from K2; qlen/tlen/w/score (B,)
 // int32; blob (B, S/4 + 12) uint8. Needs S % 4 == 0 and S >= Lt + Lq.
 extern "C" int lariat_traceback(const uint8_t* z, const int32_t* qlen,
                                 const int32_t* tlen, const int32_t* w,

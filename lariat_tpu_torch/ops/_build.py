@@ -35,9 +35,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # kernel name -> (C entry, argtypes; every entry ends with the stream)
 KERNELS = {
     "sw_extend": ("lariat_sw_extend", [_P] * 6 + [_I] * 12 + [_P] * 4),
-    "sw_global": ("lariat_sw_global", [_P] * 5 + [_I] * 10 + [_P] * 5),
+    "sw_global": ("lariat_sw_global", [_P] * 5 + [_I] * 10 + [_P] * 4),
     "traceback": ("lariat_traceback", [_P] * 5 + [_I] * 4 + [_P] * 2),
-    "sw_local": ("lariat_sw_local", [_P] * 5 + [_I] * 10 + [_P] * 5),
+    "sw_local": ("lariat_sw_local", [_P] * 5 + [_I] * 10 + [_P] * 3),
     "extend_ablate": ("lariat_extend_ablate",
                       [_P] * 3 + [_I] * 14 + [_P] * 4),
     "smem_twoptr": ("lariat_smem_twoptr",
@@ -158,6 +158,9 @@ def device_attributes(index: int) -> Dict[str, int]:
 
 
 CODE_DTYPES = (torch.uint8, torch.int32, torch.int64)
+# query columns one warp of K2 or K3 covers at once (32 lanes x 6); past
+# it they run in tiles, with a row-boundary scratch
+TILE_COLS = 192
 
 
 def on_cuda(first: torch.Tensor) -> bool:
@@ -185,6 +188,14 @@ def check(name: str, t, device: torch.device, shape,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_byte_scores(**scores) -> None:
+    """Raise unless every substitution score fits a signed byte: K2 and K3
+    keep a query column's scores as four packed bytes."""
+    bad = {k: v for k, v in scores.items() if not -128 <= int(v) <= 127}
+    if bad:
+        raise ValueError(f"substitution scores outside [-128, 127]: {bad}")
 
 
 def launch(name: str, *args) -> None:

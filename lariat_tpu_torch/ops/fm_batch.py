@@ -24,7 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from lariat_tpu.index.fmindex import OCC_INTERVAL
+from ..index.fmindex import OCC_INTERVAL
 
 WORDS_PER_BLOCK = OCC_INTERVAL // 16  # 8
 _M32 = 0xFFFFFFFF

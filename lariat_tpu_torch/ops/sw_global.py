@@ -12,7 +12,7 @@ there (that module imports jax).
 z is the (B, Lt, Lq) uint8 direction matrix at absolute query columns:
 bits 0-1 pick H's source (0 diagonal, 1 E, 2 F), bit 2 marks E extended,
 bit 5 F extended. Only rows below tlen are filled, in band; all else is 0.
-The kernel stores z task-minor and returns it as a (B, Lt, Lq) view.
+The kernel writes every byte of z, task-major.
 """
 
 from __future__ import annotations
@@ -119,16 +119,19 @@ def global_batch(query: torch.Tensor, qlen: torch.Tensor,
     _build.check("target", target, dev, (B, Lt), _build.CODE_DTYPES)
     for name, v in (("qlen", qlen), ("tlen", tlen), ("w", w)):
         _build.check(name, v, dev, (B,))
-    qT = query.to(torch.uint8).t().contiguous()
-    tT = target.to(torch.uint8).t().contiguous()
-    eh_h = torch.empty((Lq + 1, B), dtype=torch.int32, device=dev)
-    eh_e = torch.empty((Lq + 1, B), dtype=torch.int32, device=dev)
+    _build.check_byte_scores(match_sc=match_sc, mismatch_sc=mismatch_sc,
+                             n_sc=n_sc)
+    q8 = query.to(torch.uint8).contiguous()
+    t8 = target.to(torch.uint8).contiguous()
+    # row boundaries between column tiles, used only past one tile
+    bnd = torch.empty((B, Lt, 2) if Lq > _build.TILE_COLS else (1, 2),
+                      dtype=torch.int32, device=dev)
     score = torch.empty((B,), dtype=torch.int32, device=dev)
-    z_t = torch.zeros((Lt, Lq, B), dtype=torch.uint8, device=dev)
-    _build.launch("sw_global", qT, tT, qlen, tlen, w, B, Lq, Lt, o_del,
-                  e_del, o_ins, e_ins, match_sc, mismatch_sc, n_sc, eh_h,
-                  eh_e, score, z_t)
-    return score, z_t.permute(2, 0, 1)
+    z = torch.empty((B, Lt, Lq), dtype=torch.uint8, device=dev)
+    _build.launch("sw_global", q8, t8, qlen, tlen, w, B, Lq, Lt, o_del,
+                  e_del, o_ins, e_ins, match_sc, mismatch_sc, n_sc, bnd,
+                  score, z)
+    return score, z
 
 
 def _i32_bytes(x: torch.Tensor) -> torch.Tensor:
@@ -172,16 +175,17 @@ def traceback_ops_fused(z: torch.Tensor, qlen: torch.Tensor,
                         score: torch.Tensor, S: int) -> torch.Tensor:
     """K2b: backtrack every task of a K2 wave -> (B, S//4 + 12) uint8 blob
     (``split_traceback_blob`` unpacks it). Needs S % 4 == 0 and
-    S >= Lt + Lq. On the card z must be the view ``global_batch`` returns."""
+    S >= Lt + Lq. On the card z must be contiguous, as ``global_batch``
+    returns it."""
     if not _build.on_cuda(z):
         return traceback_ops_fused_plain(z, qlen, tlen, w, score, S)
     dev = z.device
     B, Lt, Lq = z.shape
     if S % 4 or S < Lt + Lq:
         raise ValueError(f"S={S}: need S % 4 == 0 and S >= Lt + Lq")
-    if z.dtype != torch.uint8 or not z.permute(1, 2, 0).is_contiguous():
-        raise ValueError("z must be the uint8 (B, Lt, Lq) view of a "
-                         "task-minor (Lt, Lq, B) buffer (global_batch's)")
+    if z.dtype != torch.uint8 or not z.is_contiguous():
+        raise ValueError("z must be a contiguous uint8 (B, Lt, Lq) tensor "
+                         "(global_batch's)")
     for name, v in (("qlen", qlen), ("tlen", tlen), ("w", w),
                     ("score", score)):
         _build.check(name, v, dev, (B,))
@@ -206,7 +210,7 @@ def cigars_from_ops_raw(ops: np.ndarray, i_fin: np.ndarray,
     ((B, 2*cap) int32 op/len pairs, nops), the layout Reg2AlnSession.feed
     consumes. None when the native helper is unavailable."""
     B, S = ops.shape
-    from lariat_tpu.index.suffix import _load_native
+    from ..index.suffix import _load_native
     lib = _load_native()
     if lib is None or not hasattr(lib, "ksw_cigar_from_ops_batch"):
         return None
@@ -230,7 +234,7 @@ def cigars_from_ops_packed(packed: np.ndarray, i_fin: np.ndarray,
     """Native RLE finish of the bit-packed (B, S//4) op stream. None
     without the native library."""
     B = packed.shape[0]
-    from lariat_tpu.index.suffix import _load_native
+    from ..index.suffix import _load_native
     lib = _load_native()
     if lib is None or not hasattr(lib, "ksw_cigar_from_ops_packed_batch"):
         return None

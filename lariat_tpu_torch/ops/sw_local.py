@@ -118,15 +118,16 @@ def local_batch(query: torch.Tensor, qlen: torch.Tensor,
     _build.check("target", target, dev, (B, Lt), _build.CODE_DTYPES)
     for name, v in (("qlen", qlen), ("tlen", tlen), ("minsc", minsc)):
         _build.check(name, v, dev, (B,))
-    qT = query.to(torch.uint8).t().contiguous()
-    tT = target.to(torch.uint8).t().contiguous()
-    H = torch.empty((Lq, B), dtype=torch.int32, device=dev)
-    E = torch.empty((Lq, B), dtype=torch.int32, device=dev)
-    cm = torch.empty((Lt, B), dtype=torch.int32, device=dev)
+    _build.check_byte_scores(match_sc=match_sc, mismatch_sc=mismatch_sc,
+                             n_sc=n_sc)
+    q8 = query.to(torch.uint8).contiguous()
+    t8 = target.to(torch.uint8).contiguous()
+    # row boundaries between column tiles, used only past one tile
+    bnd = torch.empty((B, Lt, 4) if Lq > _build.TILE_COLS else (1, 4),
+                      dtype=torch.int32, device=dev)
     out = torch.empty((8, B), dtype=torch.int32, device=dev)
-    _build.launch("sw_local", qT, tT, qlen, tlen, minsc, B, Lq, Lt, o_del,
-                  e_del, o_ins, e_ins, match_sc, mismatch_sc, n_sc, H, E, cm,
-                  out)
+    _build.launch("sw_local", q8, t8, qlen, tlen, minsc, B, Lq, Lt, o_del,
+                  e_del, o_ins, e_ins, match_sc, mismatch_sc, n_sc, bnd, out)
     return out
 
 

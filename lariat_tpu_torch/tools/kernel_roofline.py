@@ -17,19 +17,29 @@ device_attributes``), not from constants:
     integer add/max/compare/select work with no tensor-core shape.
   - memory peak = 2 (double data rate) x memory clock x bus width / 8.
 
-Work is counted in the cells each kernel visits, not in padded cells: one
-thread per task walks only its band (K1, K2) or its qlen x tlen box (K3),
-so padded cells overstate the work by up to 6x. ``ops_per_cell`` is the
-int32 operations of each inner loop, read from the CUDA source (loads,
-stores, address arithmetic and the loop test not counted):
-  K1 csrc/sw_extend.cu:88-107  21 = substitution score 5 (three compares,
-     two selects), M 3, H 2 max, row argmax 3, E 4, F 4;
-  K2 csrc/sw_global.cu:64-81   22 = substitution 5, M 1, H and its
-     direction 6, E with its bit 5, F with its bit 5;
-  K3 csrc/sw_local.cu:54-68    20 = substitution 5, M 1, H 3 max, F 4,
-     E 4, column argmax 3.
+Work is counted in the cells each recurrence needs, not in the cells a
+kernel's schedule runs through: the band (K1, K2) or the qlen x tlen box
+(K3). ``OPS_PER_CELL`` is the fewest int32 instructions a cell of each
+recurrence needs on sm_90, one DPX instruction counting as one (loads,
+stores, address arithmetic and loop control not counted), so the bound
+reads the same work whatever kernel implements it:
+  K3 local (native/ksw.cpp local_core)   9 = substitution score 1 (one
+     PRMT from the column's profile), M 1, H = max(M, E, F, 0) 1
+     (VIMNMX3 relu), E 2 and F 2 (the open term, then VIADDMNMX relu),
+     the row's first argmax 2 (VIMNMX with its predicate, a select);
+  K2 global (ksw_global_one)             15 = substitution 1, M 1, H with
+     its direction 2 (two VIMNMX with predicates), E with its bit 3 (open
+     term, extend term, VIMNMX), F with its bit 3, the direction byte
+     from the four predicates 5 (two selects for H's source, two for the
+     E and F bits, one OR);
+  K1 extend (ksw_extend_one)             11 = substitution 1, M with the
+     M == 0 quirk 3 (add, compare, select), H 1 (VIMNMX3), E 2, F 2, the
+     row's argmax 2.
+(PR 2 counted the one-thread kernels' own instructions, 21, 22 and 20; a
+kernel with DPX could then read past 100% of its bound.)
 K2b is a walk of dependent one-byte loads: its share is of the memory
-peak, counting one 32-byte sector per step.
+peak, counting one 32-byte sector per step. K2 writes all of z, so it
+also reports its share of the memory peak.
 
 Inputs: K2 and K3 take the JAX tool's random codes and lengths. K1 does
 not: with random codes nearly every lane dies under the z-drop test within
@@ -64,17 +74,16 @@ from typing import Dict
 import numpy as np
 import torch
 
-from lariat_tpu.config import AlignerConfig
-from lariat_tpu.index import fmindex
-
+from ..config import AlignerConfig
 from ..device import get_device
+from ..index import fmindex
 from ..ops import (_build, fm_batch, smem_device, sw_extend, sw_global,
                    sw_local)
 from ..parallel.align_step import DeviceGenome
 from . import card, median_ms
 
 INT32_LANES_PER_SM_CLOCK = 64
-OPS_PER_CELL = {"extend": 21, "global": 22, "local": 20}
+OPS_PER_CELL = {"extend": 11, "global": 15, "local": 9}
 SECTOR_BYTES = 32
 SCORING = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, match_sc=1,
                mismatch_sc=-4, n_sc=-1)
@@ -96,6 +105,11 @@ def band_cells(qlen: int, tlen: int, w: int) -> int:
     visits."""
     return sum(max(0, min(i + w + 1, qlen) - max(i - w, 0))
                for i in range(tlen))
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors' elements."""
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def share(cells: float, ops: float, ms: float, peak: float) -> float:
@@ -178,6 +192,9 @@ def measure(dev: torch.device, iters: int = 7) -> dict:
         "ops_per_cell": OPS_PER_CELL["global"],
         "int32_sol_pct": share(cells, OPS_PER_CELL["global"], dp_ms,
                                int_peak),
+        # z is written whole: its bytes bound the DP
+        "mem_sol_pct": share(nbytes(gq, gt, gql, gtl, gw, score, z), 1,
+                             dp_ms, mem_peak),
         "traceback_steps": steps,
         "traceback_mem_sol_pct": share(steps, SECTOR_BYTES, tb_ms, mem_peak),
         "dl_bytes_per_wave": B * (S // 4 + 12)}

@@ -38,14 +38,13 @@ import time
 
 import torch
 
-from lariat_tpu.align.engine import encode_read
-from lariat_tpu.cli import load_reference
-from lariat_tpu.config import RFAConfig
-from lariat_tpu.index import native_ops
-from lariat_tpu.io.fastq import FastQReader
-
 from ..align.batch_engine import TorchBatchAlignmentEngine
+from ..align.engine import encode_read
+from ..cli import load_reference
+from ..config import RFAConfig
 from ..device import describe, get_device
+from ..index import native_ops
+from ..io.fastq import FastQReader
 from ..ops import _build
 from . import card, device_name
 

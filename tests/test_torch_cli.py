@@ -1,7 +1,9 @@
 """The port's CLI end to end on the explicit CPU device against host-native
-lariat_tpu (BAM records equal), the port's freedom from JAX, and its
-refusal to run without CUDA unless the CPU was asked for."""
+lariat_tpu (BAM records equal), the port's freedom from JAX and from the
+JAX package, and its refusal to run without CUDA unless the CPU was asked
+for."""
 
+import ast
 import glob
 import gzip
 import os
@@ -92,7 +94,8 @@ def test_port_cli_cpu_matches_host_native(tmp_path):
 
 def test_port_imports_no_jax(tmp_path):
     """The package, its engine, its CLI and its tools import and prime
-    without JAX, with host seeding and with device seeding."""
+    without JAX and without any module of the JAX package, with host
+    seeding and with device seeding."""
     fasta, _ = _inputs(tmp_path)
     code = textwrap.dedent(f"""
         import sys
@@ -102,8 +105,8 @@ def test_port_imports_no_jax(tmp_path):
         import lariat_tpu_torch.tools.prime_profile
         from lariat_tpu_torch.align.batch_engine import \\
             TorchBatchAlignmentEngine
-        from lariat_tpu.cli import load_reference
-        from lariat_tpu.io.fastq import FastQRecord
+        from lariat_tpu_torch.cli import load_reference
+        from lariat_tpu_torch.io.fastq import FastQRecord
         fm = load_reference({str(fasta)!r})
         g = fm.fetch_fmd(1000, 1400).tobytes().translate(
             bytes.maketrans(bytes([0, 1, 2, 3]), b"ACGT"))
@@ -124,14 +127,72 @@ def test_port_imports_no_jax(tmp_path):
         eng = TorchBatchAlignmentEngine(fm, device="cpu")
         assert eng.prime_regions([rec], 30) == [p]
         assert eng._seed_state is not None
-        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-               or m.startswith("lariat_tpu.ops")]
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "lariat_tpu")]
         assert not bad, bad
         print("ok")
         """)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=REPO, env=_env(), timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+
+
+def _imported_modules(path):
+    """Every module name an import statement of ``path`` names (relative
+    imports excluded)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.module
+
+
+def test_port_sources_import_no_jax_package():
+    """No module of lariat_tpu_torch, and not chip_smoke.py, has an import
+    of lariat_tpu or jax, at top level or inside a function (chip_smoke
+    runs the reference CLI only as a subprocess)."""
+    paths = glob.glob(os.path.join(REPO, "lariat_tpu_torch", "**", "*.py"),
+                      recursive=True)
+    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(paths) > 40
+    bad = [(os.path.relpath(p, REPO), m) for p in paths
+           for m in _imported_modules(p)
+           if m.split(".")[0] in ("lariat_tpu", "jax")]
+    assert not bad, bad
+
+
+def test_port_cli_cpu_loads_no_jax_package(tmp_path):
+    """A whole CPU run of the port's CLI, workers included, with stand-ins
+    for jax and lariat_tpu that fail on import ahead of the real ones on
+    the path: it completes and its process ends with neither loaded."""
+    fasta, fq = _inputs(tmp_path)
+    fake = tmp_path / "fake"
+    for name in ("jax", "lariat_tpu"):
+        (fake / name).mkdir(parents=True)
+        (fake / name / "__init__.py").write_text(
+            f"raise ImportError('the port imported {name}')\n")
+    code = textwrap.dedent(f"""
+        import sys
+        from lariat_tpu_torch import cli
+        rc = cli.main(["-reads", {str(fq)!r}, "-genome", {str(fasta)!r},
+                       "-output", {str(tmp_path / "o")!r}, "-threads", "2",
+                       "-use_device", "on", "-first_chunk"])
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "lariat_tpu")]
+        assert rc == 0 and not bad, (rc, bad)
+        print("ok")
+        """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=tmp_path,
+                       env=_env(LARIAT_TORCH_DEVICE="cpu",
+                                PYTHONPATH=f"{fake}{os.pathsep}{REPO}"),
+                       timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith("ok"), r.stdout[-2000:]
+    assert "primed pairs 35  host pairs 0" in r.stdout
+    assert glob.glob(str(tmp_path / "o" / "*.bam"))
 
 
 class _FakeEngine:

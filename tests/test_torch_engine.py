@@ -47,14 +47,16 @@ def _recs(genome):
     return recs
 
 
+def _rows(objs):
+    """Dataclass instances -> plain tuples: the port's AlnReg and
+    SingleReadAlignment are copies, not the JAX package's classes."""
+    return [dataclasses.astuple(o) for o in objs]
+
+
 def _flat(primes):
     """5-tuples -> comparable plain values, field by field."""
-    out = []
-    for regs1, regs2, flag, sras1, sras2 in primes:
-        out.append(([dataclasses.astuple(r) for r in regs1],
-                    [dataclasses.astuple(r) for r in regs2], flag,
-                    list(sras1), list(sras2)))
-    return out
+    return [(_rows(regs1), _rows(regs2), flag, _rows(sras1), _rows(sras2))
+            for regs1, regs2, flag, sras1, sras2 in primes]
 
 
 def _pallas_interpret(monkeypatch):
@@ -140,7 +142,8 @@ def test_device_seeding_matches_host_and_jax(dup_genome, monkeypatch):  # noqa: 
     assert port.wave_stats["n"] > waves
     assert got == want
     jax_eng = BatchAlignmentEngine(fm, use_pallas=False)
-    assert jax_eng.align_batch(seqs) == want
+    assert [_rows(r) for r in jax_eng.align_batch(seqs)] == \
+        [_rows(r) for r in want]
 
 
 def test_device_seeding_policy(dup_genome, monkeypatch):  # noqa: F811
@@ -188,7 +191,7 @@ def test_forced_device_seeding_raises(dup_genome, monkeypatch):  # noqa: F811
 
 
 def test_missing_native_sessions_raise(dup_genome, monkeypatch):  # noqa: F811
-    from lariat_tpu.align import native_engine
+    from lariat_tpu_torch.align import native_engine
     fm, _ = dup_genome
     monkeypatch.setattr(native_engine.Reg2AlnSession, "available",
                         staticmethod(lambda: False))

@@ -133,3 +133,25 @@ def test_global_and_traceback_kernels_match_twins(cuda_device):  # noqa: F811
     np.testing.assert_array_equal(gs.cpu().numpy(), ws.numpy())
     np.testing.assert_array_equal(gz.cpu().numpy(), wz.numpy())
     np.testing.assert_array_equal(gblob.cpu().numpy(), wblob.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lt", [(192, 80), (48, 64), (448, 300)])
+def test_global_kernel_edge_shapes(cuda_device, Lq, Lt):  # noqa: F811
+    """The wavefront's edge lanes (qlen 0, tlen 0, w 0, w >= qlen, rows
+    past qlen + w, tlen < 32) and its tiled path (Lq 448); K2b on the
+    kernel's z."""
+    from test_torch_wavefront import _global_case
+    cpu = [torch.from_numpy(a) for a in _global_case(Lq + Lt, Lq, Lt)]
+    q, qlen, t, tlen, w = cpu
+    ws, wz = sw_global.global_batch_plain(*cpu)
+    gs, gz = sw_global.global_batch(*(x.to(cuda_device) for x in cpu))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(gs.cpu().numpy(), ws.numpy())
+    np.testing.assert_array_equal(gz.cpu().numpy(), wz.numpy())
+    S = -(-(Lq + Lt) // 4) * 4
+    want = sw_global.traceback_ops_fused_plain(wz, qlen, tlen, w, ws, S)
+    got = sw_global.traceback_ops_fused(
+        gz, *(x.to(cuda_device) for x in (qlen, tlen, w)), gs, S)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

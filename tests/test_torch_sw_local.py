@@ -3,6 +3,8 @@ wrapper and local_align_batch against lariat_tpu's local_two_pass_pallas
 (interpret mode), ksw.local_align per task, and ksw.local_align_batch's XLA
 backend. Exact: tolerance 0."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -66,15 +68,31 @@ def test_local_align_batch_matches_reference():
     got = tksw.local_align_batch(tasks, MAT, 6, 1, 6, 1, 19, device="cpu")
     from lariat_tpu.align.ksw import local_align_batch
     want = local_align_batch(tasks, MAT, 6, 1, 6, 1, 19, backend="xla")
-    assert got == want
+    # the port's LocalResult is its own copy of the class: compare fields
+    got = [dataclasses.astuple(g) for g in got]
+    assert got == [dataclasses.astuple(w) for w in want]
     for (qi, ti), g in zip(tasks, got):
-        assert g == ksw.local_align(qi, ti, MAT, 6, 1, 6, 1, 19)
+        assert g == dataclasses.astuple(
+            ksw.local_align(qi, ti, MAT, 6, 1, 6, 1, 19))
 
 
 @pytest.mark.cuda
 def test_local_kernel_matches_twin(cuda_device):  # noqa: F811
     _, q, qlen, t, tlen, minsc = _batch(9, n=240, qmax=192, tmax=704)
     cpu = _t(q, qlen, t, tlen, minsc)
+    want = sw_local.local_two_pass(*cpu)
+    got = sw_local.local_two_pass(*(x.to(cuda_device) for x in cpu))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lt", [(192, 90), (64, 40), (448, 200)])
+def test_local_kernel_edge_shapes(cuda_device, Lq, Lt):  # noqa: F811
+    """The wavefront's edge lanes (qlen 0, tlen 0, tlen < 32, qlen not a
+    multiple of 6, minsc 0, N codes) and its tiled path (Lq 448)."""
+    from test_torch_wavefront import _local_case
+    cpu = [torch.from_numpy(a) for a in _local_case(Lq + Lt, Lq, Lt, 6)]
     want = sw_local.local_two_pass(*cpu)
     got = sw_local.local_two_pass(*(x.to(cuda_device) for x in cpu))
     torch.cuda.synchronize()
