@@ -15,10 +15,12 @@ Phases (one line each with its seconds, failures end the run nonzero):
      T1's plain times median of 3) and the kernel's bound (the larger of
      its operations over the int32 peak and its bytes over the memory
      peak, both from the card's attributes; tools/kernel_roofline.py):
-     K1-K3, K3 and K2 (with K2b on its z) again on their edge shapes (the
-     tiled path past 192 query columns, qlen 0, tlen 0, tlen < 32, qlen
-     not a multiple of 6, N codes, minsc 0; w 0, w >= qlen, rows past
-     qlen + w), and T1 in all six variants at 8192 x 192 x 576 on planted
+     K1-K3 (K1's rows run, warp steps and band cells printed), K1, K3 and
+     K2 (with K2b on its z) again on their edge shapes (the tiled path
+     past 256 or 192 query columns, qlen 0, tlen 0, tlen < 32, qlen not a
+     multiple of C, N codes, minsc 0; w 0, w >= qlen, rows past qlen + w;
+     K1 also at zdrop 5, 0 and -1, z-drops at rows 0-3, h0 <= o_ins +
+     e_ins), and T1 in all six variants at 8192 x 192 x 576 on planted
      inputs and on the ablation tool's random ones;
   4. data: a chr20-scale synthetic genome (tools/synth_genome.py --scale
      0.0208 --seed 7, ~64 Mbp), 10,000 read pairs of 151 bp
@@ -26,9 +28,12 @@ Phases (one line each with its seconds, failures end the run nonzero):
   5. seeding kernels: K4a-K4c and K5 on that index (fused occ table about
      1.0 M rows x 48 B) and 4,096 reads of the FASTQ against their twins,
      exact, with kernel and plain times (CUDA events, median of 7; the
-     twins' median of 3): K4a at round 1's phase-A budget (and round 2,
-     checked), K4b over every (read, e) lane, K4c, K5 on 65,536 rows; then
-     the device collect (collect_seeds_rbegs_device) on 250 reads of the
+     twins' median of 3): K4a at round 1's phase-A budget, at phase B's
+     budget and at round 2, each in int32 and int64 indices, with its
+     lanes' transition counts; K4b over every (read, e) lane, K4c, K5 on
+     65,536 rows; K1's descriptor entry on a wave of 8,192 extensions of
+     reads from that genome, against build_qt plus the twin; then the
+     device collect (collect_seeds_rbegs_device) on 250 reads of the
      FASTQ and six low-complexity ones, which blow K4a's step cap, so it
      runs K4b: seeds and rbegs equal to the native C++ seeder's;
   6. host-native lariat_tpu (-use_device off -threads 8), a subprocess;
@@ -201,13 +206,22 @@ def _bound(pk, ops, nbytes):
 
 
 def _band_cells(qlen, rows, w) -> int:
-    """Cells of banded DPs: task b over its rows 0..rows[b]-1, band
-    [max(i - w, 0), min(i + w + 1, qlen))."""
-    import numpy as np
-    qlen, rows, w = (np.asarray(a, np.int64)[:, None] for a in (qlen, rows, w))
-    i = np.arange(max(int(rows.max(initial=0)), 1))[None, :]
-    n = np.clip(np.minimum(i + w + 1, qlen) - np.maximum(i - w, 0), 0, None)
-    return int(np.where(i < rows, n, 0).sum())
+    from lariat_tpu_torch.tools.kernel_roofline import band_cells_batch
+    return band_cells_batch(qlen, rows, w)
+
+
+def _k1_steps(run, want, B) -> int:
+    """The warp steps K1 ran over a batch, summed over its tasks: ``run``
+    is a K1 entry given a (B,) int32 ``steps`` output, which the kernel
+    fills; its result must equal ``want``."""
+    import torch
+    st = torch.full((B,), -1, dtype=torch.int32, device="cuda")
+    got = run(st)
+    torch.cuda.synchronize()
+    if _max_abs_err(got, want) or int(st.min()) < 0:
+        raise AssertionError("K1 with its step count differs or left a "
+                             "task uncounted")
+    return int(st.long().sum())
 
 
 def _nbytes(*tensors) -> int:
@@ -229,24 +243,6 @@ def _max_abs_err(got, want) -> int:
     return int((got.to("cpu").long() - want.to("cpu").long()).abs().max())
 
 
-def _planted(rng, qlen, tlen, Lq, Lt, n_frac=0.01):
-    """Random queries planted in random targets (2% substitutions, 1% N
-    codes) for the given lengths, as numpy arrays (q, t)."""
-    import numpy as np
-    B = len(qlen)
-    q = rng.integers(0, 4, (B, Lq)).astype(np.uint8)
-    t = rng.integers(0, 4, (B, Lt)).astype(np.uint8)
-    for b in range(B):
-        n = int(min(qlen[b], tlen[b]))
-        off = int(rng.integers(0, max(1, int(tlen[b]) - n + 1)))
-        t[b, off:off + n] = q[b, :n]
-    mut = rng.random((B, Lt)) < 0.02
-    t[mut] = (t[mut] + 1) % 4
-    q[rng.random((B, Lq)) < n_frac] = 4
-    t[rng.random((B, Lt)) < n_frac] = 4
-    return q, t
-
-
 def phase_kernels(pk, seed=1):
     """K1-K3 and K2b at main-path shapes, K2/K2b/K3 on their edge shapes,
     and T1; returns name -> (max abs err, kernel ms, plain ms, shape,
@@ -255,6 +251,7 @@ def phase_kernels(pk, seed=1):
     import torch
     from lariat_tpu_torch.ops import sw_batch, sw_extend, sw_global, sw_local
     from lariat_tpu_torch.tools.kernel_roofline import OPS_PER_CELL as OPS
+    from lariat_tpu_torch.tools.kernel_turns import k1_inputs, planted
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     D = dict(o_del=6, e_del=1, o_ins=6, e_ins=1)
@@ -266,13 +263,8 @@ def phase_kernels(pk, seed=1):
                 for a in arrays]
 
     # K1 at the production extend tier 8192 x 192 x 576
-    B, Lq, Lt = 8192, 192, 576
-    qlen = rng.integers(0, 152, B).astype(np.int32)
-    tlen = np.minimum(qlen + rng.integers(0, 300, B), Lt).astype(np.int32)
-    qlen[:64], tlen[64:128] = 0, 0
-    q, t = _planted(rng, qlen, tlen, Lq, Lt)
-    w = np.full(B, 100, np.int32)
-    h0 = rng.integers(19, 152, B).astype(np.int32)
+    q, qlen, t, tlen, w, h0 = k1_inputs(rng)
+    B, Lq, Lt = q.shape[0], q.shape[1], t.shape[1]
     qd, qld, td, tld, wd, h0d = cuda(q, qlen, t, tlen, w, h0)
     mat = sw_extend.score_matrix(1, -4, -1, dev)
     ext = dict(D, end_bonus=5, zdrop=100)
@@ -290,22 +282,30 @@ def phase_kernels(pk, seed=1):
     if err or int(got[6:].abs().max()):
         raise AssertionError(f"K1 sw_extend differs from its plain version "
                              f"(max abs err {err})")
-    # operations: the band cells of the rows each lane surely visited (up
-    # to its best row, tle, and its best to-the-end row, gtle), at the band
-    # ksw_extend2 narrows w to; later rows, cut by z-drop, are not counted
-    o = got.cpu().numpy()
+    # operations: the band cells of the rows each task ran (the twin's
+    # count, its stopping row included), at the band ksw_extend2 narrows w
+    # to
+    _, rows = sw_batch.extend_batch(qd, qld, td, tld, mat, wd, h0d,
+                                    packed=True, rows_run=True, **ext)
+    rows = rows.cpu().numpy()
     w_eff = sw_batch._adjust_w(torch.from_numpy(qlen), torch.from_numpy(w),
                                1, 5, 6, 1, 6, 1).numpy()
-    ops = OPS["extend"] * _band_cells(qlen, np.maximum(o[2], o[3]), w_eff)
+    cells = _band_cells(qlen, rows, w_eff)
+    steps = _k1_steps(lambda st: sw_extend.extend_batch(
+        qd, qld, td, tld, wd, h0d, **ext, **S3, steps=st), got, B)
+    print(f"  K1 schedule: {int(rows.sum())} rows run (the twin's), "
+          f"{steps} warp steps (the kernel's count), {cells} band cells")
     res["sw_extend"] = (err, _median_ms(k1), _median_ms(p1), (B, Lq, Lt),
-                        *_bound(pk, ops, _nbytes(qd, qld, td, tld, wd, h0d,
-                                                 got)))
+                        *_bound(pk, OPS["extend"] * cells,
+                                _nbytes(qd, qld, td, tld, wd, h0d, got)),
+                        {"rows_run": int(rows.sum()), "warp_steps": steps,
+                         "band_cells": cells})
 
     # K2 + K2b at the reg2aln chunk 2048 x 192 x 384
     B, Lq, Lt = 2048, 192, 384
     qlen = rng.integers(30, 152, B).astype(np.int32)
     tlen = np.clip(qlen + rng.integers(-10, 11, B), 1, Lt).astype(np.int32)
-    q, t = _planted(rng, qlen, tlen, Lq, Lt)
+    q, t = planted(rng, qlen, tlen, Lq, Lt)
     w = np.maximum(np.abs(qlen - tlen),
                    rng.integers(1, 60, B)).astype(np.int32)
     qd, qld, td, tld, wd = cuda(q, qlen, t, tlen, w)
@@ -352,7 +352,7 @@ def phase_kernels(pk, seed=1):
     B, Lq, Lt = 4096, 192, 704
     qlen = np.full(B, 151, np.int32)
     tlen = np.full(B, 686, np.int32)
-    q, t = _planted(rng, qlen, tlen, Lq, Lt)
+    q, t = planted(rng, qlen, tlen, Lq, Lt)
     minsc = np.full(B, 19, np.int32)
     qd, qld, td, tld, md = cuda(q, qlen, t, tlen, minsc)
 
@@ -370,13 +370,70 @@ def phase_kernels(pk, seed=1):
     ops = OPS["local"] * int((qlen.astype(np.int64) * tlen).sum())
     res["sw_local"] = (err, _median_ms(k3), _median_ms(p3), (B, Lq, Lt),
                        *_bound(pk, ops, _nbytes(qd, qld, td, tld, md, got)))
-    for name, (e, ms, pms, shape, bms, by) in res.items():
+    for name, (e, ms, pms, shape, bms, by, *_) in res.items():
         print(f"  {name} {shape}: exact (max abs err {e}); kernel "
               f"{ms:.3f} ms, plain {pms:.3f} ms; bound {bms:.4f} ms "
               f"({by}), {100 * bms / ms:.1f}% of it")
+    _k1_edges(cuda)
     _edges(cuda, D, S3)
     res["extend_ablate"] = _t1_vs_plain(rng, cuda, pk)
     return res
+
+
+def _k1_edges(cuda):
+    """K1 on its edge shapes against its twin (on the card), exact, at
+    zdrop 100, 5, 0 and -1: qlen 0, tlen 0, tlen < 32, qlen not a multiple
+    of C, w 0, w >= qlen, rows past qlen + w, a negative w (the empty row 0
+    with beg == qlen: the gscore-0 case), h0 <= o_ins + e_ins, unrelated
+    targets that z-drop within rows 0-3 (and later tasks that z-drop while
+    their later rows are in flight), N codes, and Lq 448 (two tiles past
+    256 columns)."""
+    import numpy as np
+    import torch
+    from lariat_tpu_torch.ops import sw_batch, sw_extend
+    from lariat_tpu_torch.tools.kernel_turns import planted
+    rng = np.random.default_rng(13)
+    report = []
+    for B, Lq, Lt in ((512, 192, 576), (512, 448, 320)):
+        qlen = rng.integers(1, Lq + 1, B).astype(np.int32)
+        tlen = np.minimum(qlen + rng.integers(-20, 200, B), Lt).clip(
+            1).astype(np.int32)
+        w = rng.integers(0, 101, B).astype(np.int32)
+        h0 = rng.integers(0, 120, B).astype(np.int32)
+        qlen[:8] = 0, 40, 25, 37, 60, 30, 20, 9
+        tlen[:8] = Lt, 0, 20, Lt, Lt, Lt, min(60, Lt), 31
+        w[3:8] = 12, 0, 35, 3, 9
+        h0[7:10] = 5, 7, 2
+        qlen[10:12], w[10:12], tlen[10:12] = (4, 5), (-4, -2), (10, 10)
+        qlen[12:14] = Lq, min(Lq, 257)
+        junk = np.zeros(B, bool)
+        junk[14:40] = True                    # unrelated targets
+        q, t = planted(rng, qlen, tlen, Lq, Lt, n_frac=0.05)
+        at0 = rng.random(B) < 0.5             # half planted at column 0
+        for b in np.nonzero(at0 & ~junk)[0]:
+            n = int(min(qlen[b], tlen[b]))
+            t[b, :n] = q[b, :n]
+        t[junk] = rng.integers(0, 4, (int(junk.sum()), Lt))
+        args = cuda(q, qlen, t, tlen, w, h0)
+        mat = sw_extend.score_matrix(1, -4, -1, args[0].device)
+        w_eff = sw_batch._adjust_w(torch.from_numpy(qlen),
+                                   torch.from_numpy(w), 1, 5, 6, 1, 6,
+                                   1).numpy()
+        n_band = np.minimum(tlen, np.where(w_eff < 0, 0, qlen + w_eff))
+        for zdrop in (100, 5, 0, -1):
+            got = sw_extend.extend_batch(*args, zdrop=zdrop)
+            want, rows = sw_batch.extend_batch(
+                args[0], args[1], args[2], args[3], mat, args[4], args[5],
+                zdrop=zdrop, packed=True, rows_run=True)
+            torch.cuda.synchronize()
+            if _max_abs_err(got[:6], want) or int(got[6:].abs().max()):
+                raise AssertionError(f"K1 sw_extend differs on the edge "
+                                     f"shapes ({B}, {Lq}, {Lt}), zdrop "
+                                     f"{zdrop}")
+            early = int((rows.cpu().numpy() < n_band).sum())
+            report.append(f"({B}, {Lq}, {Lt}) zdrop {zdrop}: {early} "
+                          f"stopped early")
+    print(f"  K1 edge shapes exact: {'; '.join(report)}")
 
 
 def _edges(cuda, D, S3):
@@ -387,6 +444,7 @@ def _edges(cuda, D, S3):
     import numpy as np
     import torch
     from lariat_tpu_torch.ops import sw_global, sw_local
+    from lariat_tpu_torch.tools.kernel_turns import planted
     rng = np.random.default_rng(11)
     B, Lq, Lt = 512, 448, 704
     qlen = rng.integers(1, Lq + 1, B).astype(np.int32)
@@ -394,7 +452,7 @@ def _edges(cuda, D, S3):
     qlen[[0, 3, 4, 5, 6]] = 0, 151, 448, 193, 192
     tlen[[1, 2, 7]] = 0, 20, 31
     minsc = np.where(rng.random(B) < 0.3, 0, 19).astype(np.int32)
-    q, t = _planted(rng, qlen, tlen, Lq, Lt, n_frac=0.05)
+    q, t = planted(rng, qlen, tlen, Lq, Lt, n_frac=0.05)
     args = cuda(q, qlen, t, tlen, minsc)
     got = sw_local.local_two_pass(*args, **D, **S3)
     want = sw_local.local_two_pass(*(a.cpu() for a in args), **D, **S3)
@@ -408,7 +466,7 @@ def _edges(cuda, D, S3):
     w[0], qlen[1], tlen[2], tlen[3], tlen[4] = 0, 0, 0, 10, 31
     w[5] = qlen[5] + 5                                  # w >= qlen
     w[6], tlen[6] = 3, min(int(qlen[6]) + 40, Lt)       # rows past qlen + w
-    q, t = _planted(rng, qlen, tlen, Lq, Lt, n_frac=0.05)
+    q, t = planted(rng, qlen, tlen, Lq, Lt, n_frac=0.05)
     args = cuda(q, qlen, t, tlen, w)
     gs, gz = sw_global.global_batch(*args, **D, **S3)
     ws, wz = sw_global.global_batch_plain(*args, **D, **S3)
@@ -436,11 +494,12 @@ def _t1_vs_plain(rng, cuda, pk):
     from lariat_tpu_torch.ops import extend_ablate
     from lariat_tpu_torch.tools.kernel_roofline import OPS_PER_CELL
     from lariat_tpu_torch.tools.extend_ablate import inputs
+    from lariat_tpu_torch.tools.kernel_turns import planted
     B, Lq, Lt = 8192, 192, 576
     qlen = rng.integers(0, 152, B).astype(np.int32)
     tlen = np.minimum(qlen + rng.integers(0, 450, B), Lt).astype(np.int32)
     qlen[:64], tlen[64:128] = 0, 0
-    q, t = _planted(rng, qlen, tlen, Lq, Lt)
+    q, t = planted(rng, qlen, tlen, Lq, Lt)
     params = np.zeros((B, 8), np.int32)
     params[:, 0], params[:, 1], params[:, 2] = qlen, tlen, 100
     params[:, 3] = rng.integers(19, 152, B)
@@ -518,19 +577,22 @@ def phase_seeding(fasta, reads_path, pk):
     returns name -> (max abs err, kernel ms, plain ms, shape, bound ms,
     what sets it) and the K4b launches of that collect.
 
-    The FM walks' lengths depend on the data and K4a-K4c do not report
-    them, so their bounds count only the bytes of their own inputs and
-    outputs (not the index rows they read, nor their operations): a floor
-    that understates. K5 reports its steps: its bound adds one 48-byte
-    fused row a step."""
+    The seeding kernels' bounds are bytes: 48 for each distinct fused row
+    that the twins' ranks read on these inputs (``fm_batch.rank_rows``,
+    ``lf_row``), each read once, plus their own inputs and outputs. They
+    count no operations. K4a's lanes also count the rows they fetch (aux;
+    one when both ranks of an extension share a block). K4a runs at round
+    1's phase-A budget (timed), at phase B's 8L budget on the stragglers
+    and at round 2, each in int32 and int64 indices; its walk lengths come
+    out beside its time."""
     import numpy as np
     import torch
     from lariat_tpu_torch.align.engine import encode_read
     from lariat_tpu_torch.cli import load_reference
     from lariat_tpu_torch.config import AlignerConfig
-    from lariat_tpu_torch.io.fastq import FastQReader
     from lariat_tpu_torch.ops import fm_batch, smem_device as sd
     from lariat_tpu_torch.parallel import align_step
+    from lariat_tpu_torch.tools.kernel_turns import seed_batch
     dev = torch.device("cuda")
     fm = load_reference(fasta)
     opt = AlignerConfig()
@@ -538,21 +600,8 @@ def phase_seeding(fasta, reads_path, pk):
     g = align_step.DeviceGenome.from_host(fm, fmd)
     print(f"  index: fused {tuple(fmd.fused.shape)} int32 rows, "
           f"{fmd.idx_dtype}, seq_len {fmd.seq_len:,}")
-    reader = FastQReader(reads_path)
-    seqs = []
-    while len(seqs) < SEED_READS:
-        recs, _ = reader.read_barcode_set(0)
-        if recs is None:
-            break
-        seqs += [s for r in recs for s in (r.read1, r.read2)]
-    qs = [encode_read(s) for s in seqs[:SEED_READS]]
-    R = len(qs)
-    L = -(-max(len(q) for q in qs) // 64) * 64
-    rmat = np.full((R, L), 4, np.uint8)
-    lens = np.zeros(R, np.int32)
-    for i, q in enumerate(qs):
-        rmat[i, :len(q)] = q
-        lens[i] = len(q)
+    rmat, lens, qs = seed_batch(reads_path, SEED_READS)
+    R, L = rmat.shape
 
     def put(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
@@ -564,32 +613,54 @@ def phase_seeding(fasta, reads_path, pk):
                                  f"err {e})")
         return e
 
+    def no_rows():
+        # a bool per fused row, which a twin sets where its ranks read
+        return torch.zeros(fmd.fused.shape[0], dtype=torch.bool, device=dev)
+
     res = {}
     rd, lens_d = put(rmat), put(lens)
-    r1 = (put(np.zeros(R), np.int32), lens_d, put(np.ones(R), np.int64), L)
-    r1kw = dict(max_steps=3 * L, min_seed=opt.min_seed_len, cap=sd.CAP1,
-                mid=put(np.full(R, L + 2), np.int32))
-    budget = sd._budget(3 * L)
+    fmd64 = fm_batch.DeviceFMIndex(fmd.fused, fmd.L2.long(), fmd.primary,
+                                   fmd.seq_len)
+    min_seed = opt.min_seed_len
 
-    def k4a():
-        return sd.min_starts_twoptr(fmd, rd, *r1, **r1kw)
+    def k4a(f, reads, se, ee, mi, md, steps, bwd, cap):
+        return sd.min_starts_twoptr(f, reads, se, ee, mi, L,
+                                    max_steps=steps, min_seed=min_seed,
+                                    cap=cap, mid=md, bwd_init=bwd)
 
-    def p4a():
+    def p4a(f, reads, se, ee, mi, md, steps, bwd, cap, touched=None):
         meta, big, aux = sd.min_starts_twoptr_plain(
-            fmd, rd, r1[0], r1[1], r1[2], r1kw["mid"], L, budget, False,
-            opt.min_seed_len, sd.CAP1)
-        sd._twoptr_flags(meta, aux, sd.CAP1)
-        return meta, big
+            f, reads, se, ee, mi.to(f.idx_dtype), md, L, sd._budget(steps),
+            bwd, min_seed, cap, touched)
+        sd._twoptr_flags(meta, aux, cap)
+        return meta, big, aux
 
-    meta1, big1 = k4a()
-    e = err((meta1, big1), p4a())
-    res["smem_twoptr"] = (e, _median_ms(k4a), _median_ms(p4a, n=3), (R, L),
-                          *_bound(pk, 0, _nbytes(rd, lens_d, r1[0], r1[2],
-                                                 r1kw["mid"], meta1, big1)))
+    # round 1 at its phase-A budget (3L), as the collect runs it
+    runs = {"round1": (rd, put(np.zeros(R), np.int32), lens_d,
+                       put(np.ones(R), np.int64),
+                       put(np.full(R, L + 2), np.int32), 3 * L, False,
+                       sd.CAP1)}
+    meta1, big1, _ = k4a(fmd, *runs["round1"])
     meta1 = meta1.cpu().numpy()
-    print(f"  K4a round 1: flags {int(meta1[0, -1]) & 3}, "
-          f"{int(meta1[:, sd.CAP1].sum())} seeds, "
-          f"{int((meta1[:, sd.CAP1 + 1] == 0).sum())} stragglers")
+    # phase B: round 1's stragglers rerun at 8L, padded as the collect
+    # pads them, with the six low-complexity reads, which outrun round 1's
+    # budget on this genome (phase 5's collect runs them too)
+    idx = np.nonzero(meta1[:, sd.CAP1 + 1] == 0)[0]
+    lc = [encode_read(s) for s in LOW_COMPLEXITY]
+    nb = len(idx) + len(lc)
+    Rs = sd._pad_pow2(nb)
+    rmat_b = np.full((Rs, L), 4, np.uint8)
+    rmat_b[:len(idx)] = rmat[idx]
+    end_b = np.zeros(Rs, np.int64)
+    end_b[:len(idx)] = lens[idx]
+    for k, s in enumerate(lc, start=len(idx)):
+        rmat_b[k, :len(s)] = s
+        end_b[k] = len(s)
+    mid_b = np.zeros(Rs, np.int64)
+    mid_b[:nb] = L + 2
+    runs["phaseB"] = (put(rmat_b), put(np.zeros(Rs), np.int32),
+                      put(end_b, np.int32), put(np.ones(Rs), np.int64),
+                      put(mid_b, np.int32), 8 * L, False, sd.CAP1)
     # round 2 on the reseed requests of round 1, as the collect builds them
     ri1, m1 = sd._slots(meta1, big1.cpu().numpy(), sd.CAP1, R)
     split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
@@ -602,17 +673,51 @@ def phase_seeding(fasta, reads_path, pk):
     end2[:n2] = lens[ri1[re]]
     mi2[:n2] = m1[re, 2] + 1
     rows2[:n2] = ri1[re]
-    a2 = (rd[put(rows2)], put(mid2, np.int32), put(end2, np.int32),
-          put(mi2), L)
-    got = sd.min_starts_twoptr(fmd, *a2, max_steps=4 * L, bwd_init=True,
-                               min_seed=opt.min_seed_len, cap=sd.CAP2,
-                               mid=put(mid2, np.int32))
-    want = sd.min_starts_twoptr_plain(
-        fmd, a2[0], a2[1], a2[2], a2[3], put(mid2, np.int32), L,
-        sd._budget(4 * L), True, opt.min_seed_len, sd.CAP2)
-    sd._twoptr_flags(want[0], want[2], sd.CAP2)
-    err(got, want[:2])
-    print(f"  K4a round 2: {n2} reseed lanes, exact")
+    runs["round2"] = (rd[put(rows2)], put(mid2, np.int32),
+                      put(end2, np.int32), put(mi2), put(mid2, np.int32),
+                      4 * L, True, sd.CAP2)
+    # each run against the twin in int32 and int64 indices; the walk
+    # lengths (aux, over the lanes before the padding) and times of the
+    # int32 runs
+    real = {"round1": R, "phaseB": nb, "round2": n2}
+    stats, e4a = {}, 0
+    t4a = no_rows()
+    for name, a in runs.items():
+        for f in (fmd, fmd64):
+            got = k4a(f, *a)
+            want = p4a(f, *a, touched=t4a if name == "round1" else None)
+            e4a = max(e4a, err(got, want))
+        aux = got[2][:real[name]].cpu().numpy().astype(np.int64)
+        ms = _median_ms(lambda: k4a(fmd, *a))
+        tr = aux[:, 1]
+        stats[name] = {"lanes": real[name],
+                       "transitions_max": int(tr.max()),
+                       "transitions_median": float(np.median(tr)),
+                       "transitions_sum": int(tr.sum()),
+                       "rows_sum": int(aux[:, 2].sum()), "ms": ms,
+                       "us_per_transition": 1e3 * ms / max(int(tr.max()),
+                                                           1)}
+        print(f"  K4a {name} ({stats[name]['lanes']} lanes): exact in int32 "
+              f"and int64; {json.dumps(stats[name])}")
+    print(f"  K4a round 1: flags {int(meta1[0, -1]) & 3}, "
+          f"{int(meta1[:, sd.CAP1].sum())} seeds, {len(idx)} stragglers; "
+          f"phase B: those and {len(lc)} low-complexity reads; round 2: "
+          f"{n2} reseed lanes")
+
+    def k4a_r1():
+        return sd.min_starts_twoptr(fmd, *runs["round1"][:4], L,
+                                    max_steps=3 * L, min_seed=min_seed,
+                                    cap=sd.CAP1, mid=runs["round1"][4])[:2]
+
+    def p4a_r1():
+        return p4a(fmd, *runs["round1"])[:2]
+
+    r1 = stats["round1"]
+    rows4a = int(t4a.sum())
+    res["smem_twoptr"] = (e4a, r1["ms"], _median_ms(p4a_r1, n=3), (R, L),
+                          *_bound(pk, 0, 48 * rows4a + _nbytes(
+                              *runs["round1"][:5], *k4a_r1())),
+                          {"transitions": stats, "rows_distinct": rows4a})
 
     ri = put(np.repeat(np.arange(R), L), np.int32)
     ee = put(np.tile(np.arange(1, L + 1), R), np.int32)
@@ -625,10 +730,12 @@ def phase_seeding(fasta, reads_path, pk):
         return sd.min_starts_kernel_plain(fmd, rd, ri, ee, mi, L)
 
     out4b = k4b()
-    res["smem_exhaustive"] = (err(out4b, p4b()), _median_ms(k4b),
+    t4b = no_rows()
+    want4b = sd.min_starts_kernel_plain(fmd, rd, ri, ee, mi, L, t4b)
+    res["smem_exhaustive"] = (err(out4b, want4b), _median_ms(k4b),
                               _median_ms(p4b, n=3), (R * L,),
-                              *_bound(pk, 0, _nbytes(rd, ri, ee, mi,
-                                                     *out4b)))
+                              *_bound(pk, 0, 48 * int(t4b.sum()) + _nbytes(
+                                  rd, ri, ee, mi, *out4b)))
     cap3 = max(2, L // opt.min_seed_len + 2)
     s1 = (fmd, rd, lens_d, int(opt.max_mem_intv), L, opt.min_seed_len, cap3)
 
@@ -639,9 +746,12 @@ def phase_seeding(fasta, reads_path, pk):
         return sd.pack_r3(*sd.strategy1_plain(*s1))
 
     out4c = k4c()
-    res["smem_strategy1"] = (err(out4c, p4c()), _median_ms(k4c),
-                             _median_ms(p4c, n=3), (R, L),
-                             *_bound(pk, 0, _nbytes(rd, lens_d, *out4c)))
+    t4c = no_rows()
+    want4c = sd.strategy1_plain(*s1, touched=t4c)
+    res["smem_strategy1"] = (err(out4c, sd.pack_r3(*want4c)),
+                             _median_ms(k4c), _median_ms(p4c, n=3), (R, L),
+                             *_bound(pk, 0, 48 * int(t4c.sum()) + _nbytes(
+                                 rd, lens_d, *out4c)))
     rng = np.random.default_rng(3)
     n5 = 1 << 16
     k5 = (g, put(rng.integers(0, fm.seq_len, n5)).to(fmd.idx_dtype),
@@ -655,15 +765,142 @@ def phase_seeding(fasta, reads_path, pk):
         return align_step.sa_walk_chunk_plain(*k5)
 
     out5 = k5k()
-    steps5 = int(out5[1].sum())
-    res["sa_walk"] = (err([out5], [p5()]), _median_ms(k5k),
+    t5 = no_rows()
+    want5 = align_step.sa_walk_chunk_plain(*k5, touched=t5)
+    res["sa_walk"] = (err([out5], [want5]), _median_ms(k5k),
                       _median_ms(p5, n=3), (n5,),
-                      *_bound(pk, 0, 48 * steps5 + _nbytes(*k5[1:4], out5)))
-    for name, (e, ms, pms, shape, bms, by) in res.items():
+                      *_bound(pk, 0, 48 * int(t5.sum())
+                              + _nbytes(*k5[1:4], out5)))
+    for name, (e, ms, pms, shape, bms, by, *_) in res.items():
         print(f"  {name} {shape}: exact (max abs err {e}); kernel "
               f"{ms:.3f} ms, plain {pms:.3f} ms; bound {bms:.4f} ms "
               f"({by}), {100 * bms / ms:.1f}% of it")
+    print(f"  K4a: {r1['us_per_transition']:.3f} us a transition of the "
+          f"longest lane ({r1['transitions_max']} transitions in "
+          f"{r1['ms']:.3f} ms) beside its bound")
+    res["sw_extend_desc"] = _k1_desc_wave(fm, pk)
     return res, _fallback_collect(fm, fmd, g, qs[:FALLBACK_READS], opt)
+
+
+def _k1_desc_wave(fm, pk):
+    """K1's descriptor entry (``resident.extend_wave_resident`` on the
+    card: one launch) on a wave built from the chr20-scale genome against
+    build_qt plus the twin on the card, exact, with int32 and int64
+    descriptors: 8,192 extensions of 2,048 reads drawn from both strands
+    (2% substitutions, 1% N), right extensions (qdir = tdir = 1) and left
+    ones (qdir = tdir = -1), reverse-strand tstart >= l_pac, and tasks that
+    run off the read or off either end of the doubled text. Returns, from
+    the int32 run, the descriptor entry's ms with its bound, the tile
+    entry's on build_qt's tiles of the same wave with its bound, the ms of
+    the path the descriptor entry replaces (build_qt, the descriptor
+    columns, the tile entry), each a median of 7, and the wave's rows run
+    (the twin's), band cells and warp steps (the kernel's count)."""
+    import numpy as np
+    import torch
+    from lariat_tpu_torch.ops import _build, resident, sw_batch, sw_extend
+    from lariat_tpu_torch.tools.kernel_roofline import OPS_PER_CELL
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    l_pac, n, n_reads, B, Lq, Lt = int(fm.l_pac), 151, 2048, 8192, 192, 256
+    P = rng.integers(0, 2 * l_pac - n, n_reads)
+    P = np.where((P < l_pac) & (P + n > l_pac), P - n, P)  # one strand
+    reads = []
+    for p0 in P:
+        r = np.array(fm.fetch_fmd(int(p0), int(p0) + n), np.uint8)
+        mut = rng.random(n) < 0.02
+        r[mut] = (r[mut] + 1) % 4
+        r[rng.random(n) < 0.01] = 4
+        reads.append(r)
+    rid = rng.integers(0, n_reads, B)
+    s0 = rng.integers(1, n, B)
+    right = rng.random(B) < 0.5
+    qdir = np.where(right, 1, -1)
+    qstart = np.where(right, s0, s0 - 1)
+    qlen = np.where(right, n - s0, s0)
+    tdir = qdir
+    tstart = np.where(right, P[rid] + s0, P[rid] + s0 - 1)
+    tlen = np.minimum(qlen + rng.integers(0, 100, B), Lt)
+    h0 = rng.integers(19, 152, B)
+    w = np.where(rng.random(B) < 0.8, 100, rng.integers(0, 100, B))
+    off = np.arange(B) < 64                  # off the ends
+    tstart[off] = np.where(np.arange(64) < 32, rng.integers(-40, 5, 64),
+                           2 * l_pac - rng.integers(1, 40, 64))[:off.sum()]
+    qstart[64:96] = rng.integers(n - 5, n + 20, 32)
+    desc = resident.pack_desc(rid, qstart, qdir, qlen, tstart, tdir, tlen,
+                              h0, w, l_pac)
+    reads_d = resident.put_reads(reads, dev).codes
+    pac_d = resident.pac_words_from_fm(fm, dev)
+    opt_key = (6, 1, 6, 1, 5, 100, 1, -4)
+    mat = sw_extend.score_matrix(1, -4, -1, dev)
+    out = {}
+    for dt in (np.int32, np.int64):
+        desc_d = torch.from_numpy(desc.astype(dt)).to(dev)
+
+        def k1d(steps=None):
+            return sw_extend.extend_desc(reads_d, pac_d, l_pac, desc_d, Lq, Lt,
+                                         steps=steps)
+
+        def cols():
+            return [desc_d[:, k].to(torch.int32).contiguous()
+                    for k in (resident.D_QL, resident.D_TL, resident.D_W,
+                              resident.D_H0)]
+
+        def tiles():
+            q, t = resident.build_qt(reads_d, pac_d, l_pac, desc_d, Lq, Lt)
+            ql, tl, wd, hd = cols()
+            return sw_extend.extend_batch(q, ql, t, tl, wd, hd)
+
+        # the CLI's call: one launch through the descriptor entry
+        before = (_build.launches()["sw_extend"],
+                  _build.entry_launches()["lariat_sw_extend_desc"])
+        got = resident.extend_wave_resident(reads_d, pac_d, l_pac, desc_d,
+                                            Lq, Lt, opt_key)
+        after = (_build.launches()["sw_extend"],
+                 _build.entry_launches()["lariat_sw_extend_desc"])
+        if after != (before[0] + 1, before[1] + 1):
+            raise AssertionError("K1's descriptor entry did not launch once")
+        q, t = resident.build_qt(reads_d, pac_d, l_pac, desc_d, Lq, Lt)
+        ql, tl, wd, hd = cols()
+        want, rows = sw_batch.extend_batch(q, ql, t, tl, mat, wd, hd,
+                                           packed=True, rows_run=True)
+        qlt, tlt = q.to(torch.uint8), t.to(torch.uint8)
+
+        def k1t():
+            return sw_extend.extend_batch(qlt, ql, tlt, tl, wd, hd)
+
+        torch.cuda.synchronize()
+        if (_max_abs_err(got[:6], want) or int(got[6:].abs().max())
+                or _max_abs_err(k1t(), got)):
+            raise AssertionError(f"K1's descriptor entry differs from "
+                                 f"build_qt + the twin or the tile entry "
+                                 f"({dt.__name__})")
+        if dt is np.int32:
+            rows = rows.cpu().numpy()
+            w_eff = sw_batch._adjust_w(torch.from_numpy(qlen.astype(np.int32)),
+                                       torch.from_numpy(w.astype(np.int32)),
+                                       1, 5, 6, 1, 6, 1).numpy()
+            cells = _band_cells(np.minimum(qlen, Lq), rows, w_eff)
+            ops = OPS_PER_CELL["extend"] * cells
+            # the descriptor entry must read its descriptors, each query
+            # code and 2 bits a target row it runs, and write its rows
+            n_rows = np.minimum(np.minimum(tlen, Lt),
+                                np.where(w_eff < 0, 0,
+                                         np.minimum(qlen, Lq) + w_eff))
+            desc_bytes = (_nbytes(desc_d, got) + int(np.minimum(qlen, Lq).sum())
+                          + int(np.maximum(n_rows, 0).sum() + 3) // 4)
+            dbms, dby = _bound(pk, ops, desc_bytes)
+            tbms, tby = _bound(pk, ops, _nbytes(qlt, tlt, ql, tl, wd, hd, got))
+            out = {"desc_ms": _median_ms(k1d), "desc_bound_ms": dbms,
+                   "desc_bound_by": dby, "tiles_ms": _median_ms(k1t),
+                   "tiles_bound_ms": tbms, "tiles_bound_by": tby,
+                   "build_qt_and_tiles_ms": _median_ms(tiles),
+                   "rows_run": int(rows.sum()), "band_cells": cells,
+                   "warp_steps": _k1_steps(k1d, got, B)}
+    good = int((want[0] > torch.from_numpy(h0).to(dev)).sum())
+    print(f"  K1 descriptor entry, {B} chr20-scale extensions ({good} "
+          f"gained on h0): exact in int32 and int64, and equal to the tile "
+          f"entry on build_qt's tiles; {json.dumps(out)}")
+    return out
 
 
 def _fallback_collect(fm, fmd, g, qs, opt) -> int:
@@ -831,6 +1068,10 @@ def _port_run(fasta, reads, out, log, env):
     if not lm:
         raise AssertionError(f"no kernel launch line in {out}")
     launches = json.loads(lm.group(1))
+    em = re.search(r"kernel entry launches: (\{.*\})", stdout)
+    if not em:
+        raise AssertionError(f"no kernel entry launch line in {out}")
+    launches["entries"] = json.loads(em.group(1))
     dev_line = re.search(r"device priming on (.*)", stdout)
     print(f"  {out}: {n} pairs, {rate} pairs/s ({wall:.1f}s wall with index "
           f"load); device waves {m.group(1)}, busy fraction {m.group(3)}; "
@@ -921,14 +1162,26 @@ def main(argv=None) -> int:
         if idle:
             raise AssertionError(f"kernels never launched on their "
                                  f"path: {idle}")
+        # every K1 launch of both port runs went through its descriptor
+        # entry (the wave's gathers folded into the kernel)
+        for out, run in runs.items():
+            n_k1 = run[4].get("sw_extend", 0)
+            desc = run[4]["entries"].get("lariat_sw_extend_desc", 0)
+            if desc != n_k1:
+                raise AssertionError(f"{out}: {desc} of {n_k1} K1 launches "
+                                     f"through the descriptor entry")
+    desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
+    extra = {"sw_extend": {"desc_launches": desc,
+                           "desc_wave": kres.pop("sw_extend_desc")}}
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
-        err, ms, pms, _, bms, by = kres[name]
+        err, ms, pms, _, bms, by, *more = kres[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": bms, "bound_by": by,
-                        "library_ms": None})
+                        "library_ms": None, **(more[0] if more else {}),
+                        **extra.get(name, {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -286,6 +286,8 @@ def run(argv=None):
               f"primed pairs {feed_stats['primed_pairs']}  "
               f"host pairs {feed_stats['host_pairs']}")
         print(f"kernel launches: {json.dumps(_build.launches())}")
+        print(f"kernel entry launches: "
+              f"{json.dumps(_build.entry_launches())}")
     print(f"Processed {n_pairs} read pairs across {n_bcs} barcodes "
           f"in {dt:.1f}s ({n_pairs / max(dt, 1e-9):.1f} pairs/s)")
     if stats.picks:

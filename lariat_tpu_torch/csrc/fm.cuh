@@ -1,6 +1,7 @@
-// K6: FM-index rank primitives on the fused occ table, per thread. Shared
-// __device__ code of the seeding kernels (smem.cu: K4a-K4c) and the SA walk
-// (sa_walk.cu: K5); no launch of its own.
+// K6: FM-index rank primitives on the fused occ table, per thread, and the
+// group rank of K4a (G threads a rank pair, below). Shared __device__ code
+// of the seeding kernels (smem.cu: K4a-K4c) and the SA walk (sa_walk.cu:
+// K5); no launch of its own. K4b, K4c and K5 run the per-thread ranks.
 //
 // Replaces lariat_tpu/ops/fm_batch.py `occ4_fused_batch` (with
 // `_block_counts`), `bwt_extend_dir_batch` / `bwt_extend_batch` and
@@ -122,18 +123,31 @@ __device__ __forceinline__ void occ4(const FMView<IDX>& f, IDX k,
   for (int c = 0; c < 4; ++c) out[c] = static_cast<IDX>(r[c]) + cnt[c];
 }
 
-// bidirectional extension of the bi-interval (x0, x1, s) by read code c
-// (0..3): prepended when is_back, else appended (by its complement on the
-// reverse side) -> (nx0, nx1, ns)
+// where occ4 at k reads: nothing (k < 0: zeros; k == seq_len: the
+// totals), else the first rem bases of block blk
 template <typename IDX>
-__device__ __forceinline__ void extend_dir(const FMView<IDX>& f, IDX x0,
-                                           IDX x1, IDX s, int c, bool is_back,
-                                           IDX& nx0, IDX& nx1, IDX& ns) {
+__device__ __forceinline__ void rank_at(const FMView<IDX>& f, IDX k,
+                                        bool& load, long long& blk,
+                                        int& rem) {
+  load = k >= 0 && k != f.seq_len;
+  IDX kk = k >= f.primary ? k - 1 : k;
+  kk = kk < 0 ? IDX(0) : (kk > f.seq_len - 1 ? f.seq_len - 1 : kk);
+  const IDX kp = kk + 1;
+  blk = static_cast<long long>(kp >> 7);
+  rem = static_cast<int>(kp & 127);
+}
+
+// the bi-interval (x0, x1, s) extended by read code c (0..3) from the occ4
+// counts tk at qpos - 1 and tl at qpos - 1 + s (qpos = x0 when is_back,
+// else x1)
+template <typename IDX>
+__device__ __forceinline__ void extend_from_occ(const FMView<IDX>& f, IDX x0,
+                                                IDX x1, IDX s, int c,
+                                                bool is_back, const IDX tk[4],
+                                                const IDX tl[4], IDX& nx0,
+                                                IDX& nx1, IDX& ns) {
   const IDX qpos = is_back ? x0 : x1;
   const int ce = is_back ? c : 3 - c;
-  IDX tk[4], tl[4];
-  occ4(f, qpos - 1, tk);
-  occ4(f, qpos - 1 + s, tl);
   // other-side start of code ce: other + crosses + sizes of codes > ce
   IDX ot = (is_back ? x1 : x0)
            + ((qpos <= f.primary && qpos + s - 1 >= f.primary) ? 1 : 0);
@@ -150,6 +164,124 @@ __device__ __forceinline__ void extend_dir(const FMView<IDX>& f, IDX x0,
   ns = sz;
   nx0 = is_back ? st : ot;
   nx1 = is_back ? ot : st;
+}
+
+// bidirectional extension of the bi-interval (x0, x1, s) by read code c
+// (0..3): prepended when is_back, else appended (by its complement on the
+// reverse side) -> (nx0, nx1, ns)
+template <typename IDX>
+__device__ __forceinline__ void extend_dir(const FMView<IDX>& f, IDX x0,
+                                           IDX x1, IDX s, int c, bool is_back,
+                                           IDX& nx0, IDX& nx1, IDX& ns) {
+  const IDX qpos = is_back ? x0 : x1;
+  IDX tk[4], tl[4];
+  occ4(f, qpos - 1, tk);
+  occ4(f, qpos - 1 + s, tl);
+  extend_from_occ(f, x0, x1, s, c, is_back, tk, tl, nx0, nx1, ns);
+}
+
+// ---- the group rank (K4a) ------------------------------------------------
+//
+// G threads (4, 8 or 16 consecutive lanes of a warp, `gmask`, g their rank
+// in the group) compute the two occ4 of one extension together, at ka and
+// kb. Every thread loads the checkpoint words of both rows (16 bytes each,
+// one address across the group, so one request) and its share of one
+// rank's bwt words (the first G/2 threads rank ka, the others kb; 16/G
+// words a thread): both rows arrive in one round of loads. When both ranks
+// fall in one block the second checkpoint load is skipped and the kb
+// threads' words are the ka threads' sectors, so the row is fetched once.
+// A thread counts its words for the four codes, a byte a code (a block
+// counts at most 127 bases), and __shfl_xor_sync sums the bytes over the
+// half and swaps them with the other half. Every thread of the group ends
+// with both ranks. Returns the rows fetched (0-2); `need` false fetches
+// none (the results are then unused).
+
+template <int WPT>
+__device__ __forceinline__ void load_words(const uint4* bwt, int part,
+                                           uint32_t w[WPT]) {
+  if constexpr (WPT == 4) {
+    const uint4 v = __ldg(bwt + part);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (WPT == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(bwt) + part);
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = __ldg(reinterpret_cast<const uint32_t*>(bwt) + part);
+  }
+}
+
+template <typename IDX, int G>
+__device__ __forceinline__ int occ4_pair_group(const FMView<IDX>& f,
+                                               bool need, IDX ka, IDX kb,
+                                               int g, unsigned gmask,
+                                               IDX ta[4], IDX tb[4]) {
+  static_assert(G == 4 || G == 8 || G == 16, "a group is 4, 8 or 16 lanes");
+  constexpr int H = G / 2;    // threads a rank
+  constexpr int WPT = 8 / H;  // bwt words a thread
+  bool la, lb;
+  long long ba, bb;
+  int ra, rb;
+  rank_at(f, ka, la, ba, ra);
+  rank_at(f, kb, lb, bb, rb);
+  la = la && need;
+  lb = lb && need;
+  const bool same = la && lb && ba == bb;
+  const bool on_b = g >= H;
+  const int part = g & (H - 1);
+  uint4 ca = make_uint4(0, 0, 0, 0), cb = ca;
+  uint32_t wv[WPT];
+#pragma unroll
+  for (int i = 0; i < WPT; ++i) wv[i] = 0;
+  if (la) ca = __ldg(f.rows + ba * 3);
+  if (lb && !same) cb = __ldg(f.rows + bb * 3);
+  if (on_b ? lb : la) load_words<WPT>(f.rows + (on_b ? bb : ba) * 3 + 1,
+                                      part, wv);
+  if (same) cb = ca;
+  const int rem = on_b ? rb : ra;
+  uint32_t packed = 0;
+#pragma unroll
+  for (int i = 0; i < WPT; ++i) {
+    const uint32_t keep =
+        keep_mask(min(max(rem - 16 * (part * WPT + i), 0), 16));
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      packed += static_cast<uint32_t>(__popc(field_match(wv[i], c) & keep))
+                << (8 * c);
+  }
+#pragma unroll
+  for (int o = 1; o < H; o <<= 1) packed += __shfl_xor_sync(gmask, packed, o);
+  const uint32_t other = __shfl_xor_sync(gmask, packed, H);
+  const uint32_t pa = on_b ? other : packed, pb = on_b ? packed : other;
+  const uint32_t cka[4] = {ca.x, ca.y, ca.z, ca.w};
+  const uint32_t ckb[4] = {cb.x, cb.y, cb.z, cb.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const IDX tot = f.L2[c + 1] - f.L2[c];
+    ta[c] = ka < 0 ? IDX(0)
+            : (ka == f.seq_len ? tot
+                               : static_cast<IDX>(cka[c])
+                                     + static_cast<IDX>((pa >> (8 * c)) & 0xFFu));
+    tb[c] = kb < 0 ? IDX(0)
+            : (kb == f.seq_len ? tot
+                               : static_cast<IDX>(ckb[c])
+                                     + static_cast<IDX>((pb >> (8 * c)) & 0xFFu));
+  }
+  return (la ? 1 : 0) + (lb && !same ? 1 : 0);
+}
+
+// extend_dir with the group rank; returns the rows fetched
+template <typename IDX, int G>
+__device__ __forceinline__ int extend_dir_group(const FMView<IDX>& f,
+                                                bool need, IDX x0, IDX x1,
+                                                IDX s, int c, bool is_back,
+                                                int g, unsigned gmask,
+                                                IDX& nx0, IDX& nx1, IDX& ns) {
+  const IDX qpos = is_back ? x0 : x1;
+  IDX tk[4], tl[4];
+  const int rows = occ4_pair_group<IDX, G>(f, need, qpos - 1, qpos - 1 + s,
+                                           g, gmask, tk, tl);
+  extend_from_occ(f, x0, x1, s, c, is_back, tk, tl, nx0, nx1, ns);
+  return rows;
 }
 
 // LF mapping of row k (k != primary: the caller maps that row to 0)

@@ -1,5 +1,5 @@
-// K4a-K4c: device SMEM seeding (bwa mem_collect_intv's three rounds), one
-// thread per lane, each running its own state machine to its end.
+// K4a-K4c: device SMEM seeding (bwa mem_collect_intv's three rounds), each
+// lane running its own state machine to its end.
 //
 // Replaces the XLA loops of lariat_tpu/ops/smem_device.py:
 //   K4a `min_starts_twoptr` (emit_direct=True): the two-pointer minimal-
@@ -8,16 +8,27 @@
 //       extension, the fallback on a blown step cap or a slot overflow;
 //   K4c `strategy1_kernel` + `_pack_r3`: the round-3 forward-greedy walker.
 // The reference's while/fori loops run every lane in lock step until the
-// slowest is done; here a thread leaves as soon as its own lane is. A
-// finished lane's transition is the identity, so per-lane loops give the
+// slowest is done; here a lane leaves as soon as it is done. A finished
+// lane's transition is the identity, so per-lane loops give the
 // reference's outputs lane for lane (K4a's step budget is the reference's
 // cap rounded up to whole unrolled iterations; the wrapper passes it).
 //
-// Bound on the H100: a chain of dependent fused-row gathers (two per
-// extension, fm.cuh), with lanes diverging in branch and trip count; no
-// arithmetic bound. Reads stay in device memory (L1/L2 serve the repeats).
-// Later work: group lanes by expected trip count, and reuse the row when
-// both ranks of an extension fall in one block.
+// Bound on the H100: a chain of dependent fused-row gathers (two ranks per
+// extension, fm.cuh), no arithmetic bound. A kernel's time is its longest
+// lane's chain: transitions x the latency of one.
+// K4a runs a group of kTwoptrG threads per lane, so one transition costs
+// one round of row loads instead of two and an eighth of the popcounts:
+// the group fetches both ranks' rows at once (one row when both ranks fall
+// in one block), each thread counts its own words, and __shfl_xor_sync sums
+// them (fm.cuh's group rank); every thread of the group then runs the same
+// deterministic transition, so nothing is broadcast, and only the group's
+// first thread writes. The block's reads are staged in shared memory, so a
+// step's only global loads are index rows. Blocks of one warp (4 lanes)
+// spread a 4,096-read batch over 1,024 blocks, every SM; on the H100 groups
+// of 8 ran faster than groups of 4 or 16, and one-warp blocks than blocks
+// of 2 or 4 warps (PERF.md). The lane also
+// counts its transitions and the rows it fetched (aux), which bound the
+// kernel. K4b and K4c keep one thread per lane and the per-thread rank.
 
 #include <cstdint>
 
@@ -31,9 +42,13 @@ using lariat::FMView;
 // ---- K4a ------------------------------------------------------------------
 // meta (R, cap+3) int32 [qb<<16|qe slots | min(n, cap) | lane_done | flags]
 // and big (R, 3*cap) [x0 | x1 | s] arrive zeroed; the wrapper fills the
-// flags column from aux (R, 2) = [n (uncapped), transitions run].
-template <typename IDX>
-__global__ void twoptr_kernel(
+// flags column from aux (R, 3) = [n (uncapped), transitions run, fused rows
+// fetched].
+constexpr int kTwoptrG = 8;         // threads a lane
+constexpr int kTwoptrThreads = 32;  // a block: one warp, 4 lanes
+
+template <typename IDX, int G>
+__global__ void __launch_bounds__(kTwoptrThreads) twoptr_kernel(
     const uint8_t* __restrict__ reads, const int32_t* __restrict__ start_v,
     const int32_t* __restrict__ end_v, const IDX* __restrict__ min_intv_v,
     const int32_t* __restrict__ mid_v, const int32_t* __restrict__ fused,
@@ -41,10 +56,20 @@ __global__ void twoptr_kernel(
     int L, int budget, int bwd_init, int min_seed, int cap,
     int32_t* __restrict__ meta, IDX* __restrict__ big,
     int32_t* __restrict__ aux) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= R) return;
+  extern __shared__ __align__(16) uint8_t qs[];
+  constexpr int kLanes = kTwoptrThreads / G;  // lanes a block
+  const int lane0 = blockIdx.x * kLanes;
+  const int g = threadIdx.x & (G - 1);
+  const int lane = lane0 + static_cast<int>(threadIdx.x) / G;
+  // the block's reads, staged once
+  const int nl = min(kLanes, R - lane0);
+  const uint8_t* src = reads + static_cast<size_t>(lane0) * L;
+  for (int x = threadIdx.x; x < nl * L; x += blockDim.x) qs[x] = src[x];
+  __syncthreads();
+  if (lane >= R) return;  // group-uniform
+  const unsigned gmask = ((1u << G) - 1) << ((threadIdx.x & 31) & ~(G - 1));
   const FMView<IDX> f = lariat::fm_view(fused, L2, primary, seq_len);
-  const uint8_t* q = reads + static_cast<size_t>(lane) * L;
+  const uint8_t* q = qs + (threadIdx.x / G) * L;
   const int start_e = start_v[lane], end_e = end_v[lane], mid = mid_v[lane];
   const IDX min_intv = lariat::at_least_one(min_intv_v[lane]);
   // state: [b, e) with interval (x0, x1, s); in BWD, the scratch interval
@@ -69,7 +94,7 @@ __global__ void twoptr_kernel(
   }
   int32_t* slots = meta + static_cast<size_t>(lane) * (cap + 3);
   IDX* bl = big + static_cast<size_t>(lane) * 3 * cap;
-  int n = 0, used = 0;
+  int n = 0, used = 0, rows = 0;
   while (used < budget) {
     const bool fwd_live = !bwd && e + 1 <= end_e;
     const bool bwd_live = bwd && etgt <= end_e;
@@ -82,14 +107,14 @@ __global__ void twoptr_kernel(
     const bool bwd_free = bwd_live && (p <= 0 || c_b >= 4);
     const bool do_bwd = bwd_live && !bwd_free;
     const bool do_fwd = fwd_live && !empty && !nf;
-    IDX nx0 = 0, nx1 = 0, ns = 0;
-    bool acc = false;
-    if (do_bwd || do_fwd) {
-      lariat::extend_dir(f, do_bwd ? bx0 : x0, do_bwd ? bx1 : x1,
-                         do_bwd ? bs : s, do_bwd ? c_b : c_f, do_bwd, nx0,
-                         nx1, ns);
-      acc = ns >= min_intv;
-    }
+    const bool need = do_bwd || do_fwd;
+    // every transition runs the group rank (loads off when not needed), so
+    // the groups of a warp stay converged
+    IDX nx0, nx1, ns;
+    rows += lariat::extend_dir_group<IDX, G>(
+        f, need, do_bwd ? bx0 : x0, do_bwd ? bx1 : x1, do_bwd ? bs : s,
+        do_bwd ? c_b : min(c_f, 3), do_bwd, g, gmask, nx0, nx1, ns);
+    const bool acc = need && ns >= min_intv;
     IDX sc0, sc1, scs;
     lariat::single_char(f, c_f, sc0, sc1, scs);
     const bool fwd_emit = fwd_live && (empty || nf || acc);
@@ -121,7 +146,7 @@ __global__ void twoptr_kernel(
     if (em1 || em2) {
       const int sqb = em2 ? n_b : b, sqe = em2 ? n_e : e;
       if (sqe - sqb >= min_seed && sqb <= mid && sqe > start_e) {
-        if (n < cap) {
+        if (n < cap && g == 0) {
           slots[n] = (sqb << 16) | sqe;
           bl[n] = em2 ? n_x0 : x0;
           bl[cap + n] = em2 ? n_x1 : x1;
@@ -133,11 +158,13 @@ __global__ void twoptr_kernel(
     e = n_e; b = n_b; x0 = n_x0; x1 = n_x1; s = n_s;
     bwd = n_bwd; p = n_p; etgt = n_etgt; bx0 = n_bx0; bx1 = n_bx1; bs = n_bs;
   }
+  if (g != 0) return;
   const bool live = bwd ? etgt <= end_e : e + 1 <= end_e;
   slots[cap] = min(n, cap);
   slots[cap + 1] = live ? 0 : 1;
-  aux[2 * lane] = n;
-  aux[2 * lane + 1] = used;
+  aux[3 * lane] = n;
+  aux[3 * lane + 1] = used;
+  aux[3 * lane + 2] = rows;
 }
 
 // ---- K4b ------------------------------------------------------------------
@@ -229,10 +256,33 @@ __global__ void strategy1_kernel(
 
 int grid(int n) { return lariat::blocks_for(n); }
 
+template <typename IDX>
+int launch_twoptr(const uint8_t* reads, const int32_t* start_e,
+                  const int32_t* end_e, const void* min_intv,
+                  const int32_t* mid, const int32_t* fused, const void* L2,
+                  long long primary, long long seq_len, int R, int L,
+                  int budget, int bwd_init, int min_seed, int cap,
+                  int32_t* meta, void* big, int32_t* aux,
+                  cudaStream_t st) {
+  constexpr int kLanes = kTwoptrThreads / kTwoptrG;
+  const int smem = kLanes * L;  // the block's reads
+  cudaError_t err = cudaFuncSetAttribute(
+      twoptr_kernel<IDX, kTwoptrG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  twoptr_kernel<IDX, kTwoptrG>
+      <<<(R + kLanes - 1) / kLanes, kTwoptrThreads, smem, st>>>(
+      reads, start_e, end_e, static_cast<const IDX*>(min_intv), mid, fused,
+      static_cast<const IDX*>(L2), primary, seq_len, R, L, budget, bwd_init,
+      min_seed, cap, meta, static_cast<IDX*>(big), aux);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // reads (R, L) uint8; start_e/end_e/mid (R,) int32; min_intv (R,) IDX;
-// fused (n_blocks+1, 12) int32; L2 (5,) IDX; idx64 picks IDX = int64_t.
+// fused (n_blocks+1, 12) int32; L2 (5,) IDX; idx64 picks IDX = int64_t;
+// aux (R, 3) int32.
 extern "C" int lariat_smem_twoptr(
     const uint8_t* reads, const int32_t* start_e, const int32_t* end_e,
     const void* min_intv, const int32_t* mid, const int32_t* fused,
@@ -242,18 +292,13 @@ extern "C" int lariat_smem_twoptr(
   if (R <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (idx64)
-    twoptr_kernel<int64_t><<<grid(R), lariat::kThreads, 0, st>>>(
-        reads, start_e, end_e, static_cast<const int64_t*>(min_intv), mid,
-        fused, static_cast<const int64_t*>(L2), primary, seq_len, R, L,
-        budget, bwd_init, min_seed, cap, meta, static_cast<int64_t*>(big),
-        aux);
-  else
-    twoptr_kernel<int32_t><<<grid(R), lariat::kThreads, 0, st>>>(
-        reads, start_e, end_e, static_cast<const int32_t*>(min_intv), mid,
-        fused, static_cast<const int32_t*>(L2), primary, seq_len, R, L,
-        budget, bwd_init, min_seed, cap, meta, static_cast<int32_t*>(big),
-        aux);
-  return static_cast<int>(cudaGetLastError());
+    return launch_twoptr<int64_t>(reads, start_e, end_e, min_intv, mid,
+                                  fused, L2, primary, seq_len, R, L, budget,
+                                  bwd_init, min_seed, cap, meta, big, aux,
+                                  st);
+  return launch_twoptr<int32_t>(reads, start_e, end_e, min_intv, mid, fused,
+                                L2, primary, seq_len, R, L, budget, bwd_init,
+                                min_seed, cap, meta, big, aux, st);
 }
 
 // N lanes (read_idx[i], e[i], min_intv[i]) -> b (N,) int32, x0/x1/s (N,)

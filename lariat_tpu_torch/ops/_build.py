@@ -49,7 +49,15 @@ KERNELS = {
     "sa_walk": ("lariat_sa_walk", [_P] * 5 + [_L] * 3 + [_I] * 3 + [_P] * 2),
 }
 
+# further C entries of a kernel above, counted under its name: entry ->
+# (kernel name, argtypes)
+ENTRIES = {
+    "lariat_sw_extend_desc": ("sw_extend", [_P, _I, _P, _I, _I, _P, _L]
+                              + [_I] * 12 + [_P] * 4),
+}
+
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+ENTRY_LAUNCHES: Dict[str, int] = dict.fromkeys(ENTRIES, 0)
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -59,11 +67,21 @@ def reset_launches() -> None:
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        for k in ENTRY_LAUNCHES:
+            ENTRY_LAUNCHES[k] = 0
 
 
 def launches() -> Dict[str, int]:
+    """Launches by kernel, every entry of a kernel included."""
     with _count_lock:
         return dict(LAUNCHES)
+
+
+def entry_launches() -> Dict[str, int]:
+    """Launches through each of ``ENTRIES`` (also counted in
+    ``launches()`` under their kernel)."""
+    with _count_lock:
+        return dict(ENTRY_LAUNCHES)
 
 
 def _nvcc() -> str:
@@ -128,7 +146,9 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             build()
             lib = ctypes.CDLL(library_path())
-            for entry, argtypes in KERNELS.values():
+            entries = [*KERNELS.values(),
+                       *((e, a) for e, (_, a) in ENTRIES.items())]
+            for entry, argtypes in entries:
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -161,6 +181,8 @@ CODE_DTYPES = (torch.uint8, torch.int32, torch.int64)
 # query columns one warp of K2 or K3 covers at once (32 lanes x 6); past
 # it they run in tiles, with a row-boundary scratch
 TILE_COLS = 192
+# the same for K1 (32 lanes x 8)
+EXTEND_TILE_COLS = 256
 
 
 def on_cuda(first: torch.Tensor) -> bool:
@@ -198,13 +220,17 @@ def check_byte_scores(**scores) -> None:
         raise ValueError(f"substitution scores outside [-128, 127]: {bad}")
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on the current CUDA stream.
+def launch(name: str, *args, entry: Optional[str] = None) -> None:
+    """Launch kernel ``name`` on the current CUDA stream, through its C
+    entry or through ``entry`` (one of ``ENTRIES``, counted under ``name``).
 
     ``args`` are tensors (passed by data pointer; the caller keeps them
     alive) and ints, in the C entry's order without the trailing stream."""
     lib = load()
-    entry, _ = KERNELS[name]
+    if entry is None:
+        entry = KERNELS[name][0]
+    elif ENTRIES[entry][0] != name:
+        raise ValueError(f"{entry} is not an entry of kernel {name}")
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
              for a in args]
     rc = getattr(lib, entry)(*cargs, torch.cuda.current_stream().cuda_stream)
@@ -214,3 +240,5 @@ def launch(name: str, *args) -> None:
                            f"({msg})")
     with _count_lock:
         LAUNCHES[name] += 1
+        if entry in ENTRY_LAUNCHES:
+            ENTRY_LAUNCHES[entry] += 1

@@ -19,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -144,6 +144,37 @@ def occ4_fused_batch(fmd: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     out = torch.where((k == fmd.seq_len)[..., None], L2[1:5] - L2[0:4], out)
     out = torch.where((k < 0)[..., None], 0, out)
     return out.to(fmd.idx_dtype)
+
+
+def rank_rows(fmd: DeviceFMIndex, qpos: torch.Tensor, s: torch.Tensor,
+              need: Optional[torch.Tensor] = None,
+              touched: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused rows one bidirectional extension reads (where ``need``): its
+    occ4 ranks at qpos - 1 and qpos - 1 + s, where a rank at k < 0 or k ==
+    seq_len reads none and two ranks in one block read that row once ->
+    (...) int64 in 0..2. ``touched``, a bool per fused row, gets the rows
+    read set: the distinct rows, each read once, are the index bytes that
+    bound a seeding kernel."""
+    def at(k):
+        kk = torch.where(k >= fmd.primary, k - 1, k)
+        kk = torch.clamp(kk, 0, fmd.seq_len - 1)
+        return (k >= 0) & (k != fmd.seq_len), (kk + 1) // OCC_INTERVAL
+
+    qpos, s = qpos.long(), s.long()
+    la, ba = at(qpos - 1)
+    lb, bb = at(qpos - 1 + s)
+    if need is not None:
+        la, lb = la & need, lb & need
+    if touched is not None:
+        touched[ba[la]] = True
+        touched[bb[lb]] = True
+    return la.long() + (lb & ~(la & (ba == bb))).long()
+
+
+def lf_row(fmd: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
+    """The fused row ``lf_batch`` reads for row k (k != primary)."""
+    k = k.long()
+    return torch.where(k > fmd.primary, k - 1, k) // OCC_INTERVAL
 
 
 def _extend_all(fmd: DeviceFMIndex, qpos: torch.Tensor, other_base:

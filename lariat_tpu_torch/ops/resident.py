@@ -10,7 +10,9 @@ there:
 
 Out-of-range positions give code 4 (N); the DP kernels mask by qlen/tlen,
 so pad content never matters. The gathers are plain torch ops (XLA ops in
-the JAX package, not Pallas); the extension itself is kernel K1.
+the JAX package, not Pallas). The extend wave on the card does not run
+them: kernel K1's descriptor entry makes the same loads itself. K2's waves
+(the engine's reg2aln driver) still gather with ``build_qt``.
 """
 
 from __future__ import annotations
@@ -139,18 +141,14 @@ def build_qt(reads: torch.Tensor, pac_words: torch.Tensor, l_pac: int,
 def extend_wave_resident(reads: torch.Tensor, pac_words: torch.Tensor,
                          l_pac: int, desc: torch.Tensor, Lq: int, Lt: int,
                          opt_key: tuple) -> torch.Tensor:
-    """One extend wave fed from resident data: gather, then K1 -> (8, B)
-    int32 on the descriptors' device.
-
-    opt_key = (o_del, e_del, o_ins, e_ins, end_bonus, zdrop, match_sc,
-    mismatch_sc)."""
+    """One extend wave fed from resident data -> (8, B) int32 on the
+    descriptors' device (K1's rows): ``sw_extend.extend_desc``, one launch
+    on the card, ``build_qt`` and the plain twin on the CPU. opt_key =
+    (o_del, e_del, o_ins, e_ins, end_bonus, zdrop, match_sc, mismatch_sc);
+    N scores -1 (bwa)."""
     (o_del, e_del, o_ins, e_ins, end_bonus, zdrop, match_sc,
      mismatch_sc) = opt_key
-    q, t = build_qt(reads, pac_words, l_pac, desc, Lq, Lt)
-    col = [desc[:, k].to(torch.int32).contiguous()
-           for k in (D_QL, D_TL, D_W, D_H0)]
-    qlen, tlen, w, h0 = col
-    return sw_extend.extend_batch(
-        q, qlen, t, tlen, w, h0, o_del=o_del, e_del=e_del, o_ins=o_ins,
-        e_ins=e_ins, end_bonus=end_bonus, zdrop=zdrop, match_sc=match_sc,
-        mismatch_sc=mismatch_sc)
+    return sw_extend.extend_desc(
+        reads, pac_words, l_pac, desc, Lq, Lt, o_del=o_del, e_del=e_del,
+        o_ins=o_ins, e_ins=e_ins, end_bonus=end_bonus, zdrop=zdrop,
+        match_sc=match_sc, mismatch_sc=mismatch_sc, n_sc=-1)

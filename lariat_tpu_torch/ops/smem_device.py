@@ -29,13 +29,13 @@ transitions; the port gives each lane exactly that.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
-from .fm_batch import DeviceFMIndex, bwt_extend_dir_batch
+from .fm_batch import DeviceFMIndex, bwt_extend_dir_batch, rank_rows
 
 # transitions per step-cap check in the reference's while loop
 UNROLL = 2
@@ -79,10 +79,12 @@ def min_starts_twoptr_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
                             start_e: torch.Tensor, end_e: torch.Tensor,
                             min_intv: torch.Tensor, mid: torch.Tensor,
                             L: int, budget: int, bwd_init: bool,
-                            min_seed: int, cap: int):
+                            min_seed: int, cap: int,
+                            touched: Optional[torch.Tensor] = None):
     """Plain twin of K4a: every lane steps in lock step (the reference's
-    body, with masks) -> (meta, big, aux); aux = (R, 2) int32 [seeds
-    counted, transitions run] per lane."""
+    body, with masks) -> (meta, big, aux); aux = (R, 3) int32 [seeds
+    counted, transitions run, fused rows read (``rank_rows``)] per lane.
+    ``touched`` (a bool per fused row) gets the rows read set."""
     dev = reads.device
     R = reads.shape[0]
     rd = reads.long()
@@ -108,7 +110,7 @@ def min_starts_twoptr_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
         e, b = se.clone(), se.clone()
         bwd = torch.zeros(R, dtype=torch.bool, device=dev)
         p, etgt, bx0, bx1, bs = zero, zero, one, one, zero
-    n, used = zero, zero
+    n, used, nrows = zero, zero, zero
     rows = torch.arange(R, device=dev)
     slots = torch.zeros((R, cap), dtype=torch.long, device=dev)
     outb = torch.zeros((R, 3, cap), dtype=torch.long, device=dev)
@@ -134,6 +136,8 @@ def min_starts_twoptr_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
         nx0, nx1, ns = (v.long() for v in bwt_extend_dir_batch(
             fmd, torch.where(need, rx0, 1), torch.where(need, rx1, 1), rs,
             rc, do_bwd))
+        nrows = nrows + rank_rows(fmd, torch.where(do_bwd, rx0, rx1), rs,
+                                  need, touched)
         acc = need & (ns >= mi)
         sc0, sc1, scs = _single(L2, c_f)
         fwd_emit = fwd_live & (empty | nf | acc)
@@ -184,7 +188,7 @@ def min_starts_twoptr_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
                       torch.zeros((R, 1), dtype=torch.long, device=dev)],
                      dim=1).to(torch.int32)
     big = outb.reshape(R, 3 * cap).to(fmd.idx_dtype)
-    aux = torch.stack([n, used], dim=1).to(torch.int32)
+    aux = torch.stack([n, used, nrows], dim=1).to(torch.int32)
     return meta, big, aux
 
 
@@ -198,10 +202,12 @@ def min_starts_twoptr(fmd: DeviceFMIndex, reads: torch.Tensor,
     b <= mid, length >= min_seed and interval size >= min_intv.
 
     reads (R, L) codes (uint8 for the kernel); start_e, end_e, mid (R,);
-    min_intv (R,). Returns two planes: meta int32 (R, cap+3) = [qb<<16|qe
-    slots | count | lane_done | flags] (flags bit 0: every lane done, bit
-    1: a slot overflowed, bits 2+: transitions run) and big (R, 3*cap) in
-    the index dtype = [x0 | x1 | s] slots."""
+    min_intv (R,). Returns the reference's two planes and the lanes' walk
+    lengths: meta int32 (R, cap+3) = [qb<<16|qe slots | count | lane_done |
+    flags] (flags bit 0: every lane done, bit 1: a slot overflowed, bits
+    2+: transitions run), big (R, 3*cap) in the index dtype = [x0 | x1 | s]
+    slots, and aux (R, 3) int32 = [seeds counted, transitions run, fused
+    rows read] per lane."""
     dev = reads.device
     R = reads.shape[0]
     dt = fmd.idx_dtype
@@ -218,18 +224,20 @@ def min_starts_twoptr(fmd: DeviceFMIndex, reads: torch.Tensor,
         _build.check("fused", fmd.fused, dev, tuple(fmd.fused.shape))
         meta = torch.zeros((R, cap + 3), dtype=torch.int32, device=dev)
         big = torch.zeros((R, 3 * cap), dtype=dt, device=dev)
-        aux = torch.empty((R, 2), dtype=torch.int32, device=dev)
+        aux = torch.empty((R, 3), dtype=torch.int32, device=dev)
         _build.launch("smem_twoptr", reads, start_e, end_e, min_intv, mid,
                       *_fm_args(fmd), R, L, budget, int(bwd_init),
                       int(min_seed), cap, meta, big, aux)
     _twoptr_flags(meta, aux, cap)
-    return meta, big
+    return meta, big, aux
 
 
 def min_starts_kernel_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
                             read_idx: torch.Tensor, e: torch.Tensor,
-                            min_intv: torch.Tensor, L: int):
-    """Plain twin of K4b (all lanes in lock step)."""
+                            min_intv: torch.Tensor, L: int,
+                            touched: Optional[torch.Tensor] = None):
+    """Plain twin of K4b (all lanes in lock step); ``touched`` (a bool per
+    fused row) gets the rows its extensions read set."""
     flat = reads.reshape(-1).long()
     L2 = fmd.L2.long()
     ri = read_idx.long() * L
@@ -253,6 +261,8 @@ def min_starts_kernel_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
         n0, n1, ns = (v.long() for v in bwt_extend_dir_batch(
             fmd, torch.where(can, x0, 1), torch.where(can, x1, 1),
             torch.where(can, s, 0), c.clamp(0, 3), torch.ones_like(can)))
+        if touched is not None:
+            rank_rows(fmd, x0, s, can, touched)
         acc = can & (ns >= mi)
         x0 = torch.where(acc, n0, x0)
         x1 = torch.where(acc, n1, x1)
@@ -288,9 +298,10 @@ def min_starts_kernel(fmd: DeviceFMIndex, reads: torch.Tensor,
 
 def strategy1_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
                     lens: torch.Tensor, max_intv: int, L: int, min_len: int,
-                    cap: int):
+                    cap: int, touched: Optional[torch.Tensor] = None):
     """Plain twin of K4c before packing: per read (count, qb, qe, x0, x1,
-    s), the slots (R, cap) in emission order (ascending qb)."""
+    s), the slots (R, cap) in emission order (ascending qb); ``touched`` (a
+    bool per fused row) gets the rows its extensions read set."""
     dev = reads.device
     R = reads.shape[0]
     rd = reads.long()
@@ -311,6 +322,8 @@ def strategy1_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
         n0, n1, ns = (v.long() for v in bwt_extend_dir_batch(
             fmd, torch.where(ext, x0, 1), torch.where(ext, x1, 1),
             torch.where(ext, s, 0), c.clamp(0, 3), torch.zeros_like(ext)))
+        if touched is not None:
+            rank_rows(fmd, x1, s, ext, touched)
         emit = ext & (ns < max_intv) & ((t - x) >= min_len) & (n < cap)
         ri, k = rows[emit], n[emit]
         for j, v in enumerate((x, torch.full_like(x, t + 1), n0, n1, ns)):

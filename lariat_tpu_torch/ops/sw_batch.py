@@ -43,12 +43,15 @@ def extend_batch(query: torch.Tensor, qlen: torch.Tensor,
                  mat: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
                  o_del: int = 6, e_del: int = 1, o_ins: int = 6,
                  e_ins: int = 1, end_bonus: int = 5, zdrop: int = 100,
-                 packed: bool = False):
+                 packed: bool = False, rows_run: bool = False):
     """Batched ksw_extend2 on the tensors' device.
 
     query (B, Lq) and target (B, Lt) codes 0..4, padded arbitrarily past
     qlen/tlen; qlen, tlen, w, h0 (B,); mat (5, 5) scoring matrix. Returns
-    an ExtendBatchResult, or with ``packed`` one (6, B) int32 tensor."""
+    an ExtendBatchResult, or with ``packed`` one (6, B) int32 tensor; with
+    ``rows_run`` also the (B,) int32 count of rows each task entered
+    before it stopped (its stopping row included): the work a kernel must
+    do on these inputs."""
     dev = query.device
     B, Lq = query.shape
     Lt = target.shape[1]
@@ -86,9 +89,11 @@ def extend_batch(query: torch.Tensor, qlen: torch.Tensor,
     zcol = torch.zeros((B, 1), dtype=i32, device=dev)
     negcol = torch.full((B, 1), NEG, dtype=i32, device=dev)
     bidx = torch.arange(B, device=dev)
+    n_run = torch.zeros((B,), dtype=i32, device=dev)
 
     for i in range(Lt):
         in_row = alive & (i < tlen)
+        n_run += in_row.to(i32)
         beg = torch.clamp(i - w, min=0)
         end = torch.minimum(i + w + 1, qlen)
         band = (jr >= beg[:, None]) & (jr < end[:, None])
@@ -164,6 +169,5 @@ def extend_batch(query: torch.Tensor, qlen: torch.Tensor,
         gscore=torch.where(empty, h0, gscore),
         max_off=torch.where(empty, 0, max_off))
     res = ExtendBatchResult(*(r.to(i32) for r in res))
-    if packed:
-        return torch.stack(list(res))
-    return res
+    out = torch.stack(list(res)) if packed else res
+    return (out, n_run) if rows_run else out

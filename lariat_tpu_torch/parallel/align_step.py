@@ -10,11 +10,12 @@ The exact-match search, the window fetch and the one-call align steps
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 import numpy as np
 import torch
 
 from ..ops import _build
-from ..ops.fm_batch import DeviceFMIndex, lf_batch
+from ..ops.fm_batch import DeviceFMIndex, lf_batch, lf_row
 
 
 @dataclasses.dataclass
@@ -32,8 +33,11 @@ class DeviceGenome:
 
 def sa_walk_chunk_plain(g: DeviceGenome, k: torch.Tensor,
                         steps: torch.Tensor, done: torch.Tensor,
-                        max_steps: int) -> torch.Tensor:
-    """Plain twin of K5 (every lane in lock step)."""
+                        max_steps: int,
+                        touched: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Plain twin of K5 (every lane in lock step); ``touched`` (a bool per
+    fused row) gets the rows its LF steps read set."""
     fmd = g.fmd
     dt = k.dtype
     k, steps = k.long(), steps.long()
@@ -42,6 +46,8 @@ def sa_walk_chunk_plain(g: DeviceGenome, k: torch.Tensor,
         if bool(done.all()):
             break
         lf = torch.where(k == fmd.primary, 0, lf_batch(fmd, k).long())
+        if touched is not None:
+            touched[lf_row(fmd, k[~done & (k != fmd.primary)])] = True
         k = torch.where(done, k, lf)
         steps = torch.where(done, steps, steps + 1)
         done = done | (k % g.sa_intv == 0)

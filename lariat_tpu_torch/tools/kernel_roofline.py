@@ -43,14 +43,15 @@ also reports its share of the memory peak.
 
 Inputs: K2 and K3 take the JAX tool's random codes and lengths. K1 does
 not: with random codes nearly every lane dies under the z-drop test within
-a few rows, so the cells it visits would be unknown. Each K1 query is
-planted unmutated at the start of its target. The row maximum then is
-h0 + i + 1 on the diagonal and rises every row up to row qlen - 1; past
-it, the deletion path from that corner keeps each row's maximum within
-o_del + rows x e_del of the best, and the z-drop test takes the same rows
-back as its gap term, so its left side stays at most o_del. Every lane
-runs until its band leaves the query (row qlen + w); ``_check_k1`` checks
-the score and ends that this implies.
+a few rows. Each K1 query is planted unmutated at the start of its target.
+The row maximum then is h0 + i + 1 on the diagonal and rises every row up
+to row qlen - 1; past it, the deletion path from that corner keeps each
+row's maximum within o_del + rows x e_del of the best, and the z-drop test
+takes the same rows back as its gap term, so its left side stays at most
+o_del. Every lane runs until its band leaves the query (row qlen + w);
+``_check_k1`` checks the score and ends that this implies. K1's cells are
+the band cells of the rows each task ran, by the twin's count
+(``band_cells_batch``), as chip_smoke.py counts them.
 
 ``smem_seed`` is the JAX tool's section of the same name: the whole device
 seeding (``ops/smem_device.collect_seeds_rbegs_device``, K4a-K4c and K5)
@@ -77,8 +78,8 @@ import torch
 from ..config import AlignerConfig
 from ..device import get_device
 from ..index import fmindex
-from ..ops import (_build, fm_batch, smem_device, sw_extend, sw_global,
-                   sw_local)
+from ..ops import (_build, fm_batch, smem_device, sw_batch, sw_extend,
+                   sw_global, sw_local)
 from ..parallel.align_step import DeviceGenome
 from . import card, median_ms
 
@@ -105,6 +106,18 @@ def band_cells(qlen: int, tlen: int, w: int) -> int:
     visits."""
     return sum(max(0, min(i + w + 1, qlen) - max(i - w, 0))
                for i in range(tlen))
+
+
+def band_cells_batch(qlen, rows, w) -> int:
+    """Cells of many banded DPs: task b over its rows 0..rows[b]-1, band
+    [max(i - w, 0), min(i + w + 1, qlen)) -- K1's work when rows are the
+    rows each task ran (``sw_batch.extend_batch(..., rows_run=True)``) and w
+    the band ``_adjust_w`` leaves."""
+    qlen, rows, w = (np.asarray(a, np.int64)[:, None]
+                     for a in (qlen, rows, w))
+    i = np.arange(max(int(rows.max(initial=0)), 1))[None, :]
+    n = np.clip(np.minimum(i + w + 1, qlen) - np.maximum(i - w, 0), 0, None)
+    return int(np.where(i < rows, n, 0).sum())
 
 
 def nbytes(*tensors) -> int:
@@ -153,7 +166,15 @@ def measure(dev: torch.device, iters: int = 7) -> dict:
 
     _check_k1(k1(), qlen, h0)
     ms = median_ms(k1, dev, iters)
-    cells = float(B) * band_cells(qlen, tlen, w)
+    # the band cells of the rows each task ran, as the twin counts them
+    _, rows = sw_batch.extend_batch(
+        args[0], args[1], args[2], args[3],
+        sw_extend.score_matrix(1, -4, -1, dev), args[4], args[5],
+        o_del=6, e_del=1, o_ins=6, e_ins=1, end_bonus=5, zdrop=100,
+        packed=True, rows_run=True)
+    w_eff = sw_batch._adjust_w(args[1], args[4], 1, 5, 6, 1, 6, 1)
+    cells = float(band_cells_batch(np.full(B, qlen), rows.cpu().numpy(),
+                                   w_eff.cpu().numpy()))
     res["extend"] = {
         "shape": [B, Lq, Lt], "ms": ms, "cells": cells,
         "cells_per_s": cells / (ms * 1e-3),

@@ -120,3 +120,122 @@ def test_bwt_extend_matches_jax(indices, dt):
     for g, w in zip(got, want):
         assert g.dtype == fmd.idx_dtype
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# ---- K4a's group rank (csrc/fm.cuh occ4_pair_group), emulated ----------------
+
+def _popcount(x):
+    x = x.astype(np.uint64)
+    return np.array([bin(int(v)).count("1") for v in x.ravel()],
+                    np.uint64).reshape(x.shape)
+
+
+def _field_match(w, c):
+    y = w ^ np.uint64(c * 0x55555555)
+    return ~(y | (y >> np.uint64(1))) & np.uint64(0x55555555)
+
+
+def _keep_mask(n):
+    n = n.astype(np.int64)
+    return np.where(n <= 0, 0, (0xFFFFFFFF << (32 - 2 * n)) & 0xFFFFFFFF
+                    ).astype(np.uint64)
+
+
+def emulate_group_rank(fused, L2, primary, seq_len, ka, kb, G):
+    """occ4 at ka and kb (arrays) as a group of G threads computes them:
+    both checkpoint rows loaded by every thread (the second skipped when
+    both ranks share a block), bwt words split 16/G a thread (the first G/2
+    threads rank ka), a byte a code, summed by xor-shuffles within each half
+    and swapped across the halves -> (ta, tb, rows fetched); every thread of
+    the group must end with the same counts."""
+    H, WPT = G // 2, 8 // (G // 2)
+    rows = fused.view(np.uint32).astype(np.uint64)
+
+    def at(k):
+        kk = np.clip(np.where(k >= primary, k - 1, k), 0, seq_len - 1)
+        return (k >= 0) & (k != seq_len), (kk + 1) >> 7, (kk + 1) & 127
+
+    la, ba, ra = at(ka)
+    lb, bb, rb = at(kb)
+    same = la & lb & (ba == bb)
+    zero = np.zeros((len(ka), 4), np.uint64)
+    ca = np.where(la[:, None], rows[ba, :4], zero)
+    cb = np.where((lb & ~same)[:, None], rows[bb, :4], zero)
+    cb = np.where(same[:, None], ca, cb)
+    packed = []
+    for g in range(G):
+        on_b, part = g >= H, g & (H - 1)
+        load, blk, rem = (lb, bb, rb) if on_b else (la, ba, ra)
+        p = np.zeros(len(ka), np.uint64)
+        for i in range(WPT):
+            wi = part * WPT + i
+            w = np.where(load, rows[blk, 4 + wi], 0).astype(np.uint64)
+            keep = _keep_mask(np.clip(rem - 16 * wi, 0, 16))
+            for c in range(4):
+                p += _popcount(_field_match(w, c) & keep) << np.uint64(8 * c)
+        packed.append(p & np.uint64(0xFFFFFFFF))
+    o = 1
+    while o < H:                       # __shfl_xor_sync(gmask, packed, o)
+        packed = [(packed[g] + packed[g ^ o]) & np.uint64(0xFFFFFFFF)
+                  for g in range(G)]
+        o <<= 1
+    other = [packed[g ^ H] for g in range(G)]
+    L2 = np.asarray(L2, np.int64)
+    tot = L2[1:] - L2[:4]
+    outs = []
+    for g in range(G):
+        pa, pb = (other[g], packed[g]) if g >= H else (packed[g], other[g])
+        res = []
+        for k, ck, pk in ((ka, ca, pa), (kb, cb, pb)):
+            cnt = np.stack([(pk >> np.uint64(8 * c)) & np.uint64(0xFF)
+                            for c in range(4)], axis=1)
+            v = (ck + cnt).astype(np.int64)
+            v = np.where((k == seq_len)[:, None], tot[None, :], v)
+            res.append(np.where((k < 0)[:, None], 0, v))
+        outs.append(res)
+    for g in range(1, G):
+        np.testing.assert_array_equal(outs[g][0], outs[0][0])
+        np.testing.assert_array_equal(outs[g][1], outs[0][1])
+    return outs[0][0], outs[0][1], la.astype(np.int64) + (lb & ~same)
+
+
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+@pytest.mark.parametrize("G", [4, 8, 16])
+def test_group_rank_matches_occ4(indices, dt, G):
+    """The group rank against the port's and the JAX package's
+    occ4_fused_batch at k < 0, k == seq_len, around primary, k & 127 in {0,
+    127}, both ranks in one block (the one-row reuse) and in two; the rows
+    fetched against rank_rows."""
+    fm, jdfm, idx = indices
+    fmd = idx[dt]
+    rng = np.random.default_rng(13 + G)
+    ka = _rows(fm, rng, n=600)
+    blk = rng.integers(0, fm.seq_len // 128, 40)
+    ka[-80:-40] = blk * 128                   # k & 127 == 0
+    ka[-40:] = blk * 128 + 127                # k & 127 == 127
+    s = np.where(rng.random(len(ka)) < 0.5, rng.integers(0, 4, len(ka)),
+                 rng.integers(0, 400, len(ka)))
+    s[:8] = 0
+    kb = np.minimum(ka + s, fm.seq_len)
+    kb[8:12] = -1
+    fused = np.asarray(jdfm.fused)
+    ta, tb, rows = emulate_group_rank(fused, np.asarray(jdfm.L2),
+                                      fm.primary, fm.seq_len, ka, kb, G)
+    for k, got in ((ka, ta), (kb, tb)):
+        want = tfm.occ4_fused_batch(fmd, torch.from_numpy(k)).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            got, np.asarray(jfm.occ4_fused_batch(jdfm, _j(k, jdfm))))
+    ok = kb >= ka          # rank_rows takes qpos = ka + 1 and s = kb - ka
+    want_rows = tfm.rank_rows(fmd, torch.from_numpy(ka[ok] + 1),
+                              torch.from_numpy(kb[ok] - ka[ok])).numpy()
+    np.testing.assert_array_equal(rows[ok], want_rows)
+    assert (rows == 1).any() and (rows == 2).any()
+    # the rows one extension marks are the rows it counts; none where not
+    # needed
+    for i in np.nonzero(ok)[0][:60]:
+        touched = torch.zeros(fmd.fused.shape[0], dtype=torch.bool)
+        need = torch.tensor([i % 7 != 0])
+        n = tfm.rank_rows(fmd, torch.tensor([ka[i] + 1]),
+                          torch.tensor([kb[i] - ka[i]]), need, touched)
+        assert int(touched.sum()) == int(n[0]) == (rows[i] if need else 0)

@@ -114,7 +114,7 @@ def test_twoptr_twin_matches_jax(idx, bwd_init, max_steps, cap):
         max_steps=max_steps, bwd_init=bwd_init, min_seed=19, cap=cap,
         mid=torch.from_numpy(mid))
     wmeta, wbig = (np.asarray(a) for a in want)
-    gmeta, gbig = (a.numpy() for a in got)
+    gmeta, gbig = (a.numpy() for a in got[:2])
     # flags bits 2+ are the reference's transition count: equal too
     np.testing.assert_array_equal(gmeta, wmeta)
     np.testing.assert_array_equal(gbig, wbig)
@@ -242,11 +242,11 @@ def test_forced_exhaustive_fallback(idx, monkeypatch):
     calls = {"exh": 0}
 
     def blown(*a, **kw):
-        meta, big = orig_twoptr(*a, **kw)
+        meta, big, aux = orig_twoptr(*a, **kw)
         cap = kw["cap"]
         meta[:, cap + 1] = 0
         meta[:, cap + 2] &= ~1
-        return meta, big
+        return meta, big, aux
 
     def exh(*a, **kw):
         calls["exh"] += 1
@@ -341,6 +341,7 @@ def test_twoptr_kernel_matches_twin(idx, cuda_device, dt, bwd_init,  # noqa: F81
             max_steps=max_steps, bwd_init=bwd_init, min_seed=19, cap=cap,
             mid=put(mid))
 
+    # meta, big, and aux: seeds, transitions and rows fetched per lane
     got, want = _both(run, cuda_device)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
@@ -404,3 +405,42 @@ def test_sa_walk_kernel_matches_twin(idx, cuda_device, dt):  # noqa: F811
 
     got, want = _both(run, cuda_device)
     assert torch.equal(got.cpu(), want)
+
+
+def test_twins_count_rank_rows(idx):
+    """The rows the seeding twins count for their bounds, on unchanged
+    outputs: K4a's per lane (aux column 2) at most two a transition; the
+    distinct rows that K4a's, K4b's, K4c's and K5's twins mark, at most
+    the rows fetched and at most the table."""
+    fm, genome, _, fmd, _ = idx
+    reads = _messy_reads(genome, np.random.default_rng(7), n=12)
+    rmat, lens = _batch(reads)
+    start, mi, mid = _twoptr_inputs(rmat, lens, False)
+    t = torch.from_numpy
+
+    def marked(fn, *a, **kw):
+        touched = torch.zeros(fmd.fused.shape[0], dtype=torch.bool)
+        out = fn(*a, touched=touched, **kw)
+        for x, y in zip(out, fn(*a, **kw)):
+            assert torch.equal(x, y)
+        n = int(touched.sum())
+        assert 0 < n <= fmd.fused.shape[0]
+        return out, n
+
+    (meta, big, aux), n4a = marked(
+        tsd.min_starts_twoptr_plain, fmd, t(rmat), t(start), t(lens),
+        t(mi).to(fmd.idx_dtype), t(mid), L, tsd._budget(3 * L), False, 19, 32)
+    n, used, rows = (aux[:, k].long() for k in range(3))
+    assert bool((rows <= 2 * used).all()) and n4a <= int(rows.sum())
+    R = len(lens)
+    ri = t(np.repeat(np.arange(R), L).astype(np.int32))
+    ee = t(np.tile(np.arange(1, L + 1), R).astype(np.int32))
+    ones = t(np.ones(R * L, np.int64))
+    marked(tsd.min_starts_kernel_plain, fmd, t(rmat), ri, ee, ones, L)
+    marked(tsd.strategy1_plain, fmd, t(rmat), t(lens), 20, L, 19, 8)
+    g = tas.DeviceGenome.from_host(fm, fmd)
+    k = t(np.random.default_rng(5).integers(0, fm.seq_len, 256))
+    zero = torch.zeros(256, dtype=torch.long)
+    (_, steps, _), n5 = marked(tas.sa_walk_chunk_plain, g, k, zero,
+                               torch.zeros(256, dtype=torch.bool), 64)
+    assert n5 <= int(steps.sum())

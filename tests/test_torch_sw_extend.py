@@ -108,3 +108,62 @@ def test_extend_kernel_matches_twin(cuda_device):
     got = sw_extend.extend_batch(*(x.to(cuda_device) for x in cpu))
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lt,zdrop", [(192, 576, 100), (448, 320, 100),
+                                         (96, 120, 5), (96, 120, 0),
+                                         (160, 200, -1)])
+def test_extend_kernel_edge_shapes(cuda_device, Lq, Lt, zdrop):
+    """The warp-per-task kernel on the wavefront emulation's edge shapes
+    (tests/test_torch_wavefront.py), Lq 448 running two column tiles."""
+    from test_torch_wavefront import _extend_case
+    q, t, qlen, tlen, w, h0 = _extend_case(Lq + Lt + zdrop, Lq, Lt, 6)
+    cpu = _t(q, qlen, t, tlen, w, h0)
+    want = sw_extend.extend_batch(*cpu, zdrop=zdrop)
+    got = sw_extend.extend_batch(*(x.to(cuda_device) for x in cpu),
+                                 zdrop=zdrop)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("entry", ["tiles", "descriptors"])
+def test_extend_steps_need_the_kernel(entry):
+    """The warp steps are the kernel's own count: a CPU call (the twin)
+    given a steps output raises."""
+    qa, qlen, ta, tlen, w, h0 = _fuzz(3)
+    steps = torch.zeros(len(qlen), dtype=torch.int32)
+    with pytest.raises(ValueError, match="counted by the kernel"):
+        if entry == "tiles":
+            sw_extend.extend_batch(*_t(qa, qlen, ta, tlen, w, h0),
+                                   steps=steps)
+        else:
+            B = len(qlen)
+            desc = np.zeros((B, 9), np.int32)
+            desc[:, 3], desc[:, 6], desc[:, 7], desc[:, 8] = qlen, tlen, h0, w
+            desc[:, 2] = desc[:, 5] = 1
+            sw_extend.extend_desc(
+                torch.from_numpy(qa.astype(np.uint8)),
+                torch.zeros(16, dtype=torch.int32), 256,
+                torch.from_numpy(desc), qa.shape[1], ta.shape[1], steps=steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lt,zdrop", [(192, 576, 100), (448, 320, 100),
+                                         (96, 120, 0), (160, 200, -1)])
+def test_extend_kernel_counts_its_steps(cuda_device, Lq, Lt, zdrop):
+    """The kernel's step count equals the wavefront emulation's, task by
+    task, at the kernel's C (the fewest columns a lane that cover qlen, at
+    most 8; Lq 448 runs two tiles)."""
+    from test_torch_wavefront import EXT, _extend_case, emulate_extend
+    q, t, qlen, tlen, w, h0 = _extend_case(Lq + Lt + zdrop, Lq, Lt, 6)
+    steps = torch.full((len(qlen),), -1, dtype=torch.int32,
+                       device=cuda_device)
+    sw_extend.extend_batch(*(x.to(cuda_device)
+                             for x in _t(q, qlen, t, tlen, w, h0)),
+                           zdrop=zdrop, steps=steps)
+    want = [sum(emulate_extend(
+        q[b], int(qlen[b]), t[b], int(tlen[b]), int(w[b]), int(h0[b]),
+        min(max((int(qlen[b]) + 31) // 32, 1), 8), zdrop=zdrop, **EXT)[1])
+        for b in range(len(qlen))]
+    assert steps.cpu().tolist() == want

@@ -121,3 +121,49 @@ def test_tools_refuse_without_cuda(tmp_path, monkeypatch):
                 lambda: prime_profile.main([str(fasta), str(fq), "7"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             run()
+
+
+def test_roofline_band_cells_batch_counts_rows_run():
+    """K1's work: the band cells of the rows each task ran."""
+    rng = np.random.default_rng(3)
+    qlen = rng.integers(0, 40, 30)
+    rows = rng.integers(0, 60, 30)
+    w = rng.integers(0, 12, 30)
+    want = sum(kernel_roofline.band_cells(int(q), int(r), int(x))
+               for q, r, x in zip(qlen, rows, w))
+    assert kernel_roofline.band_cells_batch(qlen, rows, w) == want
+    assert kernel_roofline.band_cells_batch([5], [0], [3]) == 0
+
+
+def test_kernel_turns_inputs():
+    """The turns tool's K1 inputs (chip_smoke.py phase 3's) and its seeding
+    batch from a FASTQ."""
+    from lariat_tpu_torch.tools import kernel_turns
+    a = kernel_turns.k1_inputs(np.random.default_rng(1), B=200)
+    b = kernel_turns.k1_inputs(np.random.default_rng(1), B=200)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    q, qlen, t, tlen, w, h0 = a
+    assert q.shape == (200, 192) and t.shape == (200, 576)
+    assert (qlen[:64] == 0).all() and (tlen[64:128] == 0).all()
+    assert (qlen <= 151).all() and (w == 100).all() and (h0 >= 19).all()
+    assert q.max() <= 4 and t.max() <= 4
+
+
+def test_kernel_turns_seed_batch_and_refusal(tmp_path, monkeypatch):
+    from lariat_tpu_torch.align.engine import encode_read
+    from lariat_tpu_torch.io.fastq import FastQReader
+    from lariat_tpu_torch.tools import kernel_turns
+    fasta, fq = _inputs(tmp_path)
+    rmat, lens, qs = kernel_turns.seed_batch(str(fq), 7)
+    recs, _ = FastQReader(str(fq)).read_barcode_set(0)
+    first = [encode_read(s) for r in recs for s in (r.read1, r.read2)][:7]
+    assert rmat.shape[0] == 7 and rmat.shape[1] % 64 == 0
+    for i, s in enumerate(first):
+        np.testing.assert_array_equal(qs[i], s)
+        assert lens[i] == len(s)
+        np.testing.assert_array_equal(rmat[i, :len(s)], s)
+        assert (rmat[i, len(s):] == 4).all()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            kernel_turns.main([str(fasta), str(fq)])
