@@ -30,8 +30,11 @@ Phases (one line each with its seconds, failures end the run nonzero):
      exact, with kernel and plain times (CUDA events, median of 7; the
      twins' median of 3): K4a at round 1's phase-A budget, at phase B's
      budget and at round 2, each in int32 and int64 indices, with its
-     lanes' transition counts; K4b over every (read, e) lane, K4c, K5 on
-     65,536 rows; K1's descriptor entry on a wave of 8,192 extensions of
+     lanes' transition counts; K4b over every (read, e) lane; K4c in int32
+     and int64; K5 as the SA lookup runs it (one launch of 512 steps over
+     65,536 rows, int32 and int64) with its longest walk, beside its
+     phase-1 shape (64 steps) and the whole lookup (sa_lookup_batch_host);
+     K1's descriptor entry on a wave of 8,192 extensions of
      reads from that genome, against build_qt plus the twin; then the
      device collect (collect_seeds_rbegs_device) on 250 reads of the
      FASTQ and six low-complexity ones, which blow K4a's step cap, so it
@@ -40,7 +43,8 @@ Phases (one line each with its seconds, failures end the run nonzero):
   7. the port (-use_device on -threads 8), a subprocess whose CLI resets
      the kernel launch counts before its main loop and prints them after;
   8. the port again with LARIAT_DEVICE_SEED=1: seeding and its SA walks
-     on the device (K4a, K4c, K5);
+     on the device (K4a, K4c, K5), each K5 launch logged (rows, max_steps,
+     longest walk, walks past 64 steps), one launch a lookup;
   9. tools: the three measurement entry points as subprocesses -- the T1
      ablation at full size, the kernel roofline (with its smem_seed
      section), and the priming profile over 2,000 pairs of the data
@@ -737,40 +741,28 @@ def phase_seeding(fasta, reads_path, pk):
                               *_bound(pk, 0, 48 * int(t4b.sum()) + _nbytes(
                                   rd, ri, ee, mi, *out4b)))
     cap3 = max(2, L // opt.min_seed_len + 2)
-    s1 = (fmd, rd, lens_d, int(opt.max_mem_intv), L, opt.min_seed_len, cap3)
+
+    def s1(f):
+        return (f, rd, lens_d, int(opt.max_mem_intv), L, opt.min_seed_len,
+                cap3)
 
     def k4c():
-        return sd.strategy1(*s1)
+        return sd.strategy1(*s1(fmd))
 
     def p4c():
-        return sd.pack_r3(*sd.strategy1_plain(*s1))
+        return sd.pack_r3(*sd.strategy1_plain(*s1(fmd)))
 
+    # int32 and int64 indices; the int32 run's rows bound it
+    e4c = err(sd.strategy1(*s1(fmd64)),
+              sd.pack_r3(*sd.strategy1_plain(*s1(fmd64))))
     out4c = k4c()
     t4c = no_rows()
-    want4c = sd.strategy1_plain(*s1, touched=t4c)
-    res["smem_strategy1"] = (err(out4c, sd.pack_r3(*want4c)),
+    want4c = sd.strategy1_plain(*s1(fmd), touched=t4c)
+    res["smem_strategy1"] = (max(e4c, err(out4c, sd.pack_r3(*want4c))),
                              _median_ms(k4c), _median_ms(p4c, n=3), (R, L),
                              *_bound(pk, 0, 48 * int(t4c.sum()) + _nbytes(
                                  rd, lens_d, *out4c)))
-    rng = np.random.default_rng(3)
-    n5 = 1 << 16
-    k5 = (g, put(rng.integers(0, fm.seq_len, n5)).to(fmd.idx_dtype),
-          torch.zeros(n5, dtype=fmd.idx_dtype, device=dev),
-          put(np.zeros(n5), bool), 64)
-
-    def k5k():
-        return align_step.sa_walk_chunk(*k5)
-
-    def p5():
-        return align_step.sa_walk_chunk_plain(*k5)
-
-    out5 = k5k()
-    t5 = no_rows()
-    want5 = align_step.sa_walk_chunk_plain(*k5, touched=t5)
-    res["sa_walk"] = (err([out5], [want5]), _median_ms(k5k),
-                      _median_ms(p5, n=3), (n5,),
-                      *_bound(pk, 0, 48 * int(t5.sum())
-                              + _nbytes(*k5[1:4], out5)))
+    res["sa_walk"] = _k5_lookup(fm, fmd, fmd64, g, pk, no_rows, err)
     for name, (e, ms, pms, shape, bms, by, *_) in res.items():
         print(f"  {name} {shape}: exact (max abs err {e}); kernel "
               f"{ms:.3f} ms, plain {pms:.3f} ms; bound {bms:.4f} ms "
@@ -780,6 +772,65 @@ def phase_seeding(fasta, reads_path, pk):
           f"{r1['ms']:.3f} ms) beside its bound")
     res["sw_extend_desc"] = _k1_desc_wave(fm, pk)
     return res, _fallback_collect(fm, fmd, g, qs[:FALLBACK_READS], opt)
+
+
+def _k5_lookup(fm, fmd, fmd64, g, pk, no_rows, err):
+    """K5 as the SA lookup runs it, one launch at the whole budget
+    (``align_step.LOOKUP_STEPS``) over 65,536 random rows (``kernel_turns.
+    lookup_rows``), against its twin in int32 and int64 indices, timed with
+    its bound (48 bytes a distinct fused row the twin's walks read, plus
+    inputs and outputs); beside it the phase-1 shape of earlier trees (64
+    steps), the whole ``sa_lookup_batch_host`` (the launch, the download and
+    the host sample add, positions checked against the twin's walk), the
+    longest walk's steps and the us a step of that walk."""
+    import numpy as np
+    import torch
+    from lariat_tpu_torch.parallel import align_step
+    from lariat_tpu_torch.tools.kernel_turns import lookup_rows
+    dev = fmd.device
+    rows = lookup_rows(fm.seq_len)
+    n5 = len(rows)
+    steps = align_step.LOOKUP_STEPS
+    e5 = 0
+    for f in (fmd64, fmd):        # the int32 run's inputs are kept
+        gf = align_step.DeviceGenome.from_host(fm, f)
+        k5 = (gf, torch.from_numpy(rows).to(dev, f.idx_dtype),
+              torch.zeros(n5, dtype=f.idx_dtype, device=dev),
+              torch.zeros(n5, dtype=torch.bool, device=dev), steps)
+        out5 = align_step.sa_walk_chunk(*k5)
+        t5 = no_rows()
+        want5 = align_step.sa_walk_chunk_plain(*k5, touched=t5)
+        e5 = max(e5, err([out5], [want5]))
+        if not bool(out5[2].bool().all()):
+            raise AssertionError("K5: a walk outlived the lookup's budget")
+
+    def k5k():
+        return align_step.sa_walk_chunk(*k5)
+
+    def k5p1():
+        return align_step.sa_walk_chunk(*k5[:4], 64)
+
+    def lookup():
+        return align_step.sa_lookup_batch_host(g, fm, rows)
+
+    sa = np.asarray(fm.sa_samples)
+    wk, ws = (want5[i].cpu().numpy().astype(np.int64) for i in (0, 1))
+    if not np.array_equal(lookup(), sa[wk // fm.sa_intv] + ws):
+        raise AssertionError("the SA lookup differs from its twin's walk")
+    ms = _median_ms(k5k)
+    longest = int(ws.max())
+    info = {"max_steps": steps, "longest": longest,
+            "mean_steps": float(ws.mean()),
+            "past_64": int((ws > 64).sum()),
+            "us_per_step_longest": 1e3 * ms / max(longest, 1),
+            "phase1_ms": _median_ms(k5p1), "lookup_ms": _median_ms(lookup),
+            "rows_distinct": int(t5.sum())}
+    print(f"  K5 one launch ({n5} rows, {steps} steps): exact in int32 and "
+          f"int64; {json.dumps(info)}")
+    return (e5, ms, _median_ms(lambda: align_step.sa_walk_chunk_plain(*k5),
+                               n=3), (n5, steps),
+            *_bound(pk, 0, 48 * int(t5.sum()) + _nbytes(*k5[1:4], out5)),
+            info)
 
 
 def _k1_desc_wave(fm, pk):
@@ -1072,13 +1123,32 @@ def _port_run(fasta, reads, out, log, env):
     if not em:
         raise AssertionError(f"no kernel entry launch line in {out}")
     launches["entries"] = json.loads(em.group(1))
+    wm = re.search(r"sa walks: (\[.*\])", stdout)
+    if not wm:
+        raise AssertionError(f"no SA walk line in {out}")
+    launches["walks"] = json.loads(wm.group(1))
     dev_line = re.search(r"device priming on (.*)", stdout)
     print(f"  {out}: {n} pairs, {rate} pairs/s ({wall:.1f}s wall with index "
           f"load); device waves {m.group(1)}, busy fraction {m.group(3)}; "
           f"primed {m.group(4)}, host {m.group(5)}; "
           f"{dev_line.group(1) if dev_line else '?'}")
-    print(f"  kernel launches in {out}: {json.dumps(launches)}")
+    print(f"  kernel launches in {out}: "
+          f"{json.dumps({k: v for k, v in launches.items() if k != 'walks'})}")
     return n, rate, int(m.group(4)), int(m.group(5)), launches
+
+
+def _cli_walks(walks, n_launches):
+    """K5's launches in the device-seeded CLI run, one per SA lookup, as
+    the CLI logged them: [rows (padded), max_steps, longest walk, walks
+    past 64 steps] a launch, checked against the kernel's launch count."""
+    if len(walks) != n_launches or any(w["max_steps"] != 512 for w in walks):
+        raise AssertionError(f"K5: {n_launches} launches for {len(walks)} "
+                             f"lookups")
+    out = {"cli_launches": [[w["rows"], w["max_steps"], w["longest"],
+                             w["past_64"]] for w in walks]}
+    print(f"  K5 in the device-seeded run ([rows, max_steps, longest walk, "
+          f"walks past 64] a launch): {json.dumps(out)}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1170,9 +1240,15 @@ def main(argv=None) -> int:
             if desc != n_k1:
                 raise AssertionError(f"{out}: {desc} of {n_k1} K1 launches "
                                      f"through the descriptor entry")
+        walks = _cli_walks(runs["out_port_seed"][4]["walks"],
+                           launches["sa_walk"])
+        if runs["out_port"][4]["walks"]:
+            raise AssertionError("the host-seeded run walked the SA on the "
+                                 "card")
     desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
     extra = {"sw_extend": {"desc_launches": desc,
-                           "desc_wave": kres.pop("sw_extend_desc")}}
+                           "desc_wave": kres.pop("sw_extend_desc")},
+             "sa_walk": walks}
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         err, ms, pms, _, bms, by, *more = kres[name]

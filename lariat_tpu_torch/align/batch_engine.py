@@ -105,6 +105,11 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
                 self._seed_state = (fmd, dg)
             return self._seed_state
 
+    def sa_walks(self) -> list:
+        """The SA lookups' K5 launches (``DeviceGenome.walks``); empty until
+        a batch has seeded on the device."""
+        return [] if self._seed_state is None else self._seed_state[1].walks
+
     def device_seeding(self) -> bool:
         """Whether batches seed on the device (the policy above)."""
         flag = os.environ.get("LARIAT_DEVICE_SEED")

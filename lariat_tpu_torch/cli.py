@@ -288,6 +288,7 @@ def run(argv=None):
         print(f"kernel launches: {json.dumps(_build.launches())}")
         print(f"kernel entry launches: "
               f"{json.dumps(_build.entry_launches())}")
+        print(f"sa walks: {json.dumps(device_engine.sa_walks())}")
     print(f"Processed {n_pairs} read pairs across {n_bcs} barcodes "
           f"in {dt:.1f}s ({n_pairs / max(dt, 1e-9):.1f} pairs/s)")
     if stats.picks:

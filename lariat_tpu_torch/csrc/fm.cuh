@@ -1,7 +1,8 @@
 // K6: FM-index rank primitives on the fused occ table, per thread, and the
-// group rank of K4a (G threads a rank pair, below). Shared __device__ code
-// of the seeding kernels (smem.cu: K4a-K4c) and the SA walk (sa_walk.cu:
-// K5); no launch of its own. K4b, K4c and K5 run the per-thread ranks.
+// group rank of K4a and K4c (G threads a rank pair, below). Shared
+// __device__ code of the seeding kernels (smem.cu: K4a-K4c) and the SA walk
+// (sa_walk.cu: K5); no launch of its own. K4b runs the per-thread ranks, K5
+// the per-thread `lf`.
 //
 // Replaces lariat_tpu/ops/fm_batch.py `occ4_fused_batch` (with
 // `_block_counts`), `bwt_extend_dir_batch` / `bwt_extend_batch` and
@@ -180,7 +181,7 @@ __device__ __forceinline__ void extend_dir(const FMView<IDX>& f, IDX x0,
   extend_from_occ(f, x0, x1, s, c, is_back, tk, tl, nx0, nx1, ns);
 }
 
-// ---- the group rank (K4a) ------------------------------------------------
+// ---- the group rank (K4a, K4c) -------------------------------------------
 //
 // G threads (4, 8 or 16 consecutive lanes of a warp, `gmask`, g their rank
 // in the group) compute the two occ4 of one extension together, at ka and
@@ -284,24 +285,31 @@ __device__ __forceinline__ int extend_dir_group(const FMView<IDX>& f,
   return rows;
 }
 
-// LF mapping of row k (k != primary: the caller maps that row to 0)
+// LF mapping of row k (k != primary: the caller maps that row to 0). The
+// base at k lies in the row's first piece of bwt words (pos < 64) or its
+// second: the second is loaded only when the base lies in it, since no base
+// of it is counted otherwise, so half the rows cost two 16-byte loads of
+// three. The word and the checkpoint are picked by two-level selects.
 template <typename IDX>
 __device__ __forceinline__ IDX lf(const FMView<IDX>& f, IDX k) {
   const IDX kx = k > f.primary ? k - 1 : k;
-  uint32_t r[12];
-  load_row(f.rows, static_cast<long long>(kx >> 7), r);
+  const uint4* p = f.rows + static_cast<long long>(kx >> 7) * 3;
   const int pos = static_cast<int>(kx & 127);
-  uint32_t word = r[4];
-#pragma unroll
-  for (int i = 1; i < 8; ++i) word = (pos >> 4) == i ? r[4 + i] : word;
+  const bool high = pos >= 64;
+  const uint4 ck = __ldg(p), lo = __ldg(p + 1);
+  const uint4 hi = high ? __ldg(p + 2) : make_uint4(0, 0, 0, 0);
+  const uint4 v = high ? hi : lo;
+  const int wi = (pos >> 4) & 3;
+  const uint32_t word = (wi & 2) ? ((wi & 1) ? v.w : v.z)
+                                 : ((wi & 1) ? v.y : v.x);
   const int c = (word >> ((15 - (pos & 15)) * 2)) & 3;
-  uint32_t base = r[0];
-#pragma unroll
-  for (int d = 1; d < 4; ++d) base = c == d ? r[d] : base;
+  const uint32_t base = (c & 2) ? ((c & 1) ? ck.w : ck.z)
+                                : ((c & 1) ? ck.y : ck.x);
+  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
   int cnt = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
-    cnt += __popc(field_match(r[4 + i], c)
+    cnt += __popc(field_match(w[i], c)
                   & keep_mask(min(max(pos + 1 - 16 * i, 0), 16)));
   return l2_at(f, c) + static_cast<IDX>(base) + cnt;
 }

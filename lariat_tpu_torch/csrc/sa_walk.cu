@@ -1,14 +1,20 @@
 // K5: one bounded, resumable stretch of the LF walk to a sampled suffix-array
 // row, one thread per row: k -> LF(k) (row primary -> 0), counting steps,
-// until k % sa_intv == 0 or max_steps steps ran. The (k, steps, done)
-// contract lets the host rerun the few unfinished rows at a narrow width.
+// until k is a multiple of sa_intv or max_steps steps ran. The (k, steps,
+// done) contract lets a caller resume unfinished rows; the SA lookup
+// (parallel/align_step.py) runs the whole 512-step budget in one launch,
+// since each thread leaves as soon as its own row is sampled.
 //
 // Replaces lariat_tpu/parallel/align_step.py `sa_walk_chunk` (an XLA
-// while_loop over `lf_batch`, whose trip count is the slowest lane's).
+// while_loop over `lf_batch`, whose trip count is the slowest lane's), and
+// with its caller `sa_lookup_batch_host`'s two phases.
 //
 // Bound on the H100: one dependent fused-row gather per step (fm.cuh `lf`);
-// rows finish after about sa_intv steps on average, each thread as soon as
-// its own row is sampled.
+// rows finish after about sa_intv steps on average, and a lookup's time is
+// its longest walk (about sa_intv x ln(rows) steps) times the latency of one
+// step. The step is kept short: `lf` loads the row pieces it needs, and a
+// power-of-two sa_intv (the index's 32) is tested with a mask instead of a
+// 64-bit remainder.
 
 #include <cstdint>
 
@@ -17,28 +23,46 @@
 
 namespace {
 
-template <typename IDX>
-__global__ void sa_walk_kernel(const IDX* __restrict__ k_in,
-                               const IDX* __restrict__ steps_in,
-                               const bool* __restrict__ done_in,
-                               const int32_t* __restrict__ fused,
-                               const IDX* __restrict__ L2, long long primary,
-                               long long seq_len, long long sa_intv_ll, int n,
-                               int max_steps, IDX* __restrict__ out) {
+template <typename IDX, bool kPow2>
+__global__ void __launch_bounds__(lariat::kThreads) sa_walk_kernel(
+    const IDX* __restrict__ k_in, const IDX* __restrict__ steps_in,
+    const bool* __restrict__ done_in, const int32_t* __restrict__ fused,
+    const IDX* __restrict__ L2, long long primary, long long seq_len,
+    long long sa_intv_ll, int n, int max_steps, IDX* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const lariat::FMView<IDX> f = lariat::fm_view(fused, L2, primary, seq_len);
   const IDX sa_intv = static_cast<IDX>(sa_intv_ll);
+  // rows are >= 0, so the mask and the remainder agree
+  const auto sampled = [=](IDX v) {
+    return kPow2 ? (v & (sa_intv - 1)) == 0 : v % sa_intv == 0;
+  };
   IDX k = k_in[i], steps = steps_in[i];
-  bool done = done_in[i] || k % sa_intv == 0;
+  bool done = done_in[i] || sampled(k);
   for (int it = 0; it < max_steps && !done; ++it) {
     k = k == f.primary ? IDX(0) : lariat::lf(f, k);
     ++steps;
-    done = k % sa_intv == 0;
+    done = sampled(k);
   }
   out[i] = k;
   out[n + i] = steps;
   out[2 * n + i] = done ? 1 : 0;
+}
+
+// a power-of-two sa_intv takes the kernel that masks
+template <typename IDX>
+int launch(const void* k, const void* steps, const bool* done,
+           const int32_t* fused, const void* L2, long long primary,
+           long long seq_len, long long sa_intv, int n, int max_steps,
+           void* out, cudaStream_t st) {
+  const bool pow2 = (sa_intv & (sa_intv - 1)) == 0;
+  const auto kernel =
+      pow2 ? &sa_walk_kernel<IDX, true> : &sa_walk_kernel<IDX, false>;
+  kernel<<<lariat::blocks_for(n), lariat::kThreads, 0, st>>>(
+      static_cast<const IDX*>(k), static_cast<const IDX*>(steps), done, fused,
+      static_cast<const IDX*>(L2), primary, seq_len, sa_intv, n, max_steps,
+      static_cast<IDX*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -50,18 +74,11 @@ extern "C" int lariat_sa_walk(const void* k, const void* steps,
                               long long seq_len, long long sa_intv, int idx64,
                               int n, int max_steps, void* out, void* stream) {
   if (n <= 0) return 0;
+  if (sa_intv <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (idx64)
-    sa_walk_kernel<int64_t><<<lariat::blocks_for(n), lariat::kThreads, 0,
-                              st>>>(
-        static_cast<const int64_t*>(k), static_cast<const int64_t*>(steps),
-        done, fused, static_cast<const int64_t*>(L2), primary, seq_len,
-        sa_intv, n, max_steps, static_cast<int64_t*>(out));
-  else
-    sa_walk_kernel<int32_t><<<lariat::blocks_for(n), lariat::kThreads, 0,
-                              st>>>(
-        static_cast<const int32_t*>(k), static_cast<const int32_t*>(steps),
-        done, fused, static_cast<const int32_t*>(L2), primary, seq_len,
-        sa_intv, n, max_steps, static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+    return launch<int64_t>(k, steps, done, fused, L2, primary, seq_len,
+                           sa_intv, n, max_steps, out, st);
+  return launch<int32_t>(k, steps, done, fused, L2, primary, seq_len,
+                         sa_intv, n, max_steps, out, st);
 }

@@ -28,7 +28,11 @@
 // of 8 ran faster than groups of 4 or 16, and one-warp blocks than blocks
 // of 2 or 4 warps (PERF.md). The lane also
 // counts its transitions and the rows it fetched (aux), which bound the
-// kernel. K4b and K4c keep one thread per lane and the per-thread rank.
+// kernel. K4c walks each read the same way: a group of kS1G threads a read
+// on the group rank, one-warp blocks, the reads in shared memory; its walk
+// is one step a base, so its time is the longest read's length x the
+// latency of one rank round. K4b keeps one thread per lane and the
+// per-thread rank.
 
 #include <cstdint>
 
@@ -210,18 +214,35 @@ __global__ void exhaustive_kernel(
 
 // ---- K4c ------------------------------------------------------------------
 // meta (R, cap+1) int32 [qb<<16|qe slots | n] and big (R, 3*cap) [x0 | x1 |
-// s] arrive zeroed.
+// s] arrive zeroed. A group of G threads walks one read, as K4a's lanes do:
+// every step runs the group rank (loads off at a scan start or an N, where
+// no rank is needed), every thread of the group runs the same transition,
+// and only the first writes a slot.
+constexpr int kS1G = 8;          // threads a read
+constexpr int kS1Threads = 32;   // a block: one warp, 4 reads
+
 template <typename IDX>
-__global__ void strategy1_kernel(
+__global__ void __launch_bounds__(kS1Threads) strategy1_kernel(
     const uint8_t* __restrict__ reads, const int32_t* __restrict__ lens,
     const int32_t* __restrict__ fused, const IDX* __restrict__ L2,
     long long primary, long long seq_len, long long max_intv_ll, int R,
     int L, int min_len, int cap, int32_t* __restrict__ meta,
     IDX* __restrict__ big) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+  extern __shared__ __align__(16) uint8_t qs[];
+  constexpr int G = kS1G;
+  constexpr int kReads = kS1Threads / G;  // reads a block
+  const int r0 = blockIdx.x * kReads;
+  const int g = threadIdx.x & (G - 1);
+  const int r = r0 + static_cast<int>(threadIdx.x) / G;
+  // the block's reads, staged once
+  const int nr = min(kReads, R - r0);
+  const uint8_t* src = reads + static_cast<size_t>(r0) * L;
+  for (int x = threadIdx.x; x < nr * L; x += blockDim.x) qs[x] = src[x];
+  __syncthreads();
+  if (r >= R) return;  // group-uniform
+  const unsigned gmask = ((1u << G) - 1) << ((threadIdx.x & 31) & ~(G - 1));
   const FMView<IDX> f = lariat::fm_view(fused, L2, primary, seq_len);
-  const uint8_t* q = reads + static_cast<size_t>(r) * L;
+  const uint8_t* q = qs + (threadIdx.x / G) * L;
   const int len = min(lens[r], L);
   const IDX max_intv = static_cast<IDX>(max_intv_ll);
   int32_t* mrow = meta + static_cast<size_t>(r) * (cap + 1);
@@ -231,30 +252,40 @@ __global__ void strategy1_kernel(
   IDX x0 = 1, x1 = 1, s = 0;
   for (int t = 0; t < len; ++t) {
     const int c = q[t];
-    if (c >= 4) {            // an N restarts the scan past it
-      x = t + 1;
-      continue;
-    }
-    if (t == x) {            // scan start: the single-base interval
-      lariat::single_char(f, c, x0, x1, s);
-      continue;
-    }
+    const bool is_n = c >= 4;        // an N restarts the scan past it
+    const bool ext = !is_n && t > x;
     IDX n0, n1, ns;
-    lariat::extend_dir(f, x0, x1, s, c, false, n0, n1, ns);
-    if (ns < max_intv && t - x >= min_len && n < cap) {
+    lariat::extend_dir_group<IDX, G>(f, ext, x0, x1, s, min(c, 3), false, g,
+                                     gmask, n0, n1, ns);
+    const bool emit = ext && ns < max_intv && t - x >= min_len && n < cap;
+    if (emit && g == 0) {
       mrow[n] = (x << 16) | (t + 1);
       brow[n] = n0;
       brow[cap + n] = n1;
       brow[2 * cap + n] = ns;
-      ++n;
-      x = t + 1;
     }
-    x0 = n0; x1 = n1; s = ns;
+    if (t == x && !is_n) {           // scan start: the single-base interval
+      lariat::single_char(f, c, x0, x1, s);
+    } else if (ext) {
+      x0 = n0; x1 = n1; s = ns;
+    }
+    if (emit) ++n;
+    if (is_n || emit) x = t + 1;
   }
-  mrow[cap] = n;
+  if (g == 0) mrow[cap] = n;
 }
 
 int grid(int n) { return lariat::blocks_for(n); }
+
+// a block's dynamic shared memory past the 48 KB default needs the kernel's
+// opt-in; below it (4 reads of L 192: 768 B) no host call is made
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+             : cudaSuccess;
+}
 
 template <typename IDX>
 int launch_twoptr(const uint8_t* reads, const int32_t* start_e,
@@ -266,15 +297,30 @@ int launch_twoptr(const uint8_t* reads, const int32_t* start_e,
                   cudaStream_t st) {
   constexpr int kLanes = kTwoptrThreads / kTwoptrG;
   const int smem = kLanes * L;  // the block's reads
-  cudaError_t err = cudaFuncSetAttribute(
-      twoptr_kernel<IDX, kTwoptrG>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = allow_smem(twoptr_kernel<IDX, kTwoptrG>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   twoptr_kernel<IDX, kTwoptrG>
       <<<(R + kLanes - 1) / kLanes, kTwoptrThreads, smem, st>>>(
       reads, start_e, end_e, static_cast<const IDX*>(min_intv), mid, fused,
       static_cast<const IDX*>(L2), primary, seq_len, R, L, budget, bwd_init,
       min_seed, cap, meta, static_cast<IDX*>(big), aux);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename IDX>
+int launch_strategy1(const uint8_t* reads, const int32_t* lens,
+                     const int32_t* fused, const void* L2, long long primary,
+                     long long seq_len, long long max_intv, int R, int L,
+                     int min_len, int cap, int32_t* meta, void* big,
+                     cudaStream_t st) {
+  constexpr int kReads = kS1Threads / kS1G;
+  const int smem = kReads * L;  // the block's reads
+  const cudaError_t err = allow_smem(strategy1_kernel<IDX>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  strategy1_kernel<IDX>
+      <<<(R + kReads - 1) / kReads, kS1Threads, smem, st>>>(
+      reads, lens, fused, static_cast<const IDX*>(L2), primary, seq_len,
+      max_intv, R, L, min_len, cap, meta, static_cast<IDX*>(big));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -335,14 +381,10 @@ extern "C" int lariat_smem_strategy1(
   if (R <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (idx64)
-    strategy1_kernel<int64_t><<<grid(R), lariat::kThreads, 0, st>>>(
-        reads, lens, fused, static_cast<const int64_t*>(L2), primary,
-        seq_len, max_intv, R, L, min_len, cap, meta,
-        static_cast<int64_t*>(big));
-  else
-    strategy1_kernel<int32_t><<<grid(R), lariat::kThreads, 0, st>>>(
-        reads, lens, fused, static_cast<const int32_t*>(L2), primary,
-        seq_len, max_intv, R, L, min_len, cap, meta,
-        static_cast<int32_t*>(big));
-  return static_cast<int>(cudaGetLastError());
+    return launch_strategy1<int64_t>(reads, lens, fused, L2, primary,
+                                     seq_len, max_intv, R, L, min_len, cap,
+                                     meta, big, st);
+  return launch_strategy1<int32_t>(reads, lens, fused, L2, primary, seq_len,
+                                   max_intv, R, L, min_len, cap, meta, big,
+                                   st);
 }

@@ -19,12 +19,14 @@ the (n, 5) int64 rows ``[x0, x1, s, qb, qe]`` come out in the same order.
                              the reference's ``_pack_r3``
 
 The reference runs each as an XLA while/fori loop whose trip count is the
-slowest lane's; on the card every lane is a thread that runs its own
-state machine to its end or its budget. A finished lane's transition is
-the identity, so per-lane budgets give the reference's outputs lane for
-lane. The reference checks its step cap once per two transitions (its
-``UNROLL``), so a cap of ``max_steps`` allows ``ceil(max_steps / 2) * 2``
-transitions; the port gives each lane exactly that.
+slowest lane's; on the card every lane runs its own state machine to its
+end or its budget (K4b one thread a lane; K4a and K4c a group of 8
+threads a lane on the group rank, every thread running the same
+transition). A finished lane's transition is the identity, so per-lane
+budgets give the reference's outputs lane for lane. The reference checks
+its step cap once per two transitions (its ``UNROLL``), so a cap of
+``max_steps`` allows ``ceil(max_steps / 2) * 2`` transitions; the port
+gives each lane exactly that.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The suffix-array walk of device seeding -- the part of
 lariat_tpu/parallel/align_step.py that ``collect_seeds_rbegs_device`` runs:
 ``DeviceGenome``, K5 ``sa_walk_chunk`` (``csrc/sa_walk.cu``) with its plain
-twin, and the two-phase host driver ``sa_lookup_batch_host``.
+twin, and the host function ``sa_lookup_batch_host``, which walks a lookup's
+rows in one launch.
 
 The exact-match search, the window fetch and the one-call align steps
 (``align_step``, ``align_step_smem``) are not ported yet.
@@ -10,7 +11,7 @@ The exact-match search, the window fetch and the one-call align steps
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 import numpy as np
 import torch
 
@@ -18,13 +19,24 @@ from ..ops import _build
 from ..ops.fm_batch import DeviceFMIndex, lf_batch, lf_row
 
 
+# LF steps a lookup allows a walk (the reference's 64 + 448); a walk of
+# sa_intv 32 outlives it with odds (31/32)**512, about 1e-7
+LOOKUP_STEPS = 512
+# lookups a DeviceGenome logs; later ones go unlogged
+WALK_LOG_CAP = 1024
+
+
 @dataclasses.dataclass
 class DeviceGenome:
     """The device FM index (shared with the engine's seeding, not a second
     upload) and the SA sampling; the samples themselves stay on the host,
-    where ``sa_lookup_batch_host`` adds them."""
+    where ``sa_lookup_batch_host`` adds them. ``walks`` logs the first
+    ``WALK_LOG_CAP`` lookups' K5 launches on the card: rows (padded),
+    max_steps, the longest walk's steps and the walks longer than 64
+    steps."""
     fmd: DeviceFMIndex
     sa_intv: int
+    walks: List[dict] = dataclasses.field(default_factory=list)
 
     @classmethod
     def from_host(cls, fm, fmd: DeviceFMIndex) -> "DeviceGenome":
@@ -77,11 +89,13 @@ def sa_walk_chunk(g: DeviceGenome, k: torch.Tensor, steps: torch.Tensor,
     return out
 
 
-def sa_lookup_batch_host(g: DeviceGenome, fm, rows: np.ndarray,
-                         phase_steps: int = 64) -> np.ndarray:
-    """SA positions of BWT rows, walked in two phases: every lane for
-    ``phase_steps`` LF steps, then the unfinished few at a narrow width
-    for the rest of 512; the sample add happens on the host."""
+def sa_lookup_batch_host(g: DeviceGenome, fm,
+                         rows: np.ndarray) -> np.ndarray:
+    """SA positions of BWT rows: one K5 launch walks every row up to
+    ``LOOKUP_STEPS`` LF steps (each thread leaves when its row is sampled),
+    one download brings (k, steps) back, and the sample add happens on the
+    host. The reference's two phases (64 steps for all, then the unfinished
+    rows for the rest of 512) give the same positions."""
     n = len(rows)
     if n == 0:
         return np.zeros(0, np.int64)
@@ -92,28 +106,14 @@ def sa_lookup_batch_host(g: DeviceGenome, fm, rows: np.ndarray,
         npad <<= 1
     karr = np.zeros(npad, dt)
     karr[:n] = rows
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    out = sa_walk_chunk(g, put(karr), put(np.zeros(npad, dt)),
-                        put(np.zeros(npad, bool)), phase_steps).cpu().numpy()
-    k, steps, done = out[0].copy(), out[1].copy(), out[2] != 0
-    if not done.all():
-        idx = np.nonzero(~done)[0]
-        ns = 128
-        while ns < len(idx):
-            ns <<= 1
-        ksub = np.zeros(ns, dt)
-        ssub = np.zeros(ns, dt)
-        dsub = np.ones(ns, bool)
-        ksub[:len(idx)] = k[idx]
-        ssub[:len(idx)] = steps[idx]
-        dsub[:len(idx)] = False
-        out2 = sa_walk_chunk(g, put(ksub), put(ssub), put(dsub),
-                             512 - phase_steps).cpu().numpy()
-        k[idx] = out2[0][:len(idx)]
-        steps[idx] = out2[1][:len(idx)]
+    kd = torch.from_numpy(karr).to(dev)
+    walk = (kd, torch.zeros_like(kd),
+            torch.zeros(npad, dtype=torch.bool, device=dev))
+    k, steps = sa_walk_chunk(g, *walk, LOOKUP_STEPS)[:2].cpu().numpy()
+    if dev.type == "cuda" and len(g.walks) < WALK_LOG_CAP:
+        g.walks.append({"rows": npad, "max_steps": LOOKUP_STEPS,
+                        "longest": int(steps.max()),
+                        "past_64": int((steps > 64).sum())})
     sa = np.asarray(fm.sa_samples)
     return (sa[(k[:n] // fm.sa_intv).astype(np.int64)]
             + steps[:n].astype(np.int64))

@@ -1,5 +1,5 @@
-"""K1 and K4a timed on the card, to compare two trees of the port in one
-call, in turns (parent, new, new, parent):
+"""K1, K4a, K4c and the SA lookup (K5) timed on the card, to compare two
+trees of the port in one call, in turns (parent, new, new, parent):
 
     git archive <parent> lariat_tpu_torch | tar -x -C build/parent
     for t in build/parent . . build/parent; do
@@ -14,10 +14,17 @@ device seeding came in:
   (``k1_inputs``: 8192 x 192 x 576, seed 1), checked against its twin;
 - K4a, ``smem_device.min_starts_twoptr``, at round 1's phase-A budget (3L)
   on the first 4,096 reads of the FASTQ (``seed_batch``), checked against
-  its twin, with the transitions of its longest lane (flags bits 2+).
-Each time is the median of 21 calls (CUDA events), taken three times.
-Prints the card and, last, one JSON line. chip_smoke.py builds its K1 and
-seeding inputs with the same two functions.
+  its twin, with the transitions of its longest lane (flags bits 2+);
+- K4c, ``smem_device.strategy1``, on the same reads at the collect's
+  max_intv, min_len and cap, checked against its twin;
+- the SA lookup, ``align_step.sa_lookup_batch_host``, on chip_smoke.py
+  phase 5's 65,536 random rows (seed 3), checked against the positions of
+  the twin's walk.
+Each time is the median of 21 calls (CUDA events around the call, its host
+time included), taken three times; K4a and K4c also once in device time
+alone (``events_ms``). Prints the card and, last, one JSON line.
+chip_smoke.py builds its K1 and seeding inputs with the same functions;
+``sa_walks.py`` times K5 alone.
 """
 
 from __future__ import annotations
@@ -82,11 +89,41 @@ def seed_batch(reads_path, n):
     return rmat, lens, qs
 
 
+def lookup_rows(seq_len, n=1 << 16, seed=3):
+    """chip_smoke.py phase 5's SA lookup rows: n random BWT rows."""
+    return np.random.default_rng(seed).integers(0, seq_len, n)
+
+
+def events_ms(fn, prep=None, n=21):
+    """Median device ms of ``n`` calls of ``fn`` between CUDA events, after
+    one warm call. Before each call ``prep`` (an L2 flush) runs, then a
+    0.1 ms spin of the card, both outside the events: the host enqueues the
+    launch while the card spins, so the wrapper's host time is not
+    counted (for a ``fn`` that syncs, its host time still is)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(n):
+        if prep is not None:
+            prep()
+        torch.cuda._sleep(200_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
 def main(argv=None) -> int:
     import torch
     from lariat_tpu_torch.cli import load_reference
     from lariat_tpu_torch.ops import fm_batch, smem_device as sd
     from lariat_tpu_torch.ops import sw_batch, sw_extend
+    from lariat_tpu_torch.parallel import align_step
     from lariat_tpu_torch.tools import card, median_ms
     import lariat_tpu_torch
     argv = sys.argv[1:] if argv is None else argv
@@ -142,8 +179,37 @@ def main(argv=None) -> int:
     out["k4a_reads"] = [R, L]
     out["k4a_transitions_max"] = int(meta[0, -1]) >> 2
     out["k4a_ms"] = medians(k4a)
+    out["k4a_dev_ms"] = events_ms(k4a)
+
+    s1 = (fmd, args[1], args[3], 20, L, 19, L // 19 + 2)
+
+    def k4c():
+        return sd.strategy1(*s1)
+
+    want = sd.pack_r3(*sd.strategy1_plain(*s1))
+    out["k4c_max_abs_err"] = max(int((a.long() - b.long()).abs().max())
+                                 for a, b in zip(k4c(), want))
+    out["k4c_ms"] = medians(k4c)
+    out["k4c_dev_ms"] = events_ms(k4c)
+
+    g = align_step.DeviceGenome.from_host(fm, fmd)
+    rows = lookup_rows(fm.seq_len)
+
+    def lookup():
+        return align_step.sa_lookup_batch_host(g, fm, rows)
+
+    kd = torch.from_numpy(rows).to(dev, fmd.idx_dtype)
+    z = torch.zeros_like(kd)
+    walk = align_step.sa_walk_chunk_plain(g, kd, z, z.bool(), 512).cpu()
+    want = (np.asarray(fm.sa_samples)[(walk[0].numpy() // fm.sa_intv)
+                                      .astype(np.int64)]
+            + walk[1].numpy().astype(np.int64))
+    out["lookup_max_abs_err"] = int(np.abs(lookup() - want).max())
+    out["lookup_rows"] = len(rows)
+    out["lookup_ms"] = medians(lookup)
     print(json.dumps(out), flush=True)
-    return 0 if out["k1_max_abs_err"] == out["k4a_max_abs_err"] == 0 else 1
+    errs = [out[k] for k in out if k.endswith("max_abs_err")]
+    return 0 if not any(errs) else 1
 
 
 if __name__ == "__main__":

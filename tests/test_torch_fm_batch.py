@@ -125,9 +125,13 @@ def test_bwt_extend_matches_jax(indices, dt):
 # ---- K4a's group rank (csrc/fm.cuh occ4_pair_group), emulated ----------------
 
 def _popcount(x):
+    """Bits set in each value below 2**32 (SWAR, as fm_batch does)."""
     x = x.astype(np.uint64)
-    return np.array([bin(int(v)).count("1") for v in x.ravel()],
-                    np.uint64).reshape(x.shape)
+    x = x - ((x >> np.uint64(1)) & np.uint64(0x55555555))
+    x = (x & np.uint64(0x33333333)) + ((x >> np.uint64(2))
+                                       & np.uint64(0x33333333))
+    x = (x + (x >> np.uint64(4))) & np.uint64(0x0F0F0F0F)
+    return ((x * np.uint64(0x01010101)) >> np.uint64(24)) & np.uint64(0xFF)
 
 
 def _field_match(w, c):
@@ -141,13 +145,16 @@ def _keep_mask(n):
                     ).astype(np.uint64)
 
 
-def emulate_group_rank(fused, L2, primary, seq_len, ka, kb, G):
+def emulate_group_rank(fused, L2, primary, seq_len, ka, kb, G, need=None,
+                       per_thread=False):
     """occ4 at ka and kb (arrays) as a group of G threads computes them:
     both checkpoint rows loaded by every thread (the second skipped when
     both ranks share a block), bwt words split 16/G a thread (the first G/2
     threads rank ka), a byte a code, summed by xor-shuffles within each half
     and swapped across the halves -> (ta, tb, rows fetched); every thread of
-    the group must end with the same counts."""
+    the group must end with the same counts. ``need`` False turns a lane's
+    loads off (its counts are then unused); ``per_thread`` returns each
+    thread's (ta, tb) in place of the first thread's."""
     H, WPT = G // 2, 8 // (G // 2)
     rows = fused.view(np.uint32).astype(np.uint64)
 
@@ -157,6 +164,8 @@ def emulate_group_rank(fused, L2, primary, seq_len, ka, kb, G):
 
     la, ba, ra = at(ka)
     lb, bb, rb = at(kb)
+    if need is not None:
+        la, lb = la & need, lb & need
     same = la & lb & (ba == bb)
     zero = np.zeros((len(ka), 4), np.uint64)
     ca = np.where(la[:, None], rows[ba, :4], zero)
@@ -196,7 +205,10 @@ def emulate_group_rank(fused, L2, primary, seq_len, ka, kb, G):
     for g in range(1, G):
         np.testing.assert_array_equal(outs[g][0], outs[0][0])
         np.testing.assert_array_equal(outs[g][1], outs[0][1])
-    return outs[0][0], outs[0][1], la.astype(np.int64) + (lb & ~same)
+    fetched = la.astype(np.int64) + (lb & ~same)
+    if per_thread:
+        return outs, fetched
+    return outs[0][0], outs[0][1], fetched
 
 
 @pytest.mark.parametrize("dt", ["int32", "int64"])
@@ -239,3 +251,65 @@ def test_group_rank_matches_occ4(indices, dt, G):
         n = tfm.rank_rows(fmd, torch.tensor([ka[i] + 1]),
                           torch.tensor([kb[i] - ka[i]]), need, touched)
         assert int(touched.sum()) == int(n[0]) == (rows[i] if need else 0)
+
+
+# ---- K5's LF step (csrc/fm.cuh lf), emulated --------------------------------
+
+def emulate_lf(fused, L2, primary, k):
+    """LF of rows k as K5's thread computes it: the checkpoint piece and
+    the first piece of bwt words always, the second piece only when the base
+    lies in it (pos >= 64; zeros otherwise), the word and the checkpoint
+    picked by two-level selects -> (lf, pieces loaded a row)."""
+    rows = fused.view(np.uint32).astype(np.uint64)
+    kx = np.where(k > primary, k - 1, k)
+    blk, pos = kx >> 7, kx & 127
+    high = pos >= 64
+    ck, lo = rows[blk, 0:4], rows[blk, 4:8]
+    hi = np.where(high[:, None], rows[blk, 8:12], np.uint64(0))
+    v = np.where(high[:, None], hi, lo)
+
+    def pick(a, i):
+        return np.where(i & 2, np.where(i & 1, a[:, 3], a[:, 2]),
+                        np.where(i & 1, a[:, 1], a[:, 0]))
+
+    word = pick(v, (pos >> 4) & 3)
+    c = ((word >> ((15 - (pos & 15)) * 2).astype(np.uint64))
+         & np.uint64(3)).astype(np.int64)
+    base = pick(ck, c)
+    w = np.concatenate([lo, hi], axis=1)
+    cnt = np.zeros(len(k), np.uint64)
+    for i in range(8):
+        keep = _keep_mask(np.clip(pos + 1 - 16 * i, 0, 16))
+        cnt += _popcount(_field_match(w[:, i], c.astype(np.uint64)) & keep)
+    L2 = np.asarray(L2, np.int64)
+    return (L2[c] + base.astype(np.int64) + cnt.astype(np.int64),
+            2 + high.astype(np.int64))
+
+
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+def test_lf_pieces_matches_lf_batch(indices, dt):
+    """K5's LF, which skips the row's second piece of bwt words below pos
+    64, against the port's and the JAX package's lf_batch at k == primary,
+    primary +- 1, k & 127 in {0, 127}, k & 15 in {0, 15} and random rows."""
+    fm, jdfm, idx = indices
+    fmd = idx[dt]
+    rng = np.random.default_rng(21)
+    k = rng.integers(0, fm.seq_len, 2000).astype(np.int64)
+    blk = rng.integers(0, fm.seq_len // 128, 60) * 128
+    edges = [fm.primary, fm.primary - 1, fm.primary + 1, 0, 15, 16, 127,
+             128, fm.seq_len - 1]
+    k = np.concatenate([edges, blk, blk + 127, blk + 15, blk + 64,
+                        blk + 63, blk + 79, k])
+    k = k[(k >= 0) & (k < fm.seq_len)]
+    got, pieces = emulate_lf(np.asarray(jdfm.fused), np.asarray(jdfm.L2),
+                             fm.primary, k)
+    np.testing.assert_array_equal(
+        got, tfm.lf_batch(fmd, torch.from_numpy(k)).numpy())
+    np.testing.assert_array_equal(
+        got, np.asarray(jfm.lf_batch(jdfm, _j(k, jdfm))))
+    kx = np.where(k > fm.primary, k - 1, k)
+    for m in (0, 15):
+        assert ((kx & 15) == m).any()
+    for m in (0, 127):
+        assert ((kx & 127) == m).any()
+    assert set(np.unique(pieces)) == {2, 3}

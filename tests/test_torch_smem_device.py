@@ -22,8 +22,10 @@ from lariat_tpu_torch.ops import fm_batch as tfm
 from lariat_tpu_torch.ops import smem_device as tsd
 from lariat_tpu_torch.parallel import align_step as tas
 
+from lariat_tpu.index import fmindex
 from test_rfa import dup_genome  # noqa: F401
 from test_smem_device import _messy_reads
+from test_torch_fm_batch import emulate_group_rank
 from test_torch_sw_extend import cuda_device  # noqa: F401
 
 torch.set_num_threads(1)
@@ -166,6 +168,118 @@ def test_strategy1_twin_and_pack_match_jax(idx):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _s1_edges(genome):
+    """Reads at K4c's edges: an N at the scan start, runs of Ns (a scan
+    restarted right after an emission or before the end), a read of length
+    0, reads shorter than min_len (19) or just at it, all-N, and repeats
+    (segdup) that emit at every step past min_len."""
+    g = genome
+    return [encode_read(b"N" + g[300:450]), encode_read(b"NN" + g[900:1000]),
+            encode_read(g[1200:1240] + b"NNNNN" + g[1300:1360] + b"N" * 12
+                        + g[1400:1430]),
+            encode_read(g[5000:5100] + b"N"), encode_read(b""),
+            encode_read(g[700:710]), encode_read(g[720:739]),
+            encode_read(g[760:780]), encode_read(b"N" * 60),
+            encode_read((g[6000:6019] + b"N") * 7),
+            encode_read(g[2100:2251]), encode_read(g[42100:42251])]
+
+
+def _s1_inputs(genome):
+    return _batch(_s1_edges(genome)
+                  + _messy_reads(genome, np.random.default_rng(10), n=40)
+                  + _low_complexity(genome))
+
+
+def emulate_strategy1(fmd, rmat, lens, max_intv, min_len, cap, G):
+    """K4c's group schedule in numpy: every thread of a read's group keeps
+    its own state and runs the same transition on its own counts from the
+    group rank (``emulate_group_rank``, loads off where the step needs no
+    rank), and only thread 0 writes a slot. The threads' ranks and states
+    must agree at every step. Returns strategy1_plain's tuple."""
+    fused = fmd.fused.numpy()
+    L2 = fmd.L2.numpy().astype(np.int64)
+    primary, seq_len = fmd.primary, fmd.seq_len
+    R, Lr = rmat.shape
+    lens = np.minimum(lens.astype(np.int64), Lr)
+    ar = np.arange(R)
+    one, zero = np.ones(R, np.int64), np.zeros(R, np.int64)
+    st = [dict(x=zero, n=zero, x0=one, x1=one, s=zero) for _ in range(G)]
+    out = np.zeros((5, R, cap), np.int64)
+    for t in range(Lr):
+        live = t < lens
+        c = rmat[:, t].astype(np.int64)
+        is_n = c >= 4
+        cc = np.minimum(c, 3)
+        ce = 3 - cc                         # forward: the complement
+        a = st[0]
+        ext = live & ~is_n & (t > a["x"])
+        for b in st[1:]:
+            np.testing.assert_array_equal(t > b["x"], t > a["x"])
+        ka, kb = a["x1"] - 1, a["x1"] - 1 + a["s"]
+        outs, _ = emulate_group_rank(fused, L2, primary, seq_len, ka, kb, G,
+                                     need=ext, per_thread=True)
+        for g, b in enumerate(st):
+            tk, tl = outs[g]
+            sizes = tl - tk
+            qpos = b["x1"]
+            ot = b["x0"] + ((qpos <= primary)
+                            & (qpos + b["s"] - 1 >= primary))
+            ot = ot + np.where(np.arange(4)[None, :] > ce[:, None], sizes,
+                               0).sum(1)
+            n1 = L2[ce] + 1 + tk[ar, ce]
+            ns = sizes[ar, ce]
+            emit = (ext & (ns < max_intv) & (t - b["x"] >= min_len)
+                    & (b["n"] < cap))
+            if g == 0:
+                ri, k = ar[emit], b["n"][emit]
+                for j, v in enumerate((b["x"], np.full(R, t + 1), ot, n1,
+                                       ns)):
+                    out[j, ri, k] = v[emit]
+            fresh = live & (t == b["x"]) & ~is_n
+            b["x0"] = np.where(fresh, L2[cc] + 1, np.where(ext, ot, b["x0"]))
+            b["x1"] = np.where(fresh, L2[3 - cc] + 1,
+                               np.where(ext, n1, b["x1"]))
+            b["s"] = np.where(fresh, L2[cc + 1] - L2[cc],
+                              np.where(ext, ns, b["s"]))
+            b["n"] = b["n"] + emit
+            b["x"] = np.where(live & (is_n | emit), t + 1, b["x"])
+        for b in st[1:]:
+            for key in a:
+                np.testing.assert_array_equal(b[key], a[key])
+    dt = fmd.idx_dtype
+    return (torch.from_numpy(st[0]["n"]).to(torch.int32),
+            *(torch.from_numpy(out[j]).to(torch.int32) for j in (0, 1)),
+            *(torch.from_numpy(out[j]).to(dt) for j in (2, 3, 4)))
+
+
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+@pytest.mark.parametrize("G", [4, 8, 16])
+def test_strategy1_group_schedule(idx, dt, G):
+    """K4c's group schedule against strategy1_plain and the JAX
+    strategy1_kernel on the edge reads, at the collect's cap (L // 19 + 2)
+    and at caps of 1 and 2, which reads reach."""
+    fm, genome, jdfm, fmd32, fmd64 = idx
+    fmd = fmd32 if dt == "int32" else fmd64
+    rmat, lens = _s1_inputs(genome)
+    for cap in (L // 19 + 2, 2, 1):
+        want = jsd.strategy1_kernel(jdfm, jnp.asarray(rmat),
+                                    jnp.asarray(lens), 20, L, 19, cap)
+        plain = tsd.strategy1_plain(fmd, torch.from_numpy(rmat),
+                                    torch.from_numpy(lens), 20, L, 19, cap)
+        got = emulate_strategy1(fmd, rmat, lens, 20, 19, cap, G)
+        for g, p, w in zip(got, plain, want):
+            assert g.dtype == p.dtype
+            assert torch.equal(g, p)
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        n = got[0].numpy()
+        assert n[:len(_s1_edges(genome))].any()
+        if cap <= 2:
+            assert (n == cap).any(), "no read reached the cap"
+        else:
+            assert n.max() < cap
+    assert lens[4] == 0 and got[0][4] == 0
+
+
 def _native(fm, reads, opt):
     want = native_ops.collect_seeds_rbegs_batch(fm, reads, opt)
     assert want is not None, "native seeding unavailable"
@@ -283,26 +397,69 @@ def test_forced_slot_overflow(idx, monkeypatch, cap1, cap2):
     assert calls["exh"] == 1
 
 
-@pytest.mark.parametrize("dt", ["int32", "int64"])
-def test_sa_lookup_batch_host_matches_scalar(idx, dt):
-    fm, _, jdfm, fmd, fmd64 = idx
-    f = fmd if dt == "int32" else fmd64
-    dg = tas.DeviceGenome.from_host(fm, f)
-    rng = np.random.default_rng(5)
-    rows = rng.integers(0, fm.seq_len, 700).astype(np.int64)
+@pytest.fixture(scope="module")
+def fm24(dup_genome, tmp_path_factory):  # noqa: F811
+    """The dup genome's index with a non-power-of-two SA sampling."""
+    _, genome = dup_genome
+    fasta = tmp_path_factory.mktemp("sa24") / "dup24.fa"
+    fasta.write_text(">chrT\n" + genome.decode() + "\n")
+    return fmindex.build_index(str(fasta), sa_intv=24)
+
+
+def _lookup_rows(fm, n=700, seed=5):
+    rows = np.random.default_rng(seed).integers(0, fm.seq_len,
+                                                n).astype(np.int64)
     rows[:3] = [fm.primary, fm.primary - 1, fm.primary + 1]
-    got = tas.sa_lookup_batch_host(dg, fm, rows, phase_steps=4)
-    want = np.array([fm.sa_lookup(int(r)) for r in rows], np.int64)
-    np.testing.assert_array_equal(got, want)
+    return rows
+
+
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+def test_sa_lookup_batch_host_matches_scalar(idx, fm24, dt, monkeypatch):
+    """The one-launch lookup against the scalar fm.sa_lookup and the JAX
+    two-phase sa_lookup_batch_host, on the dup genome's index (sa_intv 32)
+    and on one built with sa_intv 24; the rows include walks longer than
+    64 steps, and the lookup calls K5 once."""
+    fm, _, jdfm, fmd, fmd64 = idx
+    calls = []
+    orig = tas.sa_walk_chunk
+
+    def counted(*a, **kw):
+        calls.append(a[4] if len(a) > 4 else kw["max_steps"])
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(tas, "sa_walk_chunk", counted)
+    for f_host in (fm, fm24):
+        f = tfm.DeviceFMIndex.from_host(f_host, "cpu")
+        if dt == "int64":
+            f = tfm.DeviceFMIndex(f.fused, f.L2.long(), f.primary, f.seq_len)
+        dg = tas.DeviceGenome.from_host(f_host, f)
+        rows = _lookup_rows(f_host)
+        calls.clear()
+        got = tas.sa_lookup_batch_host(dg, f_host, rows)
+        assert calls == [tas.LOOKUP_STEPS]
+        want = np.array([f_host.sa_lookup(int(r)) for r in rows], np.int64)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, jas.sa_lookup_batch_host(
+            jas.DeviceGenome.from_host(f_host), f_host, rows))
+        steps = orig(dg, torch.from_numpy(rows).to(f.idx_dtype),
+                     torch.zeros(len(rows), dtype=f.idx_dtype),
+                     torch.zeros(len(rows), dtype=torch.bool), 512)[1]
+        assert int(steps.max()) > 64 and int((steps > 64).sum()) >= 10
+    assert fm24.sa_intv == 24 and fm.sa_intv == 32
     # one chunk against the JAX walk
+    rng = np.random.default_rng(5)
+    rows = rng.integers(0, fm.seq_len, 700)
+    rows[:3] = [fm.primary, fm.primary - 1, fm.primary + 1]
     k = rows[:256].astype(np.int32)
     steps = rng.integers(0, 3, 256).astype(np.int32)
     done = rng.random(256) < 0.1
+    f = fmd if dt == "int32" else fmd64
+    dg = tas.DeviceGenome.from_host(fm, f)
     w = jas.sa_walk_chunk(jas.DeviceGenome.from_host(fm), jnp.asarray(k),
                           jnp.asarray(steps), jnp.asarray(done), 7)
-    g = tas.sa_walk_chunk(dg, torch.from_numpy(k).to(f.idx_dtype),
-                          torch.from_numpy(steps).to(f.idx_dtype),
-                          torch.from_numpy(done), 7)
+    g = orig(dg, torch.from_numpy(k).to(f.idx_dtype),
+             torch.from_numpy(steps).to(f.idx_dtype), torch.from_numpy(done),
+             7)
     np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
@@ -405,6 +562,66 @@ def test_sa_walk_kernel_matches_twin(idx, cuda_device, dt):  # noqa: F811
 
     got, want = _both(run, cuda_device)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+@pytest.mark.parametrize("cap", [L // 19 + 2, 2, 1])
+def test_strategy1_kernel_edges(idx, cuda_device, dt, cap):  # noqa: F811
+    """K4c's group kernel against its twin on the edge reads (Ns at the scan
+    start and in runs, length 0, shorter than min_len) and at caps that
+    reads reach."""
+    fm, genome, *_ = idx
+    rmat, lens = _s1_inputs(genome)
+
+    def run(dev):
+        put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        return tsd.strategy1(_cuda_index(fm, dev, dt), put(rmat), put(lens),
+                             20, L, 19, cap)
+
+    got, want = _both(run, cuda_device)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+def test_sa_lookup_kernel_one_launch(idx, fm24, cuda_device,  # noqa: F811
+                                     dt):
+    """The lookup on the card: one K5 launch, positions equal to the
+    scalar fm.sa_lookup at sa_intv 32 (the mask) and 24 (the remainder),
+    walks past 64 steps logged; and K5 against its twin on LF's edge rows
+    (primary +- 1, k & 127 in {0, 127}, k & 15 in {0, 15})."""
+    from lariat_tpu_torch.ops import _build
+    for f_host in (idx[0], fm24):
+        g = tas.DeviceGenome.from_host(f_host,
+                                       _cuda_index(f_host, cuda_device, dt))
+        rows = _lookup_rows(f_host, n=5000)
+        before = _build.launches()["sa_walk"]
+        got = tas.sa_lookup_batch_host(g, f_host, rows)
+        assert _build.launches()["sa_walk"] == before + 1
+        want = np.array([f_host.sa_lookup(int(r)) for r in rows], np.int64)
+        np.testing.assert_array_equal(got, want)
+        (log,) = g.walks
+        assert log["rows"] == 8192 and log["max_steps"] == 512
+        assert log["longest"] > 64 and log["past_64"] > 0
+        blk = np.random.default_rng(4).integers(0, f_host.seq_len // 128,
+                                                64) * 128
+        p = f_host.primary
+        k = np.concatenate([[p - 1, p + 1, p - 2, p + 2], blk, blk + 127,
+                            blk + 15, blk + 16, blk + 63, blk + 64])
+        k = k[(k >= 0) & (k < f_host.seq_len)]
+
+        def run(dev):
+            gg = tas.DeviceGenome.from_host(f_host,
+                                            _cuda_index(f_host, dev, dt))
+            tdt = gg.fmd.idx_dtype
+            z = torch.zeros(len(k), dtype=tdt, device=dev)
+            return tas.sa_walk_chunk(gg, torch.from_numpy(k).to(dev, tdt), z,
+                                     z.bool(), 512)
+
+        got, want = _both(run, cuda_device)
+        assert torch.equal(got.cpu(), want)
 
 
 def test_twins_count_rank_rows(idx):

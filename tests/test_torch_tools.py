@@ -3,11 +3,14 @@ cell arithmetic, the ablation tool and the priming profile on the explicit
 CPU device, and each tool's refusal to run without CUDA otherwise."""
 
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
-from test_torch_cli import _inputs
+from test_torch_cli import _env, _inputs
 
 from lariat_tpu_torch.ops import extend_ablate as t1
 from lariat_tpu_torch.tools import extend_ablate, kernel_roofline
@@ -167,3 +170,41 @@ def test_kernel_turns_seed_batch_and_refusal(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             kernel_turns.main([str(fasta), str(fq)])
+
+
+TOOLS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "lariat_tpu_torch", "tools")
+
+
+def test_sa_walks_logs_each_cli_launch_on_cpu(tmp_path):
+    """sa_walks.py cli: the device-seeded CLI on the CPU (K5's twin), every
+    SA walk logged as [rows, max_steps, longest walk, walks past 64], one
+    512-step walk a lookup over rows padded to a power of two >= 128."""
+    fasta, fq = _inputs(tmp_path)
+    r = subprocess.run(
+        [sys.executable, os.path.join(TOOLS, "sa_walks.py"), "cli",
+         "-reads", str(fq), "-genome", str(fasta), "-output",
+         str(tmp_path / "out"), "-threads", "2", "-use_device", "on",
+         "-first_chunk"],
+        capture_output=True, text=True, timeout=600,
+        env=_env(LARIAT_TORCH_DEVICE="cpu", LARIAT_DEVICE_SEED="1",
+                 PYTHONPATH=os.path.dirname(os.path.dirname(TOOLS))))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "primed pairs 35  host pairs 0" in r.stdout
+    log = _json_lines(r.stdout)[-1]["sa_walk_launches"]
+    assert log
+    for rows, max_steps, longest, past in log:
+        assert rows >= 128 and rows & (rows - 1) == 0
+        assert max_steps == 512 and 0 <= longest <= 512
+        assert 0 <= past <= rows and (past > 0) == (longest > 64)
+
+
+def test_sa_walks_profile_refuses_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    fasta, _ = _inputs(tmp_path)
+    r = subprocess.run(
+        [sys.executable, os.path.join(TOOLS, "sa_walks.py"), "profile",
+         str(fasta)], capture_output=True, text=True, timeout=300,
+        env=_env(PYTHONPATH=os.path.dirname(os.path.dirname(TOOLS))))
+    assert r.returncode != 0 and "needs CUDA" in r.stderr
