@@ -7,16 +7,17 @@ Phases (one line each with its seconds, failures end the run nonzero):
   1. environment: the card (nvidia-smi name, power limit), torch, nvcc;
      requires torch.cuda.is_available();
   2. build: every kernel from lariat_tpu_torch/csrc with nvcc (sm_90a),
-     ptxas's registers and spills, and the DPX and PRMT instructions that
-     `cuobjdump -sass` finds in each kernel;
+     ptxas's registers and spills, and each kernel's instructions, with
+     its DPX, PRMT and POPC instructions, as `cuobjdump -sass` finds them;
   3. kernels: each kernel's wrapper on the card at main-path shapes against
      its plain PyTorch version on the same inputs, exact (tolerance 0:
      integer DP), with kernel and plain times (CUDA events, median of 7;
      T1's plain times median of 3) and the kernel's bound (the larger of
      its operations over the int32 peak and its bytes over the memory
      peak, both from the card's attributes; tools/kernel_roofline.py):
-     K1-K3 (K1's rows run, warp steps and band cells printed), K1, K3 and
-     K2 (with K2b on its z) again on their edge shapes (the tiled path
+     K1-K3 (K1's rows run, warp steps and band cells printed), K2b on
+     K2's z and on random z (walk steps and windows staged printed), K1,
+     K3 and K2 (with K2b on its z) again on their edge shapes (the tiled path
      past 256 or 192 query columns, qlen 0, tlen 0, tlen < 32, qlen not a
      multiple of C, N codes, minsc 0; w 0, w >= qlen, rows past qlen + w;
      K1 also at zdrop 5, 0 and -1, z-drops at rows 0-3, h0 <= o_ins +
@@ -30,8 +31,9 @@ Phases (one line each with its seconds, failures end the run nonzero):
      exact, with kernel and plain times (CUDA events, median of 7; the
      twins' median of 3): K4a at round 1's phase-A budget, at phase B's
      budget and at round 2, each in int32 and int64 indices, with its
-     lanes' transition counts; K4b over every (read, e) lane; K4c in int32
-     and int64; K5 as the SA lookup runs it (one launch of 512 steps over
+     lanes' transition counts; K4b over every (read, e) lane in int32 and
+     int64, with its extensions and rows fetched beside the distinct rows;
+     K4c in int32 and int64; K5 as the SA lookup runs it (one launch of 512 steps over
      65,536 rows, int32 and int64) with its longest walk, beside its
      phase-1 shape (64 steps) and the whole lookup (sa_lookup_batch_host);
      K1's descriptor entry on a wave of 8,192 extensions of
@@ -169,8 +171,8 @@ def phase_build():
 
 
 def _sass_report(lib, bin_dir):
-    """Count, per kernel of the library, the DPX (VI*) and PRMT
-    instructions of its sm_90a SASS."""
+    """Count, per kernel of the library, its sm_90a SASS instructions and
+    among them the DPX (VI*), PRMT and POPC instructions."""
     tool = os.path.join(bin_dir, "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump")
@@ -187,9 +189,12 @@ def _sass_report(lib, bin_dir):
             continue
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
                      line)
-        if fn and m and (m.group(1).startswith("VI") or m.group(1) == "PRMT"):
-            c = counts.setdefault(fn, {})
-            c[m.group(1)] = c.get(m.group(1), 0) + 1
+        if fn and m:
+            c = counts.setdefault(fn, {"total": 0})
+            c["total"] += 1
+            op = m.group(1)
+            if op.startswith("VI") or op in ("PRMT", "POPC"):
+                c[op] = c.get(op, 0) + 1
     for fn, c in counts.items():
         print(f"  sass {fn}: {json.dumps(dict(sorted(c.items())))}")
 
@@ -255,7 +260,8 @@ def phase_kernels(pk, seed=1):
     import torch
     from lariat_tpu_torch.ops import sw_batch, sw_extend, sw_global, sw_local
     from lariat_tpu_torch.tools.kernel_roofline import OPS_PER_CELL as OPS
-    from lariat_tpu_torch.tools.kernel_turns import k1_inputs, planted
+    from lariat_tpu_torch.tools.kernel_turns import (k1_inputs, k2_inputs,
+                                                     planted)
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     D = dict(o_del=6, e_del=1, o_ins=6, e_ins=1)
@@ -307,11 +313,7 @@ def phase_kernels(pk, seed=1):
 
     # K2 + K2b at the reg2aln chunk 2048 x 192 x 384
     B, Lq, Lt = 2048, 192, 384
-    qlen = rng.integers(30, 152, B).astype(np.int32)
-    tlen = np.clip(qlen + rng.integers(-10, 11, B), 1, Lt).astype(np.int32)
-    q, t = planted(rng, qlen, tlen, Lq, Lt)
-    w = np.maximum(np.abs(qlen - tlen),
-                   rng.integers(1, 60, B)).astype(np.int32)
+    q, qlen, t, tlen, w = k2_inputs(rng, B, Lq, Lt)
     qd, qld, td, tld, wd = cuda(q, qlen, t, tlen, w)
     S = Lq + Lt
 
@@ -330,27 +332,7 @@ def phase_kernels(pk, seed=1):
     res["sw_global"] = (err, _median_ms(k2), _median_ms(p2), (B, Lq, Lt),
                         *_bound(pk, ops, _nbytes(qd, qld, td, tld, wd, gs,
                                                  gz)))
-
-    def k2b():
-        return sw_global.traceback_ops_fused(gz, qld, tld, wd, gs, S)
-
-    def p2b():
-        return sw_global.traceback_ops_fused_plain(wz, qld, tld, wd, ws, S)
-
-    got, want = k2b(), p2b()
-    torch.cuda.synchronize()
-    err = _max_abs_err(got, want)
-    if err:
-        raise AssertionError(f"K2b traceback differs (max abs err {err})")
-    # bytes: one 32-byte sector of z a walk step, the lengths in, the blob
-    # out
-    ops_b = got[:, :S // 4].cpu().numpy()
-    steps = int(sum(int((((ops_b >> (2 * k)) & 3) != 3).sum())
-                    for k in range(4)))
-    res["traceback"] = (err, _median_ms(k2b), _median_ms(p2b), (B, S),
-                        *_bound(pk, 0, 32 * steps
-                                + _nbytes(qld, tld, wd, gs, got)))
-
+    res["traceback"] = _k2b(gz, qld, tld, wd, gs, S, pk)
     # K3: 4096 rescue DPs, read 151 (Lq 192) in the pestat window
     # high - low + 151 = 686 (Lt 704)
     B, Lq, Lt = 4096, 192, 704
@@ -382,6 +364,55 @@ def phase_kernels(pk, seed=1):
     _edges(cuda, D, S3)
     res["extend_ablate"] = _t1_vs_plain(rng, cuda, pk)
     return res
+
+
+def _k2b(gz, qld, tld, wd, gs, S, pk):
+    """K2b on K2's z of the reg2aln chunk, timed with its bound, and on
+    random z bytes of the same shape (every walk a random path), each
+    against its twin, exact, with the windows of z its warps staged (the
+    kernel's own count) beside the walk steps."""
+    import numpy as np
+    import torch
+    from lariat_tpu_torch.ops import sw_global
+    B = gz.shape[0]
+    out = {}
+    zr = torch.from_numpy(np.random.default_rng(29).integers(
+        0, 256, tuple(gz.shape), dtype=np.uint8)).to(gz.device)
+    for name, z in (("k2_z", gz), ("random_z", zr)):
+        wnd = torch.full((B,), -1, dtype=torch.int32, device=gz.device)
+        got = sw_global.traceback_ops_fused(z, qld, tld, wd, gs, S,
+                                            windows=wnd)
+        want = sw_global.traceback_ops_fused_plain(z, qld, tld, wd, gs, S)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if err or int(wnd.min()) < 0:
+            raise AssertionError(f"K2b traceback differs on {name} (max abs "
+                                 f"err {err}) or left a task uncounted")
+        ops_b = got[:, :S // 4].cpu().numpy()
+        steps = sum((((ops_b >> (2 * k)) & 3) != 3).sum(1)
+                    for k in range(4))
+        wn = wnd.cpu().numpy()
+        out[name] = {"walk_steps": int(steps.sum()),
+                     "walk_steps_max": int(steps.max()),
+                     "windows_sum": int(wn.sum()),
+                     "windows_max": int(wn.max()),
+                     "windows_mean": float(wn.mean())}
+        if name == "k2_z":
+            # bytes: one 32-byte sector of z a walk step, the lengths in,
+            # the blob out
+            bms, by = _bound(pk, 0, 32 * int(steps.sum())
+                             + _nbytes(qld, tld, wd, gs, got))
+
+            def k2b():
+                return sw_global.traceback_ops_fused(gz, qld, tld, wd, gs, S)
+
+            def p2b():
+                return sw_global.traceback_ops_fused_plain(gz, qld, tld, wd,
+                                                           gs, S)
+            ms, pms = _median_ms(k2b), _median_ms(p2b)
+    print(f"  K2b ({B}, S {S}): exact on K2's z and on random z; "
+          f"{json.dumps(out)}")
+    return (0, ms, pms, (B, S), bms, by, out)
 
 
 def _k1_edges(cuda):
@@ -733,13 +764,29 @@ def phase_seeding(fasta, reads_path, pk):
     def p4b():
         return sd.min_starts_kernel_plain(fmd, rd, ri, ee, mi, L)
 
-    out4b = k4b()
-    t4b = no_rows()
-    want4b = sd.min_starts_kernel_plain(fmd, rd, ri, ee, mi, L, t4b)
-    res["smem_exhaustive"] = (err(out4b, want4b), _median_ms(k4b),
-                              _median_ms(p4b, n=3), (R * L,),
+    # int64 and int32 indices, each with the lanes' counters; the int32
+    # run's rows bound it
+    e4b = 0
+    for f in (fmd64, fmd):
+        cnt = torch.full((R * L, 2), -1, dtype=torch.int32, device=dev)
+        out4b = sd.min_starts_kernel(f, rd, ri, ee, mi, L, counts=cnt)
+        t4b = no_rows()
+        want4b = sd.min_starts_kernel_plain(f, rd, ri, ee, mi, L, t4b)
+        e4b = max(e4b, err(out4b, want4b))
+        if int(cnt.min()) < 0:
+            raise AssertionError("K4b left a lane uncounted")
+    c = cnt.long()
+    n_ext, n_rows = int(c[:, 0].sum()), int(c[:, 1].sum())
+    info4b = {"lanes": R * L, "extensions": n_ext,
+              "extensions_max": int(c[:, 0].max()), "rows_fetched": n_rows,
+              "rows_per_extension": n_rows / max(n_ext, 1),
+              "rows_distinct": int(t4b.sum())}
+    print(f"  K4b ({R * L} lanes): exact in int32 and int64; "
+          f"{json.dumps(info4b)}")
+    res["smem_exhaustive"] = (e4b, _median_ms(k4b), _median_ms(p4b, n=3),
+                              (R * L,),
                               *_bound(pk, 0, 48 * int(t4b.sum()) + _nbytes(
-                                  rd, ri, ee, mi, *out4b)))
+                                  rd, ri, ee, mi, *out4b)), info4b)
     cap3 = max(2, L // opt.min_seed_len + 2)
 
     def s1(f):

@@ -1,8 +1,8 @@
-// K6: FM-index rank primitives on the fused occ table, per thread, and the
-// group rank of K4a and K4c (G threads a rank pair, below). Shared
-// __device__ code of the seeding kernels (smem.cu: K4a-K4c) and the SA walk
-// (sa_walk.cu: K5); no launch of its own. K4b runs the per-thread ranks, K5
-// the per-thread `lf`.
+// K6: FM-index rank primitives on the fused occ table: the group rank of
+// K4a and K4c (G threads a rank pair), the pair rank of K4b (one thread a
+// rank pair, one row fetch when both ranks share a block) and K5's `lf`.
+// Shared __device__ code of the seeding kernels (smem.cu: K4a-K4c) and the
+// SA walk (sa_walk.cu: K5); no launch of its own.
 //
 // Replaces lariat_tpu/ops/fm_batch.py `occ4_fused_batch` (with
 // `_block_counts`), `bwt_extend_dir_batch` / `bwt_extend_batch` and
@@ -10,11 +10,11 @@
 //
 // The table is (n_blocks+1, 12) uint32 rows [ckpt 0..3 | 8 bwt words] (16
 // 2-bit codes a word, base 0 in the high bits), handed over as int32 and
-// read as three 16-byte loads a row. Bound on the H100: each rank is one
-// dependent 48-byte gather from a table of n/128 rows (about 1 M rows, 48 MB,
-// at 64 Mbp: L2-resident; 50 M rows at hg38: device memory), then 32
-// popcounts. The in-block count is the reference's 2-bit XOR trick: a field
-// matches code c iff (field ^ c) == 00.
+// read as up to three 16-byte pieces a row. Bound on the H100: each rank is
+// one dependent gather of at most 48 bytes from a table of n/128 rows (about
+// 1 M rows, 48 MB, at 64 Mbp: L2-resident; 50 M rows at hg38: device
+// memory), then up to 32 popcounts. The in-block count is the reference's
+// 2-bit XOR trick: a field matches code c iff (field ^ c) == 00.
 //
 // Templated on the index type: int32_t while the doubled text fits, int64_t
 // beyond (hg38).
@@ -56,15 +56,6 @@ __device__ __forceinline__ IDX l2_at(const FMView<IDX>& f, int i) {
   return v;
 }
 
-__device__ __forceinline__ void load_row(const uint4* rows, long long blk,
-                                         uint32_t r[12]) {
-  const uint4* p = rows + blk * 3;
-  const uint4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
-  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
-  r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
-  r[8] = c.x; r[9] = c.y; r[10] = c.z; r[11] = c.w;
-}
-
 // low bit of each 2-bit field of w set iff the field equals code c
 __device__ __forceinline__ uint32_t field_match(uint32_t w, int c) {
   const uint32_t y = w ^ (static_cast<uint32_t>(c) * 0x55555555u);
@@ -91,40 +82,7 @@ __device__ __forceinline__ void single_char(const FMView<IDX>& f, int c,
   s = l2_at(f, cc + 1) - l2_at(f, cc);
 }
 
-// occ4: counts of codes 0..3 in BWT rows [0..k]; k < 0 -> 0, k == seq_len
-// -> the totals, the sentinel row skipped (k >= primary reads k - 1)
-template <typename IDX>
-__device__ __forceinline__ void occ4(const FMView<IDX>& f, IDX k,
-                                     IDX out[4]) {
-  if (k < 0) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) out[c] = 0;
-    return;
-  }
-  if (k == f.seq_len) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) out[c] = f.L2[c + 1] - f.L2[c];
-    return;
-  }
-  IDX kk = k >= f.primary ? k - 1 : k;
-  kk = kk < 0 ? IDX(0) : (kk > f.seq_len - 1 ? f.seq_len - 1 : kk);
-  const IDX kp = kk + 1;
-  uint32_t r[12];
-  load_row(f.rows, static_cast<long long>(kp >> 7), r);
-  const int rem = static_cast<int>(kp & 127);
-  int cnt[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t keep = keep_mask(min(max(rem - 16 * i, 0), 16));
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      cnt[c] += __popc(field_match(r[4 + i], c) & keep);
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) out[c] = static_cast<IDX>(r[c]) + cnt[c];
-}
-
-// where occ4 at k reads: nothing (k < 0: zeros; k == seq_len: the
+// where the occ4 at k reads: nothing (k < 0: zeros; k == seq_len: the
 // totals), else the first rem bases of block blk
 template <typename IDX>
 __device__ __forceinline__ void rank_at(const FMView<IDX>& f, IDX k,
@@ -165,20 +123,6 @@ __device__ __forceinline__ void extend_from_occ(const FMView<IDX>& f, IDX x0,
   ns = sz;
   nx0 = is_back ? st : ot;
   nx1 = is_back ? ot : st;
-}
-
-// bidirectional extension of the bi-interval (x0, x1, s) by read code c
-// (0..3): prepended when is_back, else appended (by its complement on the
-// reverse side) -> (nx0, nx1, ns)
-template <typename IDX>
-__device__ __forceinline__ void extend_dir(const FMView<IDX>& f, IDX x0,
-                                           IDX x1, IDX s, int c, bool is_back,
-                                           IDX& nx0, IDX& nx1, IDX& ns) {
-  const IDX qpos = is_back ? x0 : x1;
-  IDX tk[4], tl[4];
-  occ4(f, qpos - 1, tk);
-  occ4(f, qpos - 1 + s, tl);
-  extend_from_occ(f, x0, x1, s, c, is_back, tk, tl, nx0, nx1, ns);
 }
 
 // ---- the group rank (K4a, K4c) -------------------------------------------
@@ -281,6 +225,122 @@ __device__ __forceinline__ int extend_dir_group(const FMView<IDX>& f,
   IDX tk[4], tl[4];
   const int rows = occ4_pair_group<IDX, G>(f, need, qpos - 1, qpos - 1 + s,
                                            g, gmask, tk, tl);
+  extend_from_occ(f, x0, x1, s, c, is_back, tk, tl, nx0, nx1, ns);
+  return rows;
+}
+
+// ---- the pair rank (K4b) ---------------------------------------------------
+//
+// One thread computes both occ4 of an extension, at ka and kb. A row's
+// checkpoint piece is loaded once when both ranks fall in its block (nearly
+// always once an interval is small), and of its two pieces of bwt words
+// only those the larger rank's position needs: the first when it counts any
+// base, the second only past base 64 (as `lf` does). Both ranks count from
+// the same registers, by bit planes (`bit_planes`, `occ4_from`): 12
+// popcounts a rank, where counting a code a word takes 32 (the parent
+// design's `occ4`) -- on the H100 a popcount issues at a quarter of the
+// integer rate, and the popcounts set K4b's pace (PERF.md). Returns the
+// rows fetched (0-2).
+
+// the checkpoint of row blk and the bwt pieces that counting its first rem
+// bases needs (the others zero)
+__device__ __forceinline__ void load_pieces(const uint4* rows, long long blk,
+                                            int rem, uint4& ck,
+                                            uint32_t w[8]) {
+  const uint4* p = rows + blk * 3;
+  ck = __ldg(p);
+  const uint4 lo = rem > 0 ? __ldg(p + 1) : make_uint4(0, 0, 0, 0);
+  const uint4 hi = rem > 64 ? __ldg(p + 2) : make_uint4(0, 0, 0, 0);
+  w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
+  w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
+}
+
+// the bit planes of a row's eight bwt words, two words a plane word: pl[j]
+// holds the fields' low bits (word 2j's in the even bits, word 2j + 1's in
+// the odd bits), ph[j] their high bits
+__device__ __forceinline__ void bit_planes(const uint32_t w[8],
+                                           uint32_t pl[4], uint32_t ph[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    pl[j] = (w[2 * j] & 0x55555555u) | ((w[2 * j + 1] << 1) & 0xAAAAAAAAu);
+    ph[j] = ((w[2 * j] >> 1) & 0x55555555u) | (w[2 * j + 1] & 0xAAAAAAAAu);
+  }
+}
+
+// a word's top `bits` bits (bits clamped to 0..32)
+__device__ __forceinline__ uint32_t top_bits(int bits) {
+  return __funnelshift_rc(0u, 0xFFFFFFFFu, static_cast<unsigned>(max(bits, 0)));
+}
+
+// occ4 at k from a row's checkpoint and bit planes, counting its first rem
+// bases: a plane word's mask keeps the counted fields of both its words,
+// then one popcount each counts the low bits (codes 1 and 3), the high bits
+// (2 and 3) and both (3); code 0 is the rest of the rem bases
+template <typename IDX>
+__device__ __forceinline__ void occ4_from(const FMView<IDX>& f, IDX k,
+                                          const uint4& ck,
+                                          const uint32_t pl[4],
+                                          const uint32_t ph[4], int rem,
+                                          IDX out[4]) {
+  int lo = 0, hi = 0, both = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t m = (top_bits(2 * rem - 64 * j) & 0x55555555u)
+                       | (top_bits(2 * rem - 64 * j - 32) & 0xAAAAAAAAu);
+    lo += __popc(pl[j] & m);
+    hi += __popc(ph[j] & m);
+    both += __popc(pl[j] & ph[j] & m);
+  }
+  const uint32_t base[4] = {ck.x, ck.y, ck.z, ck.w};
+  const int add[4] = {rem - lo - hi + both, lo - both, hi - both, both};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const IDX tot = f.L2[c + 1] - f.L2[c];
+    out[c] = k < 0 ? IDX(0)
+             : (k == f.seq_len ? tot : static_cast<IDX>(base[c]) + add[c]);
+  }
+}
+
+template <typename IDX>
+__device__ __forceinline__ int occ4_pair(const FMView<IDX>& f, IDX ka, IDX kb,
+                                         IDX ta[4], IDX tb[4]) {
+  bool la, lb;
+  long long ba, bb;
+  int ra, rb;
+  rank_at(f, ka, la, ba, ra);
+  rank_at(f, kb, lb, bb, rb);
+  const bool same = la && lb && ba == bb;
+  uint4 ca = make_uint4(0, 0, 0, 0), cb = ca;
+  uint32_t wa[8], wb[8], pla[4], pha[4], plb[4], phb[4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) wa[i] = wb[i] = 0;
+  if (la) load_pieces(f.rows, ba, same ? max(ra, rb) : ra, ca, wa);
+  if (lb && !same) load_pieces(f.rows, bb, rb, cb, wb);
+  bit_planes(wa, pla, pha);
+  if (same) {
+    cb = ca;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      plb[j] = pla[j];
+      phb[j] = pha[j];
+    }
+  } else {
+    bit_planes(wb, plb, phb);
+  }
+  occ4_from(f, ka, ca, pla, pha, ra, ta);
+  occ4_from(f, kb, cb, plb, phb, rb, tb);
+  return (la ? 1 : 0) + (lb && !same ? 1 : 0);
+}
+
+// extend_dir with the pair rank; returns the rows fetched
+template <typename IDX>
+__device__ __forceinline__ int extend_dir_pair(const FMView<IDX>& f, IDX x0,
+                                               IDX x1, IDX s, int c,
+                                               bool is_back, IDX& nx0,
+                                               IDX& nx1, IDX& ns) {
+  const IDX qpos = is_back ? x0 : x1;
+  IDX tk[4], tl[4];
+  const int rows = occ4_pair(f, qpos - 1, qpos - 1 + s, tk, tl);
   extend_from_occ(f, x0, x1, s, c, is_back, tk, tl, nx0, nx1, ns);
   return rows;
 }

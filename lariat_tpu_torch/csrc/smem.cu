@@ -31,8 +31,10 @@
 // kernel. K4c walks each read the same way: a group of kS1G threads a read
 // on the group rank, one-warp blocks, the reads in shared memory; its walk
 // is one step a base, so its time is the longest read's length x the
-// latency of one rank round. K4b keeps one thread per lane and the
-// per-thread rank.
+// latency of one rank round. K4b keeps one thread per lane, since its
+// 786,432 lanes of a fallback batch already fill the card, on fm.cuh's pair
+// rank: one row fetch an extension when both ranks share a block, only the
+// row pieces its positions need.
 
 #include <cstdint>
 
@@ -172,6 +174,28 @@ __global__ void __launch_bounds__(kTwoptrThreads) twoptr_kernel(
 }
 
 // ---- K4b ------------------------------------------------------------------
+// A thread a lane on the pair rank (fm.cuh `extend_dir_pair`: one row fetch
+// an extension when both ranks share a block); on the H100 it ran 1.5-2.2x
+// faster than a group of 4 or 8 threads a lane on the group rank (PERF.md).
+// A lane reads its bases backward from e - 1 through one cached 16-byte
+// load of its read (byte loads when L % 16 != 0), so a lane of any
+// (read_idx, e) list costs one load a 16 bases. counts (N, 2) int32, when
+// given, gets [extensions run, fused rows fetched] a lane.
+
+// base pos (non-increasing from call to call) of read q: through the cached
+// 16-byte chunk v holding bases [vb, vb + 16) when vec
+__device__ __forceinline__ int read_back(const uint8_t* q, int pos, bool vec,
+                                         uint4& v, int& vb) {
+  if (!vec) return q[pos];
+  if (pos < vb) {
+    vb = pos & ~15;
+    v = __ldg(reinterpret_cast<const uint4*>(q + vb));
+  }
+  const int o = pos - vb;
+  const uint32_t wd = (o & 8) ? ((o & 4) ? v.w : v.z) : ((o & 4) ? v.y : v.x);
+  return (wd >> (8 * (o & 3))) & 0xFF;
+}
+
 template <typename IDX>
 __global__ void exhaustive_kernel(
     const uint8_t* __restrict__ reads, const int32_t* __restrict__ read_idx,
@@ -180,27 +204,33 @@ __global__ void exhaustive_kernel(
     long long primary, long long seq_len, int N, int L,
     int32_t* __restrict__ b_out, IDX* __restrict__ x0_out,
     IDX* __restrict__ x1_out, IDX* __restrict__ s_out,
-    bool* __restrict__ valid_out) {
+    bool* __restrict__ valid_out, int32_t* __restrict__ counts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
   const FMView<IDX> f = lariat::fm_view(fused, L2, primary, seq_len);
   const uint8_t* q = reads + static_cast<size_t>(read_idx[i]) * L;
+  const bool vec = (L & 15) == 0
+                   && (reinterpret_cast<uintptr_t>(reads) & 15) == 0;
+  uint4 v = make_uint4(0, 0, 0, 0);
+  int vb = 1 << 30;
   const int e = e_v[i];
   const IDX min_intv = lariat::at_least_one(min_intv_v[i]);
-  const int c0 = q[min(max(e - 1, 0), L - 1)];
+  const int c0 = read_back(q, min(max(e - 1, 0), L - 1), vec, v, vb);
   const bool valid = e >= 1 && c0 < 4;
   IDX x0, x1, s;
   lariat::single_char(f, c0, x0, x1, s);
   int b = valid ? e - 1 : e;
+  int ext = 0, rows = 0;
   if (valid) {
     // greedy backward extension until an N, the read start, or the
     // interval size falls below min_intv (the reference stops at L - 1
     // steps, which pos >= 0 already implies)
     for (int pos = e - 2; pos >= 0 && e - 2 - pos < L - 1; --pos) {
-      const int c = q[min(pos, L - 1)];
+      const int c = read_back(q, min(pos, L - 1), vec, v, vb);
       if (c >= 4) break;
       IDX n0, n1, ns;
-      lariat::extend_dir(f, x0, x1, s, c, true, n0, n1, ns);
+      rows += lariat::extend_dir_pair(f, x0, x1, s, c, true, n0, n1, ns);
+      ++ext;
       if (ns < min_intv) break;
       x0 = n0; x1 = n1; s = ns; b = pos;
     }
@@ -210,6 +240,10 @@ __global__ void exhaustive_kernel(
   x1_out[i] = x1;
   s_out[i] = s;
   valid_out[i] = valid;
+  if (counts != nullptr) {
+    counts[2 * i] = ext;
+    counts[2 * i + 1] = rows;
+  }
 }
 
 // ---- K4c ------------------------------------------------------------------
@@ -274,8 +308,6 @@ __global__ void __launch_bounds__(kS1Threads) strategy1_kernel(
   }
   if (g == 0) mrow[cap] = n;
 }
-
-int grid(int n) { return lariat::blocks_for(n); }
 
 // a block's dynamic shared memory past the 48 KB default needs the kernel's
 // opt-in; below it (4 reads of L 192: 768 B) no host call is made
@@ -348,26 +380,28 @@ extern "C" int lariat_smem_twoptr(
 }
 
 // N lanes (read_idx[i], e[i], min_intv[i]) -> b (N,) int32, x0/x1/s (N,)
-// IDX, valid (N,) bool.
+// IDX, valid (N,) bool; counts (N, 2) int32 or null.
 extern "C" int lariat_smem_exhaustive(
     const uint8_t* reads, const int32_t* read_idx, const int32_t* e,
     const void* min_intv, const int32_t* fused, const void* L2,
     long long primary, long long seq_len, int idx64, int N, int L,
-    int32_t* b, void* x0, void* x1, void* s, bool* valid, void* stream) {
+    int32_t* b, void* x0, void* x1, void* s, bool* valid, int32_t* counts,
+    void* stream) {
   if (N <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = lariat::blocks_for(N);
   if (idx64)
-    exhaustive_kernel<int64_t><<<grid(N), lariat::kThreads, 0, st>>>(
+    exhaustive_kernel<int64_t><<<blocks, lariat::kThreads, 0, st>>>(
         reads, read_idx, e, static_cast<const int64_t*>(min_intv), fused,
         static_cast<const int64_t*>(L2), primary, seq_len, N, L, b,
         static_cast<int64_t*>(x0), static_cast<int64_t*>(x1),
-        static_cast<int64_t*>(s), valid);
+        static_cast<int64_t*>(s), valid, counts);
   else
-    exhaustive_kernel<int32_t><<<grid(N), lariat::kThreads, 0, st>>>(
+    exhaustive_kernel<int32_t><<<blocks, lariat::kThreads, 0, st>>>(
         reads, read_idx, e, static_cast<const int32_t*>(min_intv), fused,
         static_cast<const int32_t*>(L2), primary, seq_len, N, L, b,
         static_cast<int32_t*>(x0), static_cast<int32_t*>(x1),
-        static_cast<int32_t*>(s), valid);
+        static_cast<int32_t*>(s), valid, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

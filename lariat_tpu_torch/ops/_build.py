@@ -36,14 +36,14 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "sw_extend": ("lariat_sw_extend", [_P] * 6 + [_I] * 12 + [_P] * 4),
     "sw_global": ("lariat_sw_global", [_P] * 5 + [_I] * 10 + [_P] * 4),
-    "traceback": ("lariat_traceback", [_P] * 5 + [_I] * 4 + [_P] * 2),
+    "traceback": ("lariat_traceback", [_P] * 5 + [_I] * 4 + [_P] * 3),
     "sw_local": ("lariat_sw_local", [_P] * 5 + [_I] * 10 + [_P] * 3),
     "extend_ablate": ("lariat_extend_ablate",
                       [_P] * 3 + [_I] * 14 + [_P] * 4),
     "smem_twoptr": ("lariat_smem_twoptr",
                     [_P] * 7 + [_L] * 2 + [_I] * 7 + [_P] * 4),
     "smem_exhaustive": ("lariat_smem_exhaustive",
-                        [_P] * 6 + [_L] * 2 + [_I] * 3 + [_P] * 6),
+                        [_P] * 6 + [_L] * 2 + [_I] * 3 + [_P] * 7),
     "smem_strategy1": ("lariat_smem_strategy1",
                        [_P] * 4 + [_L] * 3 + [_I] * 5 + [_P] * 3),
     "sa_walk": ("lariat_sa_walk", [_P] * 5 + [_L] * 3 + [_I] * 3 + [_P] * 2),

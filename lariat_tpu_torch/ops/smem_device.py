@@ -20,8 +20,8 @@ the (n, 5) int64 rows ``[x0, x1, s, qb, qe]`` come out in the same order.
 
 The reference runs each as an XLA while/fori loop whose trip count is the
 slowest lane's; on the card every lane runs its own state machine to its
-end or its budget (K4b one thread a lane; K4a and K4c a group of 8
-threads a lane on the group rank, every thread running the same
+end or its budget (K4b one thread a lane on the pair rank; K4a and K4c a
+group of 8 threads a lane on the group rank, every thread running the same
 transition). A finished lane's transition is the identity, so per-lane
 budgets give the reference's outputs lane for lane. The reference checks
 its step cap once per two transitions (its ``UNROLL``), so a cap of
@@ -277,24 +277,35 @@ def min_starts_kernel_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
 
 def min_starts_kernel(fmd: DeviceFMIndex, reads: torch.Tensor,
                       read_idx: torch.Tensor, e: torch.Tensor,
-                      min_intv: torch.Tensor, L: int):
+                      min_intv: torch.Tensor, L: int,
+                      counts: Optional[torch.Tensor] = None):
     """K4b: per lane i, the minimal start b such that q[b..e[i]) of read
     read_idx[i] has interval size >= min_intv[i], stepping back over
     non-N bases. Returns (b int32, x0, x1, s in the index dtype, valid
-    bool), each (N,); valid is False where q[e-1] is N or e < 1."""
+    bool), each (N,); valid is False where q[e-1] is N or e < 1.
+
+    ``counts``, an (N, 2) int32 CUDA tensor, gets each lane's [extensions
+    run, fused rows fetched] (the kernel's own count; a CPU call takes
+    none)."""
     dev = reads.device
     N = int(read_idx.shape[0])
     read_idx, e = (v.to(dev, torch.int32).contiguous() for v in (read_idx, e))
     min_intv = min_intv.to(dev, fmd.idx_dtype).contiguous()
     if not _build.on_cuda(reads):
+        if counts is not None:
+            raise ValueError("counts are kept by the kernel, on a CUDA "
+                             "tensor")
         return min_starts_kernel_plain(fmd, reads, read_idx, e, min_intv, L)
     _build.check("reads", reads, dev, (reads.shape[0], L), (torch.uint8,))
+    if counts is not None:
+        _build.check("counts", counts, dev, (N, 2))
     dt = fmd.idx_dtype
     b = torch.empty(N, dtype=torch.int32, device=dev)
     x0, x1, s = (torch.empty(N, dtype=dt, device=dev) for _ in range(3))
     valid = torch.empty(N, dtype=torch.bool, device=dev)
     _build.launch("smem_exhaustive", reads, read_idx, e, min_intv,
-                  *_fm_args(fmd), N, L, b, x0, x1, s, valid)
+                  *_fm_args(fmd), N, L, b, x0, x1, s, valid,
+                  0 if counts is None else counts)
     return b, x0, x1, s, valid
 
 

@@ -18,7 +18,7 @@ The kernel writes every byte of z, task-major.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -172,12 +172,21 @@ def traceback_ops_fused_plain(z: torch.Tensor, qlen: torch.Tensor,
 
 def traceback_ops_fused(z: torch.Tensor, qlen: torch.Tensor,
                         tlen: torch.Tensor, w: torch.Tensor,
-                        score: torch.Tensor, S: int) -> torch.Tensor:
+                        score: torch.Tensor, S: int,
+                        windows: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """K2b: backtrack every task of a K2 wave -> (B, S//4 + 12) uint8 blob
     (``split_traceback_blob`` unpacks it). Needs S % 4 == 0 and
     S >= Lt + Lq. On the card z must be contiguous, as ``global_batch``
-    returns it."""
+    returns it.
+
+    ``windows``, a (B,) int32 CUDA tensor, gets the windows of z each
+    task's warp staged in shared memory (the kernel's own count; the twin
+    has no windows, so a CPU call takes none)."""
     if not _build.on_cuda(z):
+        if windows is not None:
+            raise ValueError("windows are counted by the kernel, on a CUDA "
+                             "tensor")
         return traceback_ops_fused_plain(z, qlen, tlen, w, score, S)
     dev = z.device
     B, Lt, Lq = z.shape
@@ -189,8 +198,11 @@ def traceback_ops_fused(z: torch.Tensor, qlen: torch.Tensor,
     for name, v in (("qlen", qlen), ("tlen", tlen), ("w", w),
                     ("score", score)):
         _build.check(name, v, dev, (B,))
+    if windows is not None:
+        _build.check("windows", windows, dev, (B,))
     blob = torch.empty((B, S // 4 + 12), dtype=torch.uint8, device=dev)
-    _build.launch("traceback", z, qlen, tlen, w, score, B, Lt, Lq, S, blob)
+    _build.launch("traceback", z, qlen, tlen, w, score, B, Lt, Lq, S, blob,
+                  0 if windows is None else windows)
     return blob
 
 

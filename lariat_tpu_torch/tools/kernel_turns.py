@@ -1,11 +1,19 @@
-"""K1, K4a, K4c and the SA lookup (K5) timed on the card, to compare two
-trees of the port in one call, in turns (parent, new, new, parent):
+"""K1, K2b, K4a, K4b, K4c and the SA lookup (K5) timed on the card, to
+compare two trees of the port in one call, in turns (parent, new, new,
+parent):
 
     git archive <parent> lariat_tpu_torch | tar -x -C build/parent
     for t in build/parent . . build/parent; do
       PYTHONPATH=$t python3 lariat_tpu_torch/tools/kernel_turns.py \\
-          <genome.fa> <reads.fastq.gz>
+          <genome.fa> <reads.fastq.gz> [k1,k2b,k4a,k4b,k4c,lookup]
     done
+
+The third argument picks the sections (all by default). A tuning variant
+is one more tree, a copy of the package with one string of one file
+replaced (it must occur exactly once there):
+
+    python3 lariat_tpu_torch/tools/kernel_turns.py variant build/var/c32 \\
+        csrc/traceback.cu 'kWinCols = 64;' 'kWinCols = 32;'
 
 Run by its path, the script times the ``lariat_tpu_torch`` that PYTHONPATH
 puts first, through entry points that every tree of the port has had since
@@ -17,12 +25,20 @@ device seeding came in:
   its twin, with the transitions of its longest lane (flags bits 2+);
 - K4c, ``smem_device.strategy1``, on the same reads at the collect's
   max_intv, min_len and cap, checked against its twin;
+- K2b, ``sw_global.traceback_ops_fused``, on K2's z of chip_smoke.py
+  phase 3's reg2aln chunk (``k2_inputs``: 2,048 x 192 x 384, S 576),
+  checked against its twin; in device time also with a cold L2, over the
+  first quarter of the tasks, and with no walk (tlen 0);
+- K4b, ``smem_device.min_starts_kernel``, over every (read, e) lane of
+  those reads (786,432 at L 192, min_intv 1, as the collect's fallback
+  runs it), checked against its twin; in device time also over the first
+  half of the lanes and with a cold L2 (256 MB read between calls);
 - the SA lookup, ``align_step.sa_lookup_batch_host``, on chip_smoke.py
   phase 5's 65,536 random rows (seed 3), checked against the positions of
   the twin's walk.
 Each time is the median of 21 calls (CUDA events around the call, its host
-time included), taken three times; K4a and K4c also once in device time
-alone (``events_ms``). Prints the card and, last, one JSON line.
+time included), taken three times; K2b, K4a, K4b and K4c also once in
+device time alone (``events_ms``). Prints the card and, last, one JSON line.
 chip_smoke.py builds its K1 and seeding inputs with the same functions;
 ``sa_walks.py`` times K5 alone.
 """
@@ -64,6 +80,19 @@ def k1_inputs(rng, B=8192, Lq=192, Lt=576):
     w = np.full(B, 100, np.int32)
     h0 = rng.integers(19, 152, B).astype(np.int32)
     return q, qlen, t, tlen, w, h0
+
+
+def k2_inputs(rng, B=2048, Lq=192, Lt=384):
+    """K2 and K2b at the reg2aln chunk: qlen 30-151, tlen qlen +- 10, w at
+    least |qlen - tlen| (1-59), planted targets -> (q, qlen, t, tlen, w)
+    numpy arrays. chip_smoke.py phase 3 draws them from its rng (seed 1)
+    after ``k1_inputs``."""
+    qlen = rng.integers(30, 152, B).astype(np.int32)
+    tlen = np.clip(qlen + rng.integers(-10, 11, B), 1, Lt).astype(np.int32)
+    q, t = planted(rng, qlen, tlen, Lq, Lt)
+    w = np.maximum(np.abs(qlen - tlen),
+                   rng.integers(1, 60, B)).astype(np.int32)
+    return q, qlen, t, tlen, w
 
 
 def seed_batch(reads_path, n):
@@ -118,18 +147,46 @@ def events_ms(fn, prep=None, n=21):
     return times[len(times) // 2]
 
 
+SECTIONS = ("k1", "k2b", "k4a", "k4b", "k4c", "lookup")
+
+
+def make_variant(dest, rel, old, new) -> str:
+    """Copy this tree's package to ``dest``/lariat_tpu_torch with ``old``
+    replaced by ``new`` in its file ``rel``; returns the copy's path."""
+    import shutil
+    import lariat_tpu_torch
+    src = os.path.dirname(os.path.abspath(lariat_tpu_torch.__file__))
+    pkg = os.path.join(dest, "lariat_tpu_torch")
+    shutil.rmtree(pkg, ignore_errors=True)
+    shutil.copytree(src, pkg, ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(pkg, rel)
+    with open(path) as f:
+        text = f.read()
+    if text.count(old) != 1:
+        raise SystemExit(f"{rel}: {old!r} occurs {text.count(old)} times")
+    with open(path, "w") as f:
+        f.write(text.replace(old, new))
+    return pkg
+
+
 def main(argv=None) -> int:
     import torch
     from lariat_tpu_torch.cli import load_reference
     from lariat_tpu_torch.ops import fm_batch, smem_device as sd
-    from lariat_tpu_torch.ops import sw_batch, sw_extend
+    from lariat_tpu_torch.ops import sw_batch, sw_extend, sw_global
     from lariat_tpu_torch.parallel import align_step
     from lariat_tpu_torch.tools import card, median_ms
     import lariat_tpu_torch
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 2:
+    if argv[:1] == ["variant"] and len(argv) == 5:
+        print(make_variant(*argv[1:]))
+        return 0
+    if len(argv) not in (2, 3):
         raise SystemExit("usage: kernel_turns.py <genome.fa> "
-                         "<reads.fastq.gz>")
+                         "<reads.fastq.gz> [k1,k2b,k4a,k4b,k4c,lookup]")
+    want_s = set(argv[2].split(",")) if len(argv) == 3 else set(SECTIONS)
+    if not want_s <= set(SECTIONS):
+        raise SystemExit(f"sections: {sorted(want_s - set(SECTIONS))}?")
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_turns needs CUDA")
     dev = torch.device("cuda")
@@ -143,20 +200,53 @@ def main(argv=None) -> int:
     def medians(fn):
         return [median_ms(fn, dev, 21) for _ in range(3)]
 
-    q, qlen, t, tlen, w, h0 = (put(a) for a in
-                               k1_inputs(np.random.default_rng(1)))
+    def err(got, want):
+        return max(int((a.long() - b.long()).abs().max())
+                   for a, b in zip(got, want))
+
+    flush = torch.ones(1 << 26, dtype=torch.int32, device=dev)  # 256 MB
+    rng = np.random.default_rng(1)
+    q, qlen, t, tlen, w, h0 = (put(a) for a in k1_inputs(rng))
     ext = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, end_bonus=5, zdrop=100)
 
     def k1():
         return sw_extend.extend_batch(q, qlen, t, tlen, w, h0, **ext)
 
-    got = k1()
-    want = sw_batch.extend_batch(q, qlen, t, tlen,
-                                 sw_extend.score_matrix(1, -4, -1, dev), w,
-                                 h0, packed=True, **ext)
-    out["k1_max_abs_err"] = int((got[:6].long() - want.long()).abs().max())
-    out["k1_ms"] = medians(k1)
+    if "k1" in want_s:
+        got = k1()
+        want = sw_batch.extend_batch(q, qlen, t, tlen,
+                                     sw_extend.score_matrix(1, -4, -1, dev),
+                                     w, h0, packed=True, **ext)
+        out["k1_max_abs_err"] = int((got[:6].long() - want.long()).abs()
+                                    .max())
+        out["k1_ms"] = medians(k1)
 
+    if "k2b" in want_s:
+        q2, ql2, t2, tl2, w2 = (put(a) for a in k2_inputs(rng))
+        S = q2.shape[1] + t2.shape[1]
+        score, z = sw_global.global_batch(q2, ql2, t2, tl2, w2)
+
+        def k2b():
+            return sw_global.traceback_ops_fused(z, ql2, tl2, w2, score, S)
+
+        out["k2b_max_abs_err"] = err([k2b()], [
+            sw_global.traceback_ops_fused_plain(z, ql2, tl2, w2, score, S)])
+        out["k2b_tasks"] = [int(z.shape[0]), S]
+        out["k2b_ms"] = medians(k2b)
+        out["k2b_dev_ms"] = events_ms(k2b)
+        out["k2b_cold_dev_ms"] = events_ms(k2b, prep=lambda: flush.max())
+        # a quarter of the tasks (the longest walk stays about as long),
+        # and the launch with no walk (tlen 0: the fill and the blob rows)
+        n4 = int(z.shape[0]) // 4
+        out["k2b_quarter_dev_ms"] = events_ms(
+            lambda: sw_global.traceback_ops_fused(
+                z[:n4], ql2[:n4], tl2[:n4], w2[:n4], score[:n4], S))
+        tl0 = torch.zeros_like(tl2)
+        out["k2b_nowalk_dev_ms"] = events_ms(
+            lambda: sw_global.traceback_ops_fused(z, ql2, tl0, w2, score, S))
+
+    if not want_s & {"k4a", "k4b", "k4c", "lookup"}:
+        return _finish(out)
     fm = load_reference(argv[0])
     fmd = fm_batch.DeviceFMIndex.from_host(fm, dev)
     rmat, lens, _ = seed_batch(argv[1], 4096)
@@ -169,44 +259,67 @@ def main(argv=None) -> int:
         return sd.min_starts_twoptr(*args, max_steps=3 * L, min_seed=19,
                                     cap=sd.CAP1, mid=mid)
 
-    meta, big = k4a()[:2]   # newer trees also return the lanes' aux
-    pm, pb, aux = sd.min_starts_twoptr_plain(
-        *args[:5], mid, L, sd._budget(3 * L), False, 19, sd.CAP1)
-    sd._twoptr_flags(pm, aux, sd.CAP1)
-    out["k4a_max_abs_err"] = max(
-        int((a.long() - b.long()).abs().max()) for a, b in
-        ((meta, pm), (big, pb)))
-    out["k4a_reads"] = [R, L]
-    out["k4a_transitions_max"] = int(meta[0, -1]) >> 2
-    out["k4a_ms"] = medians(k4a)
-    out["k4a_dev_ms"] = events_ms(k4a)
+    if "k4a" in want_s:
+        meta, big = k4a()[:2]   # newer trees also return the lanes' aux
+        pm, pb, aux = sd.min_starts_twoptr_plain(
+            *args[:5], mid, L, sd._budget(3 * L), False, 19, sd.CAP1)
+        sd._twoptr_flags(pm, aux, sd.CAP1)
+        out["k4a_max_abs_err"] = err((meta, big), (pm, pb))
+        out["k4a_reads"] = [R, L]
+        out["k4a_transitions_max"] = int(meta[0, -1]) >> 2
+        out["k4a_ms"] = medians(k4a)
+        out["k4a_dev_ms"] = events_ms(k4a)
+
+    if "k4b" in want_s:
+        ri = put(np.repeat(np.arange(R), L), np.int32)
+        ee = put(np.tile(np.arange(1, L + 1), R), np.int32)
+        mi = put(np.ones(R * L), np.int64)
+        half = R * L // 2
+
+        def k4b(n=R * L):
+            return sd.min_starts_kernel(fmd, args[1], ri[:n], ee[:n], mi[:n],
+                                        L)
+
+        out["k4b_max_abs_err"] = err(k4b(), sd.min_starts_kernel_plain(
+            fmd, args[1], ri, ee, mi, L))
+        out["k4b_lanes"] = R * L
+        out["k4b_ms"] = medians(k4b)
+        out["k4b_dev_ms"] = events_ms(k4b)
+        out["k4b_half_dev_ms"] = events_ms(lambda: k4b(half))
+        out["k4b_cold_dev_ms"] = events_ms(k4b, prep=lambda: flush.max())
 
     s1 = (fmd, args[1], args[3], 20, L, 19, L // 19 + 2)
 
     def k4c():
         return sd.strategy1(*s1)
 
-    want = sd.pack_r3(*sd.strategy1_plain(*s1))
-    out["k4c_max_abs_err"] = max(int((a.long() - b.long()).abs().max())
-                                 for a, b in zip(k4c(), want))
-    out["k4c_ms"] = medians(k4c)
-    out["k4c_dev_ms"] = events_ms(k4c)
+    if "k4c" in want_s:
+        out["k4c_max_abs_err"] = err(k4c(),
+                                     sd.pack_r3(*sd.strategy1_plain(*s1)))
+        out["k4c_ms"] = medians(k4c)
+        out["k4c_dev_ms"] = events_ms(k4c)
 
-    g = align_step.DeviceGenome.from_host(fm, fmd)
-    rows = lookup_rows(fm.seq_len)
+    if "lookup" in want_s:
+        g = align_step.DeviceGenome.from_host(fm, fmd)
+        rows = lookup_rows(fm.seq_len)
 
-    def lookup():
-        return align_step.sa_lookup_batch_host(g, fm, rows)
+        def lookup():
+            return align_step.sa_lookup_batch_host(g, fm, rows)
 
-    kd = torch.from_numpy(rows).to(dev, fmd.idx_dtype)
-    z = torch.zeros_like(kd)
-    walk = align_step.sa_walk_chunk_plain(g, kd, z, z.bool(), 512).cpu()
-    want = (np.asarray(fm.sa_samples)[(walk[0].numpy() // fm.sa_intv)
-                                      .astype(np.int64)]
-            + walk[1].numpy().astype(np.int64))
-    out["lookup_max_abs_err"] = int(np.abs(lookup() - want).max())
-    out["lookup_rows"] = len(rows)
-    out["lookup_ms"] = medians(lookup)
+        kd = torch.from_numpy(rows).to(dev, fmd.idx_dtype)
+        zk = torch.zeros_like(kd)
+        walk = align_step.sa_walk_chunk_plain(g, kd, zk, zk.bool(),
+                                              512).cpu()
+        want = (np.asarray(fm.sa_samples)[(walk[0].numpy() // fm.sa_intv)
+                                          .astype(np.int64)]
+                + walk[1].numpy().astype(np.int64))
+        out["lookup_max_abs_err"] = int(np.abs(lookup() - want).max())
+        out["lookup_rows"] = len(rows)
+        out["lookup_ms"] = medians(lookup)
+    return _finish(out)
+
+
+def _finish(out) -> int:
     print(json.dumps(out), flush=True)
     errs = [out[k] for k in out if k.endswith("max_abs_err")]
     return 0 if not any(errs) else 1

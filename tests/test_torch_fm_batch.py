@@ -313,3 +313,117 @@ def test_lf_pieces_matches_lf_batch(indices, dt):
     for m in (0, 127):
         assert ((kx & 127) == m).any()
     assert set(np.unique(pieces)) == {2, 3}
+
+
+# ---- K4b's pair rank (csrc/fm.cuh occ4_pair), emulated -----------------------
+
+def emulate_pair_rank(fused, L2, primary, seq_len, ka, kb):
+    """occ4 at ka and kb as one K4b thread computes them (fm.cuh
+    `occ4_pair` :305, `load_pieces` :247, `bit_planes` :261, `top_bits`
+    :271, `occ4_from` :280): a row's checkpoint piece
+    once when both ranks fall in its block; of its bwt pieces the first
+    when the larger rank there counts any base, the second only past base
+    64 (zeros otherwise); counted by bit planes (``bit_planes``: the
+    fields' low bits and high bits, two words a plane word), a plane
+    word's mask from ``top_bits``, one popcount each for the low bits, the
+    high bits and both, code 0 the rest of the rem bases -> (ta, tb, rows
+    fetched, 16-byte pieces loaded)."""
+    rows = fused.view(np.uint32).astype(np.uint64)
+
+    def at(k):
+        kk = np.clip(np.where(k >= primary, k - 1, k), 0, seq_len - 1)
+        return (k >= 0) & (k != seq_len), (kk + 1) >> 7, (kk + 1) & 127
+
+    la, ba, ra = at(ka)
+    lb, bb, rb = at(kb)
+    same = la & lb & (ba == bb)
+
+    def load(on, blk, rem):
+        ck = np.where(on[:, None], rows[blk, 0:4], np.uint64(0))
+        lo = np.where((on & (rem > 0))[:, None], rows[blk, 4:8],
+                      np.uint64(0))
+        hi = np.where((on & (rem > 64))[:, None], rows[blk, 8:12],
+                      np.uint64(0))
+        pieces = on.astype(np.int64) * (1 + (rem > 0) + (rem > 64))
+        return ck, np.concatenate([lo, hi], axis=1), pieces
+
+    ca, wa, pa = load(la, ba, np.where(same, np.maximum(ra, rb), ra))
+    cb, wb, pb = load(lb & ~same, bb, rb)
+    cb = np.where(same[:, None], ca, cb)
+    wb = np.where(same[:, None], wa, wb)
+    L2 = np.asarray(L2, np.int64)
+    tot = L2[1:] - L2[:4]
+
+    def top_bits(bits):
+        b = np.clip(bits, 0, 32).astype(np.uint64)
+        return np.where(b == 0, 0, (np.uint64(0xFFFFFFFF) << (np.uint64(32)
+                                                             - b))
+                        & np.uint64(0xFFFFFFFF)).astype(np.uint64)
+
+    def count(k, ck, w, rem):
+        # bit planes, two words a plane word (bit_planes), one popcount
+        # each for the low bits, the high bits and both (occ4_from)
+        m5, ma = np.uint64(0x55555555), np.uint64(0xAAAAAAAA)
+        one = np.uint64(1)
+        lo = hi = both = np.zeros(len(k), np.int64)
+        for j in range(4):
+            we, wo = w[:, 2 * j], w[:, 2 * j + 1]
+            pl = (we & m5) | ((wo << one) & ma)
+            ph = ((we >> one) & m5) | (wo & ma)
+            m = ((top_bits(2 * rem - 64 * j) & m5)
+                 | (top_bits(2 * rem - 64 * j - 32) & ma))
+            lo = lo + _popcount(pl & m).astype(np.int64)
+            hi = hi + _popcount(ph & m).astype(np.int64)
+            both = both + _popcount(pl & ph & m).astype(np.int64)
+        cnt = np.stack([rem - lo - hi + both, lo - both, hi - both, both],
+                       axis=1)
+        v = ck.astype(np.int64) + cnt
+        v = np.where((k == seq_len)[:, None], tot[None, :], v)
+        return np.where((k < 0)[:, None], 0, v)
+
+    return (count(ka, ca, wa, ra), count(kb, cb, wb, rb),
+            la.astype(np.int64) + (lb & ~same), pa + pb)
+
+
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+def test_pair_rank_matches_occ4(indices, dt):
+    """K4b's pair rank against the port's and the JAX package's
+    occ4_fused_batch at k = -1, k = seq_len, around primary, rem (the
+    bases counted in the block) 0, 63, 64 and 127 for either rank, both
+    ranks in one block (one row, the pieces of the larger rank) and in two;
+    the rows fetched against rank_rows."""
+    fm, jdfm, idx = indices
+    fmd = idx[dt]
+    rng = np.random.default_rng(31)
+    ka = _rows(fm, rng, n=800)
+    blk = rng.integers(0, fm.seq_len // 128 - 1, 40) * 128
+    # kp = kk + 1 = k + 1 below primary: rem r at k = blk + r - 1
+    for j, r in enumerate((0, 63, 64, 127)):
+        ka[640 + 40 * j:680 + 40 * j] = blk + r - 1
+    s = np.where(rng.random(len(ka)) < 0.6, rng.integers(0, 3, len(ka)),
+                 rng.integers(0, 300, len(ka)))
+    s[:8] = 0
+    kb = np.minimum(ka + s, fm.seq_len)
+    kb[8:12] = -1
+    kb[12:16] = fm.seq_len
+    kb[-20:] = ka[-20:] - ka[-20:] % 128 + 127     # rem 0 -> rem 127, one row
+    for k in (ka, kb):
+        rem = (np.clip(np.where(k >= fm.primary, k - 1, k), 0,
+                       fm.seq_len - 1) + 1) & 127
+        assert {0, 63, 64, 127} <= set(rem[(k >= 0) & (k < fm.seq_len)])
+    fused = np.asarray(jdfm.fused)
+    ta, tb, rows, pieces = emulate_pair_rank(
+        fused, np.asarray(jdfm.L2), fm.primary, fm.seq_len, ka, kb)
+    for k, got in ((ka, ta), (kb, tb)):
+        want = tfm.occ4_fused_batch(fmd, torch.from_numpy(k)).numpy()
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            got, np.asarray(jfm.occ4_fused_batch(jdfm, _j(k, jdfm))))
+    ok = kb >= ka          # rank_rows takes qpos = ka + 1 and s = kb - ka
+    want_rows = tfm.rank_rows(fmd, torch.from_numpy(ka[ok] + 1),
+                              torch.from_numpy(kb[ok] - ka[ok])).numpy()
+    np.testing.assert_array_equal(rows[ok], want_rows)
+    assert (rows == 1).any() and (rows == 2).any()
+    # one row holds 1-3 pieces; two rows 2-6
+    assert ((pieces >= rows) & (pieces <= 3 * rows)).all()
+    assert set(np.unique(pieces[rows == 1])) == {1, 2, 3}

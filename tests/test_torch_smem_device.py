@@ -25,7 +25,7 @@ from lariat_tpu_torch.parallel import align_step as tas
 from lariat_tpu.index import fmindex
 from test_rfa import dup_genome  # noqa: F401
 from test_smem_device import _messy_reads
-from test_torch_fm_batch import emulate_group_rank
+from test_torch_fm_batch import emulate_group_rank, emulate_pair_rank
 from test_torch_sw_extend import cuda_device  # noqa: F401
 
 torch.set_num_threads(1)
@@ -144,6 +144,95 @@ def test_exhaustive_twin_matches_jax(idx):
                                 torch.from_numpy(mi), L)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def emulate_exhaustive(fmd, rmat, ri, e, mi, L):
+    """K4b's lanes as the kernel runs them (smem.cu `exhaustive_kernel`
+    :200-247, one thread a lane on fm.cuh's pair rank; `read_back` :187),
+    in lock step as the twin
+    steps: each lane's bases read backward from e - 1 through a cached
+    16-byte chunk of its read (``read_back``), its extensions run (the one
+    that ends the walk included) and the fused rows its pair ranks fetch
+    (``emulate_pair_rank``) -> (b, x0, x1, s, valid, counts (N, 2) int32
+    [extensions, rows], 16-byte read chunks loaded a lane)."""
+    fused = fmd.fused.numpy()
+    L2 = fmd.L2.numpy().astype(np.int64)
+    q = rmat[ri.astype(np.int64)].astype(np.int64)
+    e = e.astype(np.int64)
+    n = len(e)
+    lanes = np.arange(n)
+    vb = np.full(n, 1 << 30)
+    chunks = np.zeros(n, np.int64)
+
+    def read_back(pos, on):
+        # a chunk load where the lane's base leaves its cached chunk
+        load = on & (pos < vb)
+        chunks[load] += 1
+        vb[load] = pos[load] & ~15
+        return q[lanes, np.clip(pos, 0, L - 1)]
+
+    c0 = read_back(np.clip(e - 1, 0, L - 1), np.ones(n, bool))
+    valid = (e >= 1) & (c0 < 4)
+    cc = np.clip(c0, 0, 3)
+    x0, x1, s = L2[cc] + 1, L2[3 - cc] + 1, L2[cc + 1] - L2[cc]
+    b = np.where(valid, e - 1, e)
+    ext = np.zeros(n, np.int64)
+    rows = np.zeros(n, np.int64)
+    alive = valid.copy()
+    for t in range(L - 1):
+        pos = e - 2 - t
+        alive &= pos >= 0
+        c = read_back(np.minimum(pos, L - 1), alive)
+        can = alive & (c < 4)
+        if not can.any():
+            break
+        _, _, r, _ = emulate_pair_rank(fused, L2, fmd.primary, fmd.seq_len,
+                                       x0 - 1, x0 - 1 + s)
+        T = torch.from_numpy
+        n0, n1, ns = (v.numpy().astype(np.int64) for v in
+                      tfm.bwt_extend_dir_batch(
+                          fmd, T(np.where(can, x0, 1)),
+                          T(np.where(can, x1, 1)), T(np.where(can, s, 0)),
+                          T(np.clip(c, 0, 3)), T(np.ones(n, bool))))
+        ext += can
+        rows += np.where(can, r, 0)
+        acc = can & (ns >= np.maximum(mi, 1))
+        x0, x1, s = (np.where(acc, a, o) for a, o in ((n0, x0), (n1, x1),
+                                                      (ns, s)))
+        b = np.where(acc, pos, b)
+        alive = acc
+    counts = np.stack([ext, rows], axis=1).astype(np.int32)
+    return b, x0, x1, s, valid, counts, chunks
+
+
+@pytest.mark.parametrize("dt", ["int32", "int64"])
+def test_exhaustive_pair_schedule(idx, dt):
+    """K4b's schedule (pair rank, cached read chunks) against the twin on
+    messy and low-complexity reads, e = 0..L - 1, min_intv 1-4 and lanes
+    in a shuffled (read_idx, e) order, as round 2's fallback passes them:
+    the extensions and rows the kernel will count; one row fetch an
+    extension wherever both ranks share a block."""
+    fm, genome, _, fmd32, fmd64 = idx
+    fmd = fmd32 if dt == "int32" else fmd64
+    reads = _messy_reads(genome, np.random.default_rng(8), n=20) + \
+        _low_complexity(genome)
+    rmat, _ = _batch(reads, R=len(reads))
+    R = len(reads)
+    rng = np.random.default_rng(10)
+    order = rng.permutation(R * L)
+    ri = np.repeat(np.arange(R), L).astype(np.int32)[order]
+    e = np.tile(np.arange(0, L), R).astype(np.int32)[order]
+    mi = rng.integers(1, 5, R * L).astype(np.int64)
+    *got, counts, chunks = emulate_exhaustive(fmd, rmat, ri, e, mi, L)
+    want = tsd.min_starts_kernel_plain(fmd, torch.from_numpy(rmat),
+                                       torch.from_numpy(ri),
+                                       torch.from_numpy(e),
+                                       torch.from_numpy(mi), L)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    ext, rows = counts[:, 0].astype(np.int64), counts[:, 1]
+    assert (rows <= 2 * ext).all() and rows.sum() < 1.5 * ext.sum()
+    assert ext.max() >= 100 and (chunks <= 1 + (e + 15) // 16).all()
 
 
 def test_strategy1_twin_and_pack_match_jax(idx):
@@ -507,7 +596,9 @@ def test_twoptr_kernel_matches_twin(idx, cuda_device, dt, bwd_init,  # noqa: F81
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["int32", "int64"])
 def test_exhaustive_kernel_matches_twin(idx, cuda_device, dt):  # noqa: F811
-    fm, genome, *_ = idx
+    """K4b against its twin, and its per-lane counters (extensions, rows
+    fetched) against ``emulate_exhaustive``."""
+    fm, genome, _, fmd32, fmd64 = idx
     reads = _messy_reads(genome, np.random.default_rng(8), n=20) + \
         _low_complexity(genome)
     rmat, _ = _batch(reads, R=len(reads))
@@ -515,15 +606,21 @@ def test_exhaustive_kernel_matches_twin(idx, cuda_device, dt):  # noqa: F811
     ri = np.repeat(np.arange(R), L).astype(np.int32)
     e = np.tile(np.arange(0, L), R).astype(np.int32)
     mi = np.random.default_rng(9).integers(1, 5, R * L).astype(np.int64)
+    counts = torch.full((R * L, 2), -1, dtype=torch.int32,
+                        device=cuda_device)
 
     def run(dev):
         put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        return tsd.min_starts_kernel(_cuda_index(fm, dev, dt), put(rmat),
-                                     put(ri), put(e), put(mi), L)
+        return tsd.min_starts_kernel(
+            _cuda_index(fm, dev, dt), put(rmat), put(ri), put(e), put(mi), L,
+            counts=counts if dev.type == "cuda" else None)
 
     got, want = _both(run, cuda_device)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+    *_, want_counts, _ = emulate_exhaustive(
+        fmd32 if dt == "int32" else fmd64, rmat, ri, e, mi, L)
+    np.testing.assert_array_equal(counts.cpu().numpy(), want_counts)
 
 
 @pytest.mark.cuda

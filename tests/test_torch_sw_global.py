@@ -155,3 +155,158 @@ def test_global_kernel_edge_shapes(cuda_device, Lq, Lt):  # noqa: F811
         gz, *(x.to(cuda_device) for x in (qlen, tlen, w)), gs, S)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# ---- K2b's warp schedule (csrc/traceback.cu traceback_kernel), emulated -----
+
+def _kernel_window():
+    """kWinCols as csrc/traceback.cu sets it."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(sw_global.__file__), "..",
+                            "csrc", "traceback.cu")).read()
+    return int(re.search(r"constexpr int kWinCols = (\d+);", src).group(1))
+
+
+def emulate_traceback_windows(z, qlen, tlen, w, score, S, C):
+    """K2b as its warp runs it (traceback.cu traceback_kernel :81-143): a
+    window of 32 rows x C columns staged around the clamped (i, k)
+    (``stage`` :56: rows [ri - 31, ri], columns ending with the 16-column
+    chunk of ck, rows and columns below 0 and columns past Lq left
+    unstaged); lane 0 walks it until the clamped (i, k) leaves it, then the
+    warp restages; ops packed four a byte into a row prefilled with 0xFF,
+    the open byte finished with 3s (:129-133), then score, i_fin, k_fin.
+    Returns (blob (B, S//4 + 12) uint8, windows staged (B,) int32);
+    asserts that the walk reads only staged bytes."""
+    B, Lt, Lq = z.shape
+    P = S // 4
+    blob = np.zeros((B, P + 12), np.uint8)
+    windows = np.zeros(B, np.int32)
+
+    def stage(b, r_end, c_end):
+        win = np.full((32, C), -1, np.int64)
+        for lane in range(32):
+            r = r_end - 32 + lane
+            for j in range(C // 16):
+                c = c_end - C + 16 * j
+                if r >= 0 and c >= 0:
+                    hi = min(c + 16, Lq)
+                    win[lane, 16 * j:16 * j + hi - c] = z[b, r, c:hi]
+        return win
+
+    for b in range(B):
+        ops = np.full(P, 0xFF, np.uint8)
+        i = int(tlen[b]) - 1
+        k = min(i + int(w[b]) + 1, int(qlen[b])) - 1
+        which = s = staged = acc = 0
+        while s < S and i >= 0 and k >= 0:
+            r_end = min(i, Lt - 1) + 1
+            c_end = (min(k, Lq - 1) & ~15) + 16
+            win = stage(b, r_end, c_end)
+            staged += 1
+            r0, c0 = r_end - 32, c_end - C
+            while s < S and i >= 0 and k >= 0:
+                ri, ck = min(i, Lt - 1), min(k, Lq - 1)
+                if ri < r0 or ck < c0:
+                    break
+                d = int(win[ri - r0, ck - c0])
+                assert d >= 0, "the walk read a byte no lane staged"
+                wn = (d >> (which << 1)) & 3
+                op = 0 if wn == 0 else (2 if wn == 1 else 1)
+                i -= 0 if wn == 2 else 1
+                k -= 0 if wn == 1 else 1
+                which = wn
+                acc |= op << ((s & 3) << 1)
+                if (s & 3) == 3:
+                    ops[s >> 2] = acc
+                    acc = 0
+                s += 1
+        if s < S and (s & 3):
+            for t in range(s, (s | 3) + 1):
+                acc |= 3 << ((t & 3) << 1)
+            ops[s >> 2] = acc
+        blob[b, :P] = ops
+        blob[b, P:] = np.array([score[b], i, k], np.int32).view(np.uint8)
+        windows[b] = staged
+    return blob, windows
+
+
+def _walk_cases(seed, Lt, Lq):
+    """A wave of K2b tasks: K2's z on _cases' alignments, then random z
+    bytes, tlen 0, qlen 0, w 0, tlen > Lt and qlen > Lq (the clamps), and
+    whole tasks of insertions (0x22: leaves through k < 0), deletions
+    (0x05: leaves through i < 0) and matches (0), each run longer than a
+    window -> (z, qlen, tlen, w, score) numpy arrays."""
+    rng = np.random.default_rng(seed)
+    qa, ql, ta, tl, wv, _ = _cases(seed, B=10, Lq=min(Lq, Lt), Lt=Lt)
+    qa = np.pad(qa, ((0, 0), (0, Lq - qa.shape[1])))
+    score, z2 = sw_global.global_batch(*_t(qa, ql, ta, tl, wv))
+    n = 16
+    zr = rng.integers(0, 256, (n, Lt, Lq)).astype(np.uint8)
+    qr = rng.integers(1, Lq + 1, n).astype(np.int32)
+    tr = rng.integers(1, Lt + 1, n).astype(np.int32)
+    wr = rng.integers(0, 40, n).astype(np.int32)
+    tr[0], qr[1], wr[2] = 0, 0, 0
+    tr[3], qr[4] = Lt + 37, Lq + 9                  # the clamps
+    tr[5], qr[5] = Lt + 5, Lq + 40
+    for t, byte in ((6, 0x22), (7, 0x05), (8, 0x00), (9, 0x22)):
+        zr[t] = byte
+        qr[t], tr[t], wr[t] = Lq, Lt, Lq
+    qr[9], tr[9] = Lq, 3                            # a long insertion run
+    z = np.concatenate([z2.numpy(), zr])
+    return (z, np.concatenate([ql, qr]), np.concatenate([tl, tr]),
+            np.concatenate([wv, wr]),
+            np.concatenate([score.numpy(),
+                            rng.integers(-99, 99, n).astype(np.int32)]))
+
+
+@pytest.mark.parametrize("Lt,Lq", [(80, 176), (70, 150)])
+@pytest.mark.parametrize("C", [32, 64, 128])
+def test_traceback_windows_emulation(Lt, Lq, C):
+    """The window schedule against the twin and the JAX traceback_ops_fused
+    (Lq 150: chunks past the row's end and misaligned rows, byte loads);
+    S = Lt + Lq exactly; the windows staged."""
+    z, ql, tl, wv, sc = _walk_cases(Lt + C, Lt, Lq)
+    S = Lt + Lq
+    got, windows = emulate_traceback_windows(z, ql, tl, wv, sc, S, C)
+    want = sw_global.traceback_ops_fused_plain(*_t(z, ql, tl, wv, sc), S)
+    np.testing.assert_array_equal(got, want.numpy())
+    jw = np.asarray(sw_global_pallas.traceback_ops_fused(
+        z, ql, tl, wv, sc, S=S, packed_layout=False))
+    np.testing.assert_array_equal(got, jw)
+    _, i_fin, k_fin = (sw_global.split_traceback_blob(got, S)[j]
+                       for j in (1, 2, 3))
+    n2 = 10                        # the K2 tasks; then the random-z ones
+    walks = (tl > 0) & (np.minimum(tl + wv, ql) > 0)
+    assert ((windows > 0) == walks).all()
+    assert (windows[n2 + 6:n2 + 10] >= 2).all()    # runs past a window
+    assert i_fin[n2 + 6] >= 0 and k_fin[n2 + 6] < 0   # insertions: k < 0
+    assert i_fin[n2 + 7] < 0 and k_fin[n2 + 7] >= 0   # deletions: i < 0
+    assert (i_fin < 0).any() and (k_fin < 0).any()
+    # a deletion run: one window a 32 rows
+    assert windows[n2 + 7] == -(-Lt // 32)
+
+
+def test_traceback_window_constant():
+    """The kernel's window width is one the emulation runs."""
+    assert _kernel_window() in (32, 64, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lt,Lq", [(80, 176), (70, 150), (384, 192)])
+def test_traceback_kernel_windows(cuda_device, Lt, Lq):  # noqa: F811
+    """K2b on random z and the edge tasks against its twin, and its window
+    count against the emulation's at the kernel's window."""
+    z, ql, tl, wv, sc = _walk_cases(Lt + 5, Lt, Lq)
+    S = -(-(Lt + Lq) // 4) * 4
+    cpu = _t(z, ql, tl, wv, sc)
+    want = sw_global.traceback_ops_fused_plain(*cpu, S)
+    windows = torch.full((len(ql),), -1, dtype=torch.int32,
+                         device=cuda_device)
+    got = sw_global.traceback_ops_fused(*(x.to(cuda_device) for x in cpu),
+                                        S, windows=windows)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    _, ew = emulate_traceback_windows(z, ql, tl, wv, sc, S,
+                                      _kernel_window())
+    np.testing.assert_array_equal(windows.cpu().numpy(), ew)

@@ -153,6 +153,37 @@ def test_kernel_turns_inputs():
     assert q.max() <= 4 and t.max() <= 4
 
 
+def test_kernel_turns_k2_inputs_and_sections():
+    """The turns tool's K2/K2b inputs (chip_smoke.py phase 3's reg2aln
+    chunk) and its refusal of an unknown section."""
+    from lariat_tpu_torch.tools import kernel_turns
+    q, qlen, t, tlen, w = kernel_turns.k2_inputs(np.random.default_rng(1),
+                                                 B=300)
+    assert q.shape == (300, 192) and t.shape == (300, 384)
+    assert (qlen >= 30).all() and (qlen <= 151).all()
+    assert (np.abs(tlen - qlen) <= 10).all()
+    assert (w >= np.abs(qlen - tlen)).all() and (w >= 1).all()
+    with pytest.raises(SystemExit, match="sections"):
+        kernel_turns.main(["g.fa", "r.fq", "k2b,k9"])
+
+
+def test_kernel_turns_variant(tmp_path):
+    """A tuning variant: the package copied with one string of one file
+    replaced, refused unless the string occurs exactly once."""
+    from lariat_tpu_torch.tools import kernel_turns
+    old = "constexpr int kRows = 32;"
+    new = "constexpr int kRows = 32;  // a variant"
+    assert kernel_turns.main(["variant", str(tmp_path / "v"),
+                              "csrc/traceback.cu", old, new]) == 0
+    pkg = tmp_path / "v" / "lariat_tpu_torch"
+    src = (pkg / "csrc" / "traceback.cu").read_text()
+    assert src.count(new) == 1
+    assert (pkg / "ops" / "sw_global.py").exists()
+    with pytest.raises(SystemExit, match="occurs 0 times"):
+        kernel_turns.make_variant(str(tmp_path / "w"), "csrc/traceback.cu",
+                                  "no such line", "x")
+
+
 def test_kernel_turns_seed_batch_and_refusal(tmp_path, monkeypatch):
     from lariat_tpu_torch.align.engine import encode_read
     from lariat_tpu_torch.io.fastq import FastQReader
