@@ -40,7 +40,18 @@ Phases (one line each with its seconds, failures end the run nonzero):
      reads from that genome, against build_qt plus the twin; then the
      device collect (collect_seeds_rbegs_device) on 250 reads of the
      FASTQ and six low-complexity ones, which blow K4a's step cap, so it
-     runs K4b: seeds and rbegs equal to the native C++ seeder's;
+     runs K4b: seeds and rbegs equal to the native C++ seeder's, with no
+     SA sample uploaded;
+ 5b. align step on that index: K7 (the exact match, both N rules, int32
+     and int64, on reads with N, lens 0 and lens under the seed length;
+     its occ1 entry on rows around primary), K8 (the window fetch:
+     negative starts, starts near and past l_pac, every in-word offset)
+     and K5's lookup entry (the samples added on the card) against their
+     twins and the lookup against sa_lookup_batch_host, each timed at the
+     step's shapes with its bound; then align_step and align_step_smem at
+     8,192 x 151 (launches counted over that run), every field equal to
+     the same steps on the twins on the card (int32 and int64); then
+     tools/device_step.py to a complete JSON line;
   6. host-native lariat_tpu (-use_device off -threads 8), a subprocess;
   7. the port (-use_device on -threads 8), a subprocess whose CLI resets
      the kernel launch counts before its main loop and prints them after;
@@ -48,15 +59,16 @@ Phases (one line each with its seconds, failures end the run nonzero):
      on the device (K4a, K4c, K5), each K5 launch logged (rows, max_steps,
      longest walk, walks past 64 steps), one launch a lookup;
   9. tools: the three measurement entry points as subprocesses -- the T1
-     ablation at full size, the kernel roofline (with its smem_seed
-     section), and the priming profile over 2,000 pairs of the data
+     ablation at full size, the kernel roofline (with its smem_seed and
+     fm_rank sections), and the priming profile over 2,000 pairs of the data
      above, once with host and once with device seeding -- each to a
      complete final JSON line, every roofline share in (0, 100%];
  10. checks: BAM records of both port runs identical to host-native file
      for file, every pair primed on the device, every kernel launched on
      its own path (K1-K3 in the port run, K4a, K4c and K5 in the
      device-seeded run, K4b -- which runs only when K4a blows its step cap
-     -- in phase 5's collect, T1 in the ablation tool).
+     -- in phase 5's collect, T1 in the ablation tool, K7 and K8 in the
+     align steps of phase 5b).
 Then a kernels JSON line (each kernel's launches on its path, max abs
 error, ms, plain ms, bound ms and what sets it, and library_ms: null, since
 no single PyTorch call computes any of these recurrences) and, last,
@@ -99,9 +111,16 @@ KERNEL_INFO = {   # name -> (source, the TPU kernel it replaces)
                        "lariat_tpu/ops/smem_device.py:465"),
     "sa_walk": ("lariat_tpu_torch/csrc/sa_walk.cu",
                 "lariat_tpu/parallel/align_step.py:86"),
+    "exact_match": ("lariat_tpu_torch/csrc/exact_match.cu",
+                    "lariat_tpu/ops/fm_batch.py:366"),
+    "fetch_window": ("lariat_tpu_torch/csrc/fetch_window.cu",
+                     "lariat_tpu/parallel/align_step.py:156"),
 }
 CLI_KERNELS = ("sw_extend", "sw_global", "traceback", "sw_local")
 SEED_KERNELS = ("smem_twoptr", "smem_strategy1", "sa_walk")
+STEP_KERNELS = ("exact_match", "fetch_window")
+# the device align step's batch (bench.py's device step detail)
+STEP_B, STEP_L = 8192, 151
 PROFILE_PAIRS = 2000
 SEED_READS = 4096
 FALLBACK_READS = 250
@@ -1017,6 +1036,8 @@ def _fallback_collect(fm, fmd, g, qs, opt) -> int:
     _build.reset_launches()
     got = sd.collect_seeds_rbegs_device(fmd, g, fm, reads, opt)
     n = _build.launches()["smem_exhaustive"]
+    if g.sa_samples is not None:
+        raise AssertionError("the seeding path uploaded the SA samples")
     if not len(got[0]) == len(got[1]) == len(want[0]) == len(reads):
         raise AssertionError("fallback collect: read count")
     for i, (gm, gr, wm, wr) in enumerate(zip(*got, *want)):
@@ -1030,6 +1051,185 @@ def _fallback_collect(fm, fmd, g, qs, opt) -> int:
           f"{sum(len(r) for r in got[1])} rbegs, equal to native; K4b "
           f"launched {n} times")
     return n
+
+
+def phase_align_step(fasta, pk, logs):
+    """K7, K8 and K5's lookup entry against their twins on phase 4's index
+    (int32 and int64), each timed at the align step's shapes with its
+    bound; then both align steps at 8,192 x 151 against the same steps on
+    the twins, with the launches of the int32 kernel run; then
+    tools/device_step.py. Returns (name -> (max abs err, kernel ms, plain
+    ms, shape, bound ms, what sets it, info), the step run's launches)."""
+    import numpy as np
+    import torch
+    from lariat_tpu_torch.align.ksw import fill_score_matrix
+    from lariat_tpu_torch.cli import load_reference
+    from lariat_tpu_torch.ops import _build, fm_batch
+    from lariat_tpu_torch.parallel import align_step as st
+    from lariat_tpu_torch.tools.device_step import step_reads
+    dev = torch.device("cuda")
+    fm = load_reference(fasta)
+    fmd = fm_batch.DeviceFMIndex.from_host(fm, dev)
+    fmd64 = fm_batch.DeviceFMIndex(fmd.fused, fmd.L2.long(), fmd.primary,
+                                   fmd.seq_len)
+    genomes = {f.idx_dtype: st.DeviceGenome.from_host(fm, f)
+               for f in (fmd, fmd64)}
+    g = genomes[fmd.idx_dtype]
+    B, L, seed_len, window = STEP_B, STEP_L, 32, 32
+    reads_np, starts = step_reads(fm, B, L)
+    mat = fill_score_matrix(1, 4)
+
+    def put(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    def no_rows():
+        return torch.zeros(fmd.fused.shape[0], dtype=torch.bool, device=dev)
+
+    def same(got, want, what):
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what} differs from its twin "
+                                     f"(max abs err {_max_abs_err(a, b)})")
+
+    res = {}
+    # K7 on the edges: Ns at the first base, the last, mid-read and in the
+    # seed suffix; lens 0, 1, under and at the seed length; both rules,
+    # both forms, int32 and int64; its occ1 entry on rows around primary
+    rng = np.random.default_rng(31)
+    er, el = reads_np[:4096].copy(), np.full(4096, L, np.int32)
+    el[:64] = rng.integers(0, 40, 64)
+    el[:4] = 0, 1, seed_len - 1, seed_len
+    rows = np.arange(64, 4096)
+    er[rows[:512], 0] = 4
+    er[rows[512:1024], el[rows[512:1024]] - 1] = 4
+    er[rows[1024:1536], L // 2] = 4
+    er[rows[1536:2048], L - 1 - rng.integers(1, seed_len, 512)] = 4
+    es = np.maximum(el - seed_len, 0).astype(np.int32)
+    p = fm.primary
+    k1 = np.concatenate([np.arange(p - 300, p + 300), [-1, 0, fm.seq_len],
+                         rng.integers(0, fm.seq_len, 60000)])
+    c1 = rng.integers(0, 4, len(k1)).astype(np.int32)
+    for f in (fmd, fmd64):
+        for skip_n, start, mi in ((False, None, None), (True, es, seed_len),
+                                  (True, None, None), (False, es, seed_len)):
+            a = (put(er), put(el), None if start is None else put(start),
+                 mi, skip_n)
+            same(fm_batch.backward_search(f, *a),
+                 fm_batch.backward_search_plain(f, *a),
+                 f"K7 (skip_n {skip_n}, suffix {start is not None}, "
+                 f"{f.idx_dtype})")
+        kd = put(k1).to(f.idx_dtype)
+        same([fm_batch.occ1_rank(f, kd, put(c1))],
+             [fm_batch.occ1_batch(f, kd, put(c1))], "K7's occ1 entry")
+    # K7 at the step's shape: the seed suffixes of the step's reads
+    rd, lens = put(reads_np), put(np.full(B, L, np.int32))
+    s0 = torch.clamp(lens - seed_len, min=0)
+    idx = torch.arange(L, device=dev)[None, :]
+    seeds = torch.where(idx >= s0[:, None], rd, 4).to(torch.uint8)
+    k7 = (fmd, seeds, lens, s0, seed_len, True)
+    t7 = no_rows()
+    kk, ll = fm_batch.backward_search_plain(*k7, touched=t7)
+    got = fm_batch.backward_search(*k7)
+    same(got, (kk, ll), "K7 at the step's shape")
+    res["exact_match"] = (0, _median_ms(lambda: fm_batch.backward_search(*k7)),
+                          _median_ms(lambda: fm_batch.backward_search_plain(
+                              *k7), n=3), (B, L, seed_len),
+                          *_bound(pk, 0, 48 * int(t7.sum()) + _nbytes(
+                              seeds, lens, s0, *got)),
+                          {"rows_distinct": int(t7.sum()),
+                           "hits": int((kk <= ll).sum())})
+    # K8: negative starts, starts near and past l_pac, every offset
+    n = fm.l_pac
+    wl = L + window
+    fs = np.concatenate([np.arange(-wl - 20, 20), np.arange(n - wl - 20,
+                                                            n + 20),
+                         np.arange(16) + 16 * rng.integers(0, n // 16, 1),
+                         rng.integers(-wl, n, 8000)])
+    for gg in genomes.values():
+        sd = put(fs, np.int64)
+        same([st.fetch_window_batch(gg, sd, wl)],
+             [st.fetch_window_batch_plain(gg, sd, wl)], "K8")
+    # K8 at the step's shape: the planted starts
+    sd = put(starts, np.int64)
+    got = st.fetch_window_batch(g, sd, wl)
+    same([got], [st.fetch_window_batch_plain(g, sd, wl)], "K8 at the step")
+    pos = starts[:, None] + np.arange(wl)[None, :]
+    words = np.unique(pos[(pos >= 0) & (pos < n)] >> 4)
+    res["fetch_window"] = (0, _median_ms(lambda: st.fetch_window_batch(
+        g, sd, wl)), _median_ms(lambda: st.fetch_window_batch_plain(
+            g, sd, wl), n=3), (B, wl),
+        *_bound(pk, 0, 4 * len(words) + _nbytes(sd, got)),
+        {"pac_words_distinct": int(len(words))})
+    # K5's lookup entry on the step's rows (the suffix hits' first rows,
+    # row 0 elsewhere) and LF's edge rows, against the twin and the host
+    # lookup
+    rows5 = torch.where(kk <= ll, kk, 0).cpu().numpy().astype(np.int64)
+    rows5[:6] = [0, p, p - 1, p + 1, fm.seq_len, fm.seq_len - 1]
+    for gg in genomes.values():
+        kd = put(rows5).to(gg.fmd.idx_dtype)
+        got = st.sa_lookup_batch(gg, kd)
+        same([got], [st.sa_lookup_batch_plain(gg, kd)], "K5's lookup entry")
+        if not np.array_equal(got.cpu().numpy(),
+                              st.sa_lookup_batch_host(gg, fm, rows5)):
+            raise AssertionError("K5's lookup entry differs from "
+                                 "sa_lookup_batch_host")
+    kd = put(rows5).to(fmd.idx_dtype)
+    t5 = no_rows()
+    st.sa_lookup_batch_plain(g, kd, touched=t5)
+    got = st.sa_lookup_batch(g, kd)
+    res["sa_lookup"] = {
+        "ms": _median_ms(lambda: st.sa_lookup_batch(g, kd)),
+        "plain_ms": _median_ms(lambda: st.sa_lookup_batch_plain(g, kd), n=3),
+        "rows": B, "rows_distinct": int(t5.sum())}
+    bms, by = _bound(pk, 0, 48 * int(t5.sum()) + 8 * B + _nbytes(kd, got))
+    res["sa_lookup"].update(bound_ms=bms, bound_by=by)
+    for name in ("exact_match", "fetch_window"):
+        e, ms, pms, shape, bms, by, info = res[name]
+        print(f"  {name} {shape}: exact in int32 and int64; kernel "
+              f"{ms:.3f} ms, plain {pms:.3f} ms; bound {bms:.4f} ms ({by}), "
+              f"{100 * bms / ms:.1f}% of it; {json.dumps(info)}")
+    print(f"  K5 lookup entry ({B} rows): exact in int32 and int64, equal to "
+          f"sa_lookup_batch_host; {json.dumps(res['sa_lookup'])}")
+
+    # the align steps at 8,192 x 151: the kernels' run counted
+    steps = (st.align_step_smem, st.align_step)
+    _build.reset_launches()
+    runs = [fn(g, rd, lens, mat) for fn in steps]
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    entries = _build.entry_launches()
+    for gg in genomes.values():
+        for fn, got in zip(steps, runs if gg is g else
+                           [fn(gg, rd, lens, mat) for fn in steps]):
+            want = fn(gg, rd, lens, mat, plain=True)
+            same(got, want, f"{fn.__name__} ({gg.fmd.idx_dtype})")
+    want_on = {"smem_exhaustive": 1, "sa_walk": 2, "fetch_window": 2,
+               "sw_extend": 2, "exact_match": 1}
+    if any(launches[k] != v for k, v in want_on.items()) or \
+            entries["lariat_sa_lookup"] != 2:
+        raise AssertionError(f"the align steps' launches: {launches}, "
+                             f"{entries}")
+    for fn, r in zip(steps, runs):
+        mapped = r.mapped.cpu().numpy()
+        at = (r.pos.cpu().numpy() == starts) & mapped
+        print(f"  {fn.__name__} ({B} x {L}): every field equal to the twins' "
+              f"in int32 and int64; mapped {mapped.mean():.4f}, at the "
+              f"planted start {at.mean():.4f}")
+    print(f"  align step launches: {json.dumps(launches)}; entries "
+          f"{json.dumps(entries)}")
+    out = _last_json(
+        _run([sys.executable, "-m", "lariat_tpu_torch.tools.device_step",
+              fasta], timeout=600, log=os.path.join(logs, "device_step.log")),
+        ("device", "card", "B", "L", "device_step_pairs_s", "device_step_ms",
+         "device_step_mapped_frac", "device_step_parts_ms",
+         "exact_step_pairs_s", "exact_step_ms", "exact_step_mapped_frac",
+         "exact_step_parts_ms", "launches"), "device_step")
+    if not (out["B"] == B and out["device_step_pairs_s"] > 0
+            and out["device_step_mapped_frac"] > 0.9):
+        raise AssertionError(f"device_step: {out}")
+    print(f"  device_step: {json.dumps(out)}")
+    res["sa_lookup"]["step_launches"] = entries["lariat_sa_lookup"]
+    return res, launches
 
 
 def _bam_records(path: str):
@@ -1119,13 +1319,14 @@ def phase_tools(fasta, reads, env, logs):
 
     roof = _last_json(tool("kernel_roofline"),
                       ("device", "card", "attributes", "peaks", "extend",
-                       "global_tb", "local_2pass", "launches"),
+                       "global_tb", "local_2pass", "smem_seed", "fm_rank",
+                       "launches"),
                       "kernel_roofline")
     sh = shares(roof)
-    if len(sh) != 5 or not all(0 < v <= 100 for v in sh.values()):
+    if len(sh) != 6 or not all(0 < v <= 100 for v in sh.values()):
         raise AssertionError(f"kernel_roofline shares: {sh}")
     print(f"  kernel_roofline peaks {json.dumps(roof['peaks'])}")
-    for k in ("extend", "global_tb", "local_2pass", "smem_seed"):
+    for k in ("extend", "global_tb", "local_2pass", "smem_seed", "fm_rank"):
         print(f"  kernel_roofline {k}: {json.dumps(roof[k])}")
     seed = roof["smem_seed"]
     if not (seed.get("reads_per_s", 0) > 0
@@ -1218,6 +1419,9 @@ def main(argv=None) -> int:
     with Phase("seeding kernels vs plain"):
         sres, exh_launches = phase_seeding(fasta, reads, pk)
     kres.update(sres)
+    with Phase("align step kernels vs plain"):
+        ares, step_launches = phase_align_step(fasta, pk, args.logs)
+    kres.update(ares)
     env = {k: v for k, v in os.environ.items()
            if k not in ("LARIAT_TORCH_DEVICE", "LARIAT_DEVICE_SEED")}
     with Phase("host-native run"):
@@ -1248,6 +1452,7 @@ def main(argv=None) -> int:
         launches.update({k: runs["out_port_seed"][4].get(k, 0)
                          for k in SEED_KERNELS})
         launches["smem_exhaustive"] = exh_launches
+        launches.update({k: step_launches[k] for k in STEP_KERNELS})
         launches["extend_ablate"] = phase_tools(fasta, reads, env, args.logs)
     with Phase("checks"):
         want_pairs = BARCODES * PAIRS_PER_BC
@@ -1295,7 +1500,7 @@ def main(argv=None) -> int:
     desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
     extra = {"sw_extend": {"desc_launches": desc,
                            "desc_wave": kres.pop("sw_extend_desc")},
-             "sa_walk": walks}
+             "sa_walk": {**walks, "lookup_entry": kres.pop("sa_lookup")}}
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         err, ms, pms, _, bms, by, *more = kres[name]

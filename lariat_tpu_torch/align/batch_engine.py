@@ -98,8 +98,11 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         with self._seed_lock:
             if self._seed_state is None:
                 fmd = fm_batch.DeviceFMIndex.from_host(self.fm, self.device)
-                # the SA walk shares the seeding index: one copy on the device
-                dg = align_step.DeviceGenome.from_host(self.fm, fmd)
+                # the SA walk shares the seeding index and the waves' pac:
+                # one copy of each on the device (its SA samples stay on the
+                # host: sa_lookup_batch_host adds them there)
+                dg = align_step.DeviceGenome.from_host(
+                    self.fm, fmd, pac_words=self._pac_resident()[0])
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self._seed_state = (fmd, dg)

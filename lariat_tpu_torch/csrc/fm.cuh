@@ -1,12 +1,14 @@
 // K6: FM-index rank primitives on the fused occ table: the group rank of
 // K4a and K4c (G threads a rank pair), the pair rank of K4b (one thread a
-// rank pair, one row fetch when both ranks share a block) and K5's `lf`.
-// Shared __device__ code of the seeding kernels (smem.cu: K4a-K4c) and the
-// SA walk (sa_walk.cu: K5); no launch of its own.
+// rank pair, one row fetch when both ranks share a block), K5's `lf` and
+// K7's single-code rank `occ1` (with its pair form). Shared __device__ code
+// of the seeding kernels (smem.cu: K4a-K4c), the SA walk (sa_walk.cu: K5)
+// and the exact match (exact_match.cu: K7); no launch of its own.
 //
 // Replaces lariat_tpu/ops/fm_batch.py `occ4_fused_batch` (with
-// `_block_counts`), `bwt_extend_dir_batch` / `bwt_extend_batch` and
-// `lf_batch`, the XLA gathers every device seeding step runs.
+// `_block_counts`), `bwt_extend_dir_batch` / `bwt_extend_batch`,
+// `lf_batch` and `occ1_batch`, the XLA gathers every device seeding and
+// exact-match step runs.
 //
 // The table is (n_blocks+1, 12) uint32 rows [ckpt 0..3 | 8 bwt words] (16
 // 2-bit codes a word, base 0 in the high bits), handed over as int32 and
@@ -372,6 +374,81 @@ __device__ __forceinline__ IDX lf(const FMView<IDX>& f, IDX k) {
     cnt += __popc(field_match(w[i], c)
                   & keep_mask(min(max(pos + 1 - 16 * i, 0), 16)));
   return l2_at(f, c) + static_cast<IDX>(base) + cnt;
+}
+
+// ---- the single-code rank (K7) --------------------------------------------
+//
+// occ1 at k for code c (0..3): the count of c in BWT rows [0..k]
+// (sentinel-adjusted), with occ1_batch's edges: k < 0 gives 0, k == seq_len
+// the total of c. One checkpoint piece and the bwt pieces the position
+// needs (`load_pieces`), then up to 8 popcounts of one code.
+
+// count of code c among the first rem bases of a row's words
+__device__ __forceinline__ int count_code(const uint32_t w[8], int rem,
+                                          int c) {
+  int cnt = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    cnt += __popc(field_match(w[i], c)
+                  & keep_mask(min(max(rem - 16 * i, 0), 16)));
+  return cnt;
+}
+
+// checkpoint word c (0..3) of a row's first piece
+__device__ __forceinline__ uint32_t ckpt_of(const uint4& ck, int c) {
+  return (c & 2) ? ((c & 1) ? ck.w : ck.z) : ((c & 1) ? ck.y : ck.x);
+}
+
+template <typename IDX>
+__device__ __forceinline__ IDX occ1_edge(const FMView<IDX>& f, IDX k, int c,
+                                         IDX counted) {
+  return k < 0 ? IDX(0)
+               : (k == f.seq_len ? l2_at(f, c + 1) - l2_at(f, c) : counted);
+}
+
+template <typename IDX>
+__device__ __forceinline__ IDX occ1(const FMView<IDX>& f, IDX k, int c) {
+  bool load;
+  long long blk;
+  int rem;
+  rank_at(f, k, load, blk, rem);
+  IDX counted = 0;
+  if (load) {
+    uint4 ck;
+    uint32_t w[8];
+    load_pieces(f.rows, blk, rem, ck, w);
+    counted = static_cast<IDX>(ckpt_of(ck, c)) + count_code(w, rem, c);
+  }
+  return occ1_edge(f, k, c, counted);
+}
+
+// both single-code ranks of one backward-search step, at ka = k - 1 and
+// kb = l: one row fetch when they share a block (nearly always once the
+// interval is small). Returns the rows fetched (0-2).
+template <typename IDX>
+__device__ __forceinline__ int occ1_pair(const FMView<IDX>& f, IDX ka, IDX kb,
+                                         int c, IDX& ta, IDX& tb) {
+  bool la, lb;
+  long long ba, bb;
+  int ra, rb;
+  rank_at(f, ka, la, ba, ra);
+  rank_at(f, kb, lb, bb, rb);
+  const bool same = la && lb && ba == bb;
+  IDX ca = 0, cb = 0;
+  uint4 ck;
+  uint32_t w[8];
+  if (la) {
+    load_pieces(f.rows, ba, same ? max(ra, rb) : ra, ck, w);
+    ca = static_cast<IDX>(ckpt_of(ck, c)) + count_code(w, ra, c);
+    if (same) cb = static_cast<IDX>(ckpt_of(ck, c)) + count_code(w, rb, c);
+  }
+  if (lb && !same) {
+    load_pieces(f.rows, bb, rb, ck, w);
+    cb = static_cast<IDX>(ckpt_of(ck, c)) + count_code(w, rb, c);
+  }
+  ta = occ1_edge(f, ka, c, ca);
+  tb = occ1_edge(f, kb, c, cb);
+  return (la ? 1 : 0) + (lb && !same ? 1 : 0);
 }
 
 }  // namespace lariat

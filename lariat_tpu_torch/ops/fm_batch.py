@@ -9,9 +9,15 @@ shifts or compares on uint32, so the table is held as int32 (the same
 bits) and every gathered row is widened with ``.long() & 0xFFFFFFFF``.
 
 The twins below (``occ4_fused_batch``, ``bwt_extend_dir_batch``,
-``bwt_extend_batch``, ``lf_batch``) are the reference's functions on
-torch tensors; the CUDA kernels of ``smem_device`` and ``parallel.
-align_step`` run the same arithmetic per thread (``csrc/fm.cuh``, K6).
+``bwt_extend_batch``, ``lf_batch``, ``occ1_batch``, ``backward_ext_batch``)
+are the reference's functions on torch tensors; the CUDA kernels of
+``smem_device``, ``parallel.align_step`` and the exact match below run the
+same arithmetic per thread (``csrc/fm.cuh``, K6).
+
+K7 (``csrc/exact_match.cu``) is the batched backward search:
+``backward_search`` (and the reference's ``exact_match_batch`` over it)
+launches it on a CUDA tensor and runs ``backward_search_plain`` on a CPU
+tensor; ``occ1_rank`` does the same for its single-rank entry.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from ..index.fmindex import OCC_INTERVAL
+from . import _build
 
 WORDS_PER_BLOCK = OCC_INTERVAL // 16  # 8
 _M32 = 0xFFFFFFFF
@@ -245,3 +252,114 @@ def lf_batch(fmd: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     inblock = _popcount32(_match(words, c[..., None])
                           & _keep_mask(pos + 1)).sum(-1)
     return (fmd.L2.long()[c] + base + inblock).to(fmd.idx_dtype)
+
+
+def occ1_batch(fmd: DeviceFMIndex, k: torch.Tensor,
+               c: torch.Tensor) -> torch.Tensor:
+    """Count of code c (0..3) in BWT rows [0..k] (sentinel-adjusted), per
+    lane, in the index dtype: k in [-1, seq_len], k < 0 gives 0, k ==
+    seq_len the total of c."""
+    k, c = k.long(), c.long()
+    kk = torch.where(k >= fmd.primary, k - 1, k)
+    kk = torch.clamp(kk, 0, fmd.seq_len - 1)
+    row = _rows(fmd, (kk + 1) // OCC_INTERVAL)
+    base = row[..., :4].gather(-1, c[..., None])[..., 0]
+    inblock = _popcount32(_match(row[..., 4:], c[..., None])
+                          & _keep_mask((kk + 1) % OCC_INTERVAL)).sum(-1)
+    L2 = fmd.L2.long()
+    out = torch.where(k == fmd.seq_len, L2[c + 1] - L2[c], base + inblock)
+    return torch.where(k < 0, 0, out).to(fmd.idx_dtype)
+
+
+def backward_ext_batch(fmd: DeviceFMIndex, k: torch.Tensor, l: torch.Tensor,
+                       c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One backward-search step of the inclusive intervals [k, l] by code c
+    (0..3): (L2[c] + occ1(k - 1, c) + 1, L2[c] + occ1(l, c)), in the index
+    dtype."""
+    k, l, c = k.long(), l.long(), c.long()
+    l2c = fmd.L2.long()[c]
+    dt = fmd.idx_dtype
+    return ((l2c + occ1_batch(fmd, k - 1, c).long() + 1).to(dt),
+            (l2c + occ1_batch(fmd, l, c).long()).to(dt))
+
+
+def occ1_rank(fmd: DeviceFMIndex, k: torch.Tensor,
+              c: torch.Tensor) -> torch.Tensor:
+    """``occ1_batch`` of (n,) rows k (index dtype) and codes c (int32): K7's
+    single-rank entry on a CUDA tensor, the twin on a CPU tensor."""
+    if not _build.on_cuda(k):
+        return occ1_batch(fmd, k, c)
+    dev, n, dt = k.device, int(k.shape[0]), fmd.idx_dtype
+    _build.check("k", k, dev, (n,), (dt,))
+    _build.check("c", c, dev, (n,))
+    out = torch.empty(n, dtype=dt, device=dev)
+    _build.launch("exact_match", k, c, fmd.fused, fmd.L2, fmd.primary,
+                  fmd.seq_len, int(dt == torch.int64), n, out,
+                  entry="lariat_occ1")
+    return out
+
+
+def backward_search_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
+                          lens: torch.Tensor,
+                          start: Optional[torch.Tensor] = None,
+                          max_iters: Optional[int] = None,
+                          skip_n: bool = False,
+                          touched: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K7, every lane in lock step as in the reference;
+    ``touched`` (a bool per fused row) gets the rows its ranks read set."""
+    B, L = reads.shape
+    lens = lens.long()
+    span = lens if start is None else lens - start.long()
+    n_iters = L if max_iters is None else min(L, max_iters)
+    k = torch.zeros(B, dtype=torch.int64, device=reads.device)
+    l = torch.full((B,), fmd.seq_len, dtype=torch.int64, device=reads.device)
+    for t in range(min(n_iters, int(span.max()) if B else 0)):
+        idx = torch.clamp(lens - 1 - t, 0, L - 1)
+        c = reads.gather(1, idx[:, None])[:, 0].long()
+        in_span = t < span
+        active = in_span & (k <= l) & (c < 4)
+        if touched is not None:
+            rank_rows(fmd, k, l - k + 1, active, touched)
+        nk, nl = (v.long() for v in backward_ext_batch(fmd, k, l,
+                                                       c.clamp(0, 3)))
+        k = torch.where(active, nk, k)
+        if not skip_n:
+            nl = torch.where(in_span & (c >= 4), k - 1, nl)
+            active = active | (in_span & (c >= 4))
+        l = torch.where(active, nl, l)
+    return k.to(fmd.idx_dtype), l.to(fmd.idx_dtype)
+
+
+def backward_search(fmd: DeviceFMIndex, reads: torch.Tensor,
+                    lens: torch.Tensor, start: Optional[torch.Tensor] = None,
+                    max_iters: Optional[int] = None, skip_n: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: the backward search of reads[start:lens) (start None: the whole
+    read), at most ``max_iters`` steps -> (k, l) inclusive intervals in the
+    index dtype, empty when k > l. reads (B, L) codes 0..4, lens and start
+    (B,). An N empties the interval, or with ``skip_n`` is skipped."""
+    if not _build.on_cuda(reads):
+        return backward_search_plain(fmd, reads, lens, start, max_iters,
+                                     skip_n)
+    dev = reads.device
+    B, L = reads.shape
+    _build.check("reads", reads, dev, (B, L), _build.CODE_DTYPES)
+    lens = lens.to(dev, torch.int32).contiguous()
+    if start is not None:
+        start = start.to(dev, torch.int32).contiguous()
+    dt = fmd.idx_dtype
+    out = torch.empty((2, B), dtype=dt, device=dev)
+    _build.launch("exact_match", reads.to(torch.uint8).contiguous(),
+                  0 if start is None else start, lens, fmd.fused, fmd.L2,
+                  fmd.primary, fmd.seq_len, int(dt == torch.int64), B, L,
+                  L if max_iters is None else min(L, max_iters),
+                  int(skip_n), out)
+    return out[0], out[1]
+
+
+def exact_match_batch(fmd: DeviceFMIndex, reads: torch.Tensor,
+                      lens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole-read exact match (K7, an N empties the interval): reads (B, L)
+    codes 0..4, lens (B,) -> (k, l), empty when k > l."""
+    return backward_search(fmd, reads, lens)

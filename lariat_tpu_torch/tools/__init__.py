@@ -1,15 +1,16 @@
 """Measurement entry points of the port, each run as a module:
 
     python -m lariat_tpu_torch.tools.extend_ablate     T1 ablation timings
-    python -m lariat_tpu_torch.tools.kernel_roofline   K1-K3 shares of peak
+    python -m lariat_tpu_torch.tools.kernel_roofline   shares of peak
     python -m lariat_tpu_torch.tools.prime_profile <genome.fa> <reads.fq.gz>
+    python -m lariat_tpu_torch.tools.device_step <genome.fa>  the align step
 
 Each needs CUDA and refuses to run without it. For the tests, the
-ablation takes ``--device cpu`` and the profile ``LARIAT_TORCH_DEVICE=cpu``
-(the roofline has no CPU mode): they then run the plain twins on the CPU,
-and their times are the CPU's, labelled so.
+ablation and the align step take ``--device cpu`` and the profile
+``LARIAT_TORCH_DEVICE=cpu`` (the roofline has no CPU mode): they then run
+the plain twins on the CPU, and their times are the CPU's, labelled so.
 
-The helpers below are shared by the three tools and ``chip_smoke.py``.
+The helpers below are shared by the tools and ``chip_smoke.py``.
 """
 
 from __future__ import annotations

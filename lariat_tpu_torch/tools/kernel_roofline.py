@@ -7,8 +7,8 @@ shapes: K1 seed extension at 8192 x 192 x 576 (``ops/sw_extend``), K2
 banded global DP and K2b backtrack at 2048 x 192 x 192 (``ops/sw_global``;
 DP, traceback and combined times, the JAX tool's split), and the K3
 two-pass local SW at 2048 x 192 x 704 (``ops/sw_local.local_two_pass``,
-the rescue path's); then device seeding (``smem_seed``, below). Prints
-one JSON line.
+the rescue path's); then device seeding (``smem_seed``) and the FM rank
+(``fm_rank``), below. Prints one JSON line.
 
 Peaks come from the device (cudaDeviceGetAttribute, ``_build.
 device_attributes``), not from constants:
@@ -58,8 +58,11 @@ seeding (``ops/smem_device.collect_seeds_rbegs_device``, K4a-K4c and K5)
 over 2,048 reads of 151 bp, each with one substitution, from a 1 Mbp
 random genome (index built in a temporary directory): reads/s of a warm
 call, the first call's ms, and the mems and rbegs totals. It reports no
-share of a peak. The JAX tool's ``fm_rank`` section times ``occ1_batch``,
-which is not ported yet; it is left out.
+share of a peak. ``fm_rank`` is the JAX tool's section of that name on the
+same genome: 65,536 random single-code ranks (``occ1_batch``) through K7's
+``occ1`` entry (``fm_batch.occ1_rank``), checked against the twin, with
+its share of the memory peak counting one 48-byte fused row a lookup (the
+JAX tool counted 64 bytes) plus the rows, codes and ranks in and out.
 """
 
 from __future__ import annotations
@@ -241,21 +244,53 @@ def measure(dev: torch.device, iters: int = 7) -> dict:
         "padded_cells_per_s": 2.0 * B * Lq * Lt / (ms * 1e-3),
         "ops_per_cell": OPS_PER_CELL["local"],
         "int32_sol_pct": share(cells, OPS_PER_CELL["local"], ms, int_peak)}
-    res["smem_seed"] = smem_seed(dev, rng)
+    fm = random_index(rng)
+    res["smem_seed"] = smem_seed(dev, rng, fm=fm)
+    res["fm_rank"] = fm_rank(dev, rng, fm, mem_peak, iters)
     res["peaks"] = pk
     return res
 
 
-def smem_seed(dev: torch.device, rng, n_reads: int = 2048,
-              read_len: int = 151) -> dict:
-    """Device 3-round seeding plus SA walks over reads of a 1 Mbp random
-    genome: the first call's ms, then one warm call timed."""
-    g = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 1 << 20)]
+def random_index(rng, n: int = 1 << 20):
+    """The index of a random genome of n bases, built in a temporary
+    directory."""
+    g = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)]
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "genome.fa")
         with open(path, "w") as f:
             f.write(">c\n" + g.tobytes().decode() + "\n")
-        fm = fmindex.build_index(path)
+        return fmindex.build_index(path)
+
+
+def fm_rank(dev: torch.device, rng, fm, mem_peak: float, iters: int = 7,
+            n: int = 1 << 16) -> dict:
+    """n random occ1 lookups through K7's occ1 entry: ms, lookups/s and the
+    share of the memory peak."""
+    fmd = fm_batch.DeviceFMIndex.from_host(fm, dev)
+    k = torch.from_numpy(rng.integers(0, fm.seq_len, n)).to(dev,
+                                                            fmd.idx_dtype)
+    c = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)).to(dev)
+
+    def run():
+        return fm_batch.occ1_rank(fmd, k, c)
+
+    out = run()
+    if not torch.equal(out, fm_batch.occ1_batch(fmd, k, c)):
+        raise AssertionError("K7's occ1 entry differs from occ1_batch")
+    ms = median_ms(run, dev, iters)
+    nb = 48 * n + nbytes(k, c, out)
+    return {"lookups": n, "genome_bp": int(fm.l_pac), "ms": ms,
+            "lookups_per_s": n / (ms * 1e-3), "bytes": nb,
+            "mem_sol_pct": share(nb, 1, ms, mem_peak)}
+
+
+def smem_seed(dev: torch.device, rng, n_reads: int = 2048,
+              read_len: int = 151, fm=None) -> dict:
+    """Device 3-round seeding plus SA walks over reads of a 1 Mbp random
+    genome (``random_index``, unless ``fm`` is given): the first call's ms,
+    then one warm call timed."""
+    if fm is None:
+        fm = random_index(rng)
     fmd = fm_batch.DeviceFMIndex.from_host(fm, dev)
     dg = DeviceGenome.from_host(fm, fmd)
     codes = fm.get_seq_codes(0, fm.l_pac)

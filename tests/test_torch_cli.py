@@ -103,6 +103,8 @@ def test_port_imports_no_jax(tmp_path):
         import lariat_tpu_torch.tools.extend_ablate
         import lariat_tpu_torch.tools.kernel_roofline
         import lariat_tpu_torch.tools.prime_profile
+        import lariat_tpu_torch.tools.device_step
+        import lariat_tpu_torch.parallel.align_step
         from lariat_tpu_torch.align.batch_engine import \\
             TorchBatchAlignmentEngine
         from lariat_tpu_torch.cli import load_reference
@@ -157,6 +159,11 @@ def test_port_sources_import_no_jax_package():
                       recursive=True)
     paths.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(paths) > 40
+    # the device align step's modules are scanned too
+    rel = {os.path.relpath(p, REPO) for p in paths}
+    assert {"lariat_tpu_torch/parallel/align_step.py",
+            "lariat_tpu_torch/ops/fm_batch.py",
+            "lariat_tpu_torch/tools/device_step.py"} <= rel
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p)
            if m.split(".")[0] in ("lariat_tpu", "jax")]

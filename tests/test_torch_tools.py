@@ -1,6 +1,7 @@
 """The port's measurement entry points on the CPU: the roofline's peak and
-cell arithmetic, the ablation tool and the priming profile on the explicit
-CPU device, and each tool's refusal to run without CUDA otherwise."""
+cell arithmetic, the ablation tool, the priming profile and the device
+align step on the explicit CPU device, and each tool's refusal to run
+without CUDA otherwise."""
 
 import json
 import os
@@ -13,7 +14,7 @@ import torch
 from test_torch_cli import _env, _inputs
 
 from lariat_tpu_torch.ops import extend_ablate as t1
-from lariat_tpu_torch.tools import extend_ablate, kernel_roofline
+from lariat_tpu_torch.tools import device_step, extend_ablate, kernel_roofline
 from lariat_tpu_torch.tools import prime_profile
 
 torch.set_num_threads(1)
@@ -239,3 +240,61 @@ def test_sa_walks_profile_refuses_without_cuda(tmp_path):
          str(fasta)], capture_output=True, text=True, timeout=300,
         env=_env(PYTHONPATH=os.path.dirname(os.path.dirname(TOOLS))))
     assert r.returncode != 0 and "needs CUDA" in r.stderr
+
+
+def test_roofline_fm_rank_on_cpu():
+    """The fm_rank section's arithmetic through occ1_rank's twin."""
+    rng = np.random.default_rng(5)
+    fm = kernel_roofline.random_index(rng, 1 << 14)
+    out = kernel_roofline.fm_rank(torch.device("cpu"), rng, fm, 3.352e12,
+                                  iters=1, n=4096)
+    assert set(out) == {"lookups", "genome_bp", "ms", "lookups_per_s",
+                        "bytes", "mem_sol_pct"}
+    assert out["lookups"] == 4096 and out["genome_bp"] == 1 << 14
+    assert out["bytes"] == 4096 * (48 + 4 + 4 + 4)
+    assert out["mem_sol_pct"] > 0
+
+
+def test_device_step_tool_on_cpu(tmp_path, capsys):
+    """tools/device_step.py at a tiny size on the CPU: both steps through
+    the twins, every key of the JSON line, the reads bench.py's (odd ones
+    reverse complemented, one substitution each)."""
+    fasta, _ = _inputs(tmp_path)
+    assert device_step.main([str(fasta), "--device", "cpu", "--B", "24",
+                             "--L", "60"]) == 0
+    (out,) = _json_lines(capsys.readouterr().out)
+    parts = {"smem": {"lanes", "min_starts", "anchor_pick", "sa_lookup",
+                      "orient", "fetch_window", "extend"},
+             "exact": {"seed_mask", "exact_match", "sa_lookup", "orient",
+                       "fetch_window", "extend"}}
+    assert out["device"] == "cpu" and out["card"] is None
+    assert (out["B"], out["L"], out["genome_bp"]) == (24, 60, 60000)
+    # a substitution in the last 32 bases (about half of them at L 60)
+    # leaves the exact step's seed no hit
+    for pre, want, least in (("device_step", parts["smem"], 0.8),
+                             ("exact_step", parts["exact"], 0.2)):
+        assert out[f"{pre}_ms"] > 0
+        assert out[f"{pre}_pairs_s"] == pytest.approx(
+            24 / (out[f"{pre}_ms"] * 1e-3) / 2)
+        assert least <= out[f"{pre}_mapped_frac"] <= 1.0
+        assert least <= out[f"{pre}_at_truth_frac"] <= \
+            out[f"{pre}_mapped_frac"]
+        assert set(out[f"{pre}_parts_ms"]) == want
+    assert out["launches"]["exact_match"] == 0      # twins launch nothing
+    from lariat_tpu_torch.cli import load_reference
+    reads, starts = device_step.step_reads(load_reference(str(fasta)), 24,
+                                           60)
+    codes = load_reference(str(fasta)).get_seq_codes(0, 60000)
+    for i in (0, 1):
+        seg = codes[starts[i]:starts[i] + 60]
+        seg = (3 - seg)[::-1] if i % 2 else seg
+        assert (reads[i] != seg).sum() == 1
+
+
+def test_device_step_refuses_without_cuda(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.delenv("LARIAT_TORCH_DEVICE", raising=False)
+    fasta, _ = _inputs(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_step.main([str(fasta), "--B", "8"])
