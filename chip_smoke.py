@@ -42,16 +42,24 @@ Phases (one line each with its seconds, failures end the run nonzero):
      FASTQ and six low-complexity ones, which blow K4a's step cap, so it
      runs K4b: seeds and rbegs equal to the native C++ seeder's, with no
      SA sample uploaded;
- 5b. align step on that index: K7 (the exact match, both N rules, int32
-     and int64, on reads with N, lens 0 and lens under the seed length;
-     its occ1 entry on rows around primary), K8 (the window fetch:
-     negative starts, starts near and past l_pac, every in-word offset)
+ 5b. align step on that index: K7 (the exact match on the reads as they
+     are, the seed mask in the kernel; both N rules, int32 and int64, on
+     reads with N, lens 0, under the seed length, L and past L + 31; its
+     occ1 entry on rows around primary), K8 (the window fetch: negative
+     starts, starts near and past l_pac, every in-word offset), K1's step
+     entry (reverse hits, windows across 0 and l_pac, unmapped lanes, N)
      and K5's lookup entry (the samples added on the card) against their
      twins and the lookup against sa_lookup_batch_host, each timed at the
-     step's shapes with its bound; then align_step and align_step_smem at
-     8,192 x 151 (launches counted over that run), every field equal to
-     the same steps on the twins on the card (int32 and int64); then
-     tools/device_step.py to a complete JSON line;
+     step's shapes with its bound (K7 and the step entry also in device
+     time alone; K7 with its longest chain and device us a step; the step
+     entry beside K8 + orientation + the tile entry, the path it
+     replaces); K7, K8 and the step entry again at positions and
+     rows on both sides of 2^31 (int64; a rank table and a pac of 2.4e9
+     bases made on the card); then align_step and align_step_smem at
+     8,192 x 151 (launches counted over that run: every extension through
+     the step entry, no K8 launch), every field equal to the same steps on
+     the twins on the card (int32 and int64); then tools/device_step.py to
+     a complete JSON line;
   6. host-native lariat_tpu (-use_device off -threads 8), a subprocess;
   7. the port (-use_device on -threads 8), a subprocess whose CLI resets
      the kernel launch counts before its main loop and prints them after;
@@ -67,8 +75,9 @@ Phases (one line each with its seconds, failures end the run nonzero):
      for file, every pair primed on the device, every kernel launched on
      its own path (K1-K3 in the port run, K4a, K4c and K5 in the
      device-seeded run, K4b -- which runs only when K4a blows its step cap
-     -- in phase 5's collect, T1 in the ablation tool, K7 and K8 in the
-     align steps of phase 5b).
+     -- in phase 5's collect, T1 in the ablation tool, K7 in the align
+     steps of phase 5b; K8, which no path launches since the steps stage
+     their windows in K1's step entry, is only held against its twin).
 Then a kernels JSON line (each kernel's launches on its path, max abs
 error, ms, plain ms, bound ms and what sets it, and library_ms: null, since
 no single PyTorch call computes any of these recurrences) and, last,
@@ -119,6 +128,10 @@ KERNEL_INFO = {   # name -> (source, the TPU kernel it replaces)
 CLI_KERNELS = ("sw_extend", "sw_global", "traceback", "sw_local")
 SEED_KERNELS = ("smem_twoptr", "smem_strategy1", "sa_walk")
 STEP_KERNELS = ("exact_match", "fetch_window")
+# kernels that no path launches: K8 stays the port of the reference's
+# fetch_window_batch, held against its twin in phase 5b, while the align
+# steps stage their windows in K1's step entry (phase 5b checks 0 launches)
+OFF_PATH = ("fetch_window",)
 # the device align step's batch (bench.py's device step detail)
 STEP_B, STEP_L = 8192, 151
 PROFILE_PAIRS = 2000
@@ -1054,19 +1067,24 @@ def _fallback_collect(fm, fmd, g, qs, opt) -> int:
 
 
 def phase_align_step(fasta, pk, logs):
-    """K7, K8 and K5's lookup entry against their twins on phase 4's index
-    (int32 and int64), each timed at the align step's shapes with its
-    bound; then both align steps at 8,192 x 151 against the same steps on
-    the twins, with the launches of the int32 kernel run; then
-    tools/device_step.py. Returns (name -> (max abs err, kernel ms, plain
-    ms, shape, bound ms, what sets it, info), the step run's launches)."""
+    """K7, K8, K1's step entry and K5's lookup entry against their twins on
+    phase 4's index (int32 and int64), each timed at the align step's
+    shapes with its bound; K7, K8 and the step entry past 2^31 on
+    synthetic tables; then both align steps at 8,192 x 151 against the
+    same steps on the twins, with the launches of the int32 kernel run;
+    then tools/device_step.py. Returns (name -> (max abs err, kernel ms,
+    plain ms, shape, bound ms, what sets it, info), the step entry's
+    numbers, the step run's launches)."""
     import numpy as np
     import torch
     from lariat_tpu_torch.align.ksw import fill_score_matrix
     from lariat_tpu_torch.cli import load_reference
-    from lariat_tpu_torch.ops import _build, fm_batch
+    from lariat_tpu_torch.ops import _build, fm_batch, resident, sw_batch
+    from lariat_tpu_torch.ops import sw_extend
     from lariat_tpu_torch.parallel import align_step as st
     from lariat_tpu_torch.tools.device_step import step_reads
+    from lariat_tpu_torch.tools.kernel_roofline import OPS_PER_CELL
+    from lariat_tpu_torch.tools.kernel_turns import events_ms
     dev = torch.device("cuda")
     fm = load_reference(fasta)
     fmd = fm_batch.DeviceFMIndex.from_host(fm, dev)
@@ -1078,6 +1096,8 @@ def phase_align_step(fasta, pk, logs):
     B, L, seed_len, window = STEP_B, STEP_L, 32, 32
     reads_np, starts = step_reads(fm, B, L)
     mat = fill_score_matrix(1, 4)
+    ext = dict(h0=st.STEP_H0, match_sc=1, mismatch_sc=-4, n_sc=-1,
+               **st.STEP_SCORING)
 
     def put(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
@@ -1092,13 +1112,15 @@ def phase_align_step(fasta, pk, logs):
                                      f"(max abs err {_max_abs_err(a, b)})")
 
     res = {}
-    # K7 on the edges: Ns at the first base, the last, mid-read and in the
-    # seed suffix; lens 0, 1, under and at the seed length; both rules,
-    # both forms, int32 and int64; its occ1 entry on rows around primary
+    # K7 on the edges, on the reads as they are (the suffix form masks in
+    # the kernel): Ns at the first base, the last, mid-read and in the seed
+    # suffix; lens 0, 1, under and at the seed length, L, and past L + 31;
+    # both rules, both forms, int32 and int64; its occ1 entry on rows
+    # around primary
     rng = np.random.default_rng(31)
     er, el = reads_np[:4096].copy(), np.full(4096, L, np.int32)
     el[:64] = rng.integers(0, 40, 64)
-    el[:4] = 0, 1, seed_len - 1, seed_len
+    el[:8] = 0, 1, seed_len - 1, seed_len, L, L + 1, L + seed_len, L + 200
     rows = np.arange(64, 4096)
     er[rows[:512], 0] = 4
     er[rows[512:1024], el[rows[512:1024]] - 1] = 4
@@ -1121,24 +1143,31 @@ def phase_align_step(fasta, pk, logs):
         kd = put(k1).to(f.idx_dtype)
         same([fm_batch.occ1_rank(f, kd, put(c1))],
              [fm_batch.occ1_batch(f, kd, put(c1))], "K7's occ1 entry")
-    # K7 at the step's shape: the seed suffixes of the step's reads
+    # K7 at the step's shape: the seed suffixes of the step's reads, read
+    # in place, with its count of each read's rank steps
     rd, lens = put(reads_np), put(np.full(B, L, np.int32))
     s0 = torch.clamp(lens - seed_len, min=0)
-    idx = torch.arange(L, device=dev)[None, :]
-    seeds = torch.where(idx >= s0[:, None], rd, 4).to(torch.uint8)
-    k7 = (fmd, seeds, lens, s0, seed_len, True)
+    k7 = (fmd, rd, lens, s0, seed_len, True)
     t7 = no_rows()
     kk, ll = fm_batch.backward_search_plain(*k7, touched=t7)
-    got = fm_batch.backward_search(*k7)
+    chain = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    got = fm_batch.backward_search(*k7, steps=chain)
     same(got, (kk, ll), "K7 at the step's shape")
-    res["exact_match"] = (0, _median_ms(lambda: fm_batch.backward_search(*k7)),
-                          _median_ms(lambda: fm_batch.backward_search_plain(
-                              *k7), n=3), (B, L, seed_len),
-                          *_bound(pk, 0, 48 * int(t7.sum()) + _nbytes(
-                              seeds, lens, s0, *got)),
-                          {"rows_distinct": int(t7.sum()),
-                           "hits": int((kk <= ll).sum())})
-    # K8: negative starts, starts near and past l_pac, every offset
+    ms7 = _median_ms(lambda: fm_batch.backward_search(*k7))
+    dev7 = events_ms(lambda: fm_batch.backward_search(*k7))
+    longest = int(chain.max())
+    # the bytes it must move: each read's seed bases, start and lens, the
+    # distinct fused rows its ranks read, the intervals out
+    res["exact_match"] = (0, ms7, _median_ms(
+        lambda: fm_batch.backward_search_plain(*k7), n=3), (B, L, seed_len),
+        *_bound(pk, 0, 48 * int(t7.sum()) + B * seed_len + _nbytes(
+            lens, s0, *got)),
+        {"rows_distinct": int(t7.sum()), "hits": int((kk <= ll).sum()),
+         "dev_ms": dev7, "longest_chain": longest,
+         "mean_chain": float(chain.float().mean()),
+         "us_per_step": 1e3 * dev7 / max(longest, 1)})
+    # K8 (off the steps' path; the port of fetch_window_batch): negative
+    # starts, starts near and past l_pac, every offset
     n = fm.l_pac
     wl = L + window
     fs = np.concatenate([np.arange(-wl - 20, 20), np.arange(n - wl - 20,
@@ -1149,17 +1178,6 @@ def phase_align_step(fasta, pk, logs):
         sd = put(fs, np.int64)
         same([st.fetch_window_batch(gg, sd, wl)],
              [st.fetch_window_batch_plain(gg, sd, wl)], "K8")
-    # K8 at the step's shape: the planted starts
-    sd = put(starts, np.int64)
-    got = st.fetch_window_batch(g, sd, wl)
-    same([got], [st.fetch_window_batch_plain(g, sd, wl)], "K8 at the step")
-    pos = starts[:, None] + np.arange(wl)[None, :]
-    words = np.unique(pos[(pos >= 0) & (pos < n)] >> 4)
-    res["fetch_window"] = (0, _median_ms(lambda: st.fetch_window_batch(
-        g, sd, wl)), _median_ms(lambda: st.fetch_window_batch_plain(
-            g, sd, wl), n=3), (B, wl),
-        *_bound(pk, 0, 4 * len(words) + _nbytes(sd, got)),
-        {"pac_words_distinct": int(len(words))})
     # K5's lookup entry on the step's rows (the suffix hits' first rows,
     # row 0 elsewhere) and LF's edge rows, against the twin and the host
     # lookup
@@ -1176,20 +1194,89 @@ def phase_align_step(fasta, pk, logs):
     kd = put(rows5).to(fmd.idx_dtype)
     t5 = no_rows()
     st.sa_lookup_batch_plain(g, kd, touched=t5)
-    got = st.sa_lookup_batch(g, kd)
+    pos_fmd = st.sa_lookup_batch(g, kd)
     res["sa_lookup"] = {
         "ms": _median_ms(lambda: st.sa_lookup_batch(g, kd)),
         "plain_ms": _median_ms(lambda: st.sa_lookup_batch_plain(g, kd), n=3),
         "rows": B, "rows_distinct": int(t5.sum())}
-    bms, by = _bound(pk, 0, 48 * int(t5.sum()) + 8 * B + _nbytes(kd, got))
+    bms, by = _bound(pk, 0, 48 * int(t5.sum()) + 8 * B
+                     + _nbytes(kd, pos_fmd))
     res["sa_lookup"].update(bound_ms=bms, bound_by=by)
+    # K8 at the step's shape: the step's own windows (the lookup's hits,
+    # forward-projected)
+    isr, fwd = st.forward_start(g, pos_fmd, s0, lens)
+    got = st.fetch_window_batch(g, fwd, wl)
+    same([got], [st.fetch_window_batch_plain(g, fwd, wl)], "K8 at the step")
+    pos = fwd.cpu().numpy()[:, None] + np.arange(wl)[None, :]
+    words = np.unique(pos[(pos >= 0) & (pos < n)] >> 4)
+    res["fetch_window"] = (0, _median_ms(lambda: st.fetch_window_batch(
+        g, fwd, wl)), _median_ms(lambda: st.fetch_window_batch_plain(
+            g, fwd, wl), n=3), (B, wl),
+        *_bound(pk, 0, 4 * len(words) + _nbytes(fwd, got)),
+        {"pac_words_distinct": int(len(words)), "step_launches": 0})
+    # K1's step entry on the edges (reverse hits, windows across 0 and
+    # l_pac, unmapped lanes at -1 - qb, Ns, short reads), then at the
+    # step's shape against the twin and against the path it replaces (K8,
+    # the orientation, the tile entry), with its bound
+    pac = g.pac()
+    ef = rng.integers(0, n - L, 4096).astype(np.int64)
+    ef[:8] = [-20, -5, -wl - 3, 0, n - L, n - L + 10, n - 3, n + 5]
+    ef[8:12] = -1 - np.array([0, 5, 58, 118])
+    eisr = put(rng.random(4096) < 0.5)
+    for gg in genomes.values():
+        a = (put(er), put(np.minimum(el, L)), put(ef), eisr, gg.pac(),
+             gg.l_pac, window)
+        same([sw_extend.extend_step(*a, **ext)],
+             [sw_extend.extend_step_plain(*a, **ext)],
+             f"K1's step entry on the edges ({gg.fmd.idx_dtype})")
+    sa = (rd, lens, fwd, isr, pac, n, window)
+    want = sw_extend.extend_step_plain(*sa, **ext)
+    same([sw_extend.extend_step(*sa, **ext)], [want],
+         "K1's step entry at the step")
+    tgt = st.fetch_window_batch(g, fwd, wl)
+    qry = sw_extend.orient_reads(rd, lens, isr)
+    full = [torch.full((B,), v, dtype=torch.int32, device=dev)
+            for v in (wl, window, st.STEP_H0)]
+    tiles = dict((k, v) for k, v in ext.items() if k != "h0")
+
+    def k8_orient_tiles():
+        t = st.fetch_window_batch(g, fwd, wl)
+        q = sw_extend.orient_reads(rd, lens, isr)
+        return sw_extend.extend_batch(q, lens, t, *full, **tiles)
+
+    same([k8_orient_tiles()], [want], "K8 + orientation + the tile entry")
+    _, rows_run = sw_batch.extend_batch(
+        qry, lens, tgt, full[0], sw_extend.score_matrix(1, -4, -1, dev),
+        full[1], full[2], packed=True, rows_run=True, **st.STEP_SCORING)
+    rows_np = rows_run.cpu().numpy()
+    w_eff = sw_batch._adjust_w(lens.cpu(), full[1].cpu(), 1, 5, 6, 1, 6,
+                               1).numpy()
+    cells = _band_cells(np.full(B, L), rows_np, w_eff)
+    step_bytes = (B * L + _nbytes(lens, fwd, isr, want) + 4 * len(words))
+    sbms, sby = _bound(pk, OPS_PER_CELL["extend"] * cells, step_bytes)
+    step = {"ms": _median_ms(lambda: sw_extend.extend_step(*sa, **ext)),
+            "dev_ms": events_ms(lambda: sw_extend.extend_step(*sa, **ext)),
+            "k8_orient_tiles_dev_ms": events_ms(k8_orient_tiles),
+            "plain_ms": _median_ms(
+                lambda: sw_extend.extend_step_plain(*sa, **ext), n=3),
+            "k8_orient_tiles_ms": _median_ms(k8_orient_tiles),
+            "tiles_ms": _median_ms(lambda: sw_extend.extend_batch(
+                qry, lens, tgt, *full, **tiles)),
+            "bound_ms": sbms, "bound_by": sby, "rows_run": int(rows_np.sum()),
+            "band_cells": cells,
+            "warp_steps": _k1_steps(lambda s: sw_extend.extend_step(
+                *sa, steps=s, **ext), want, B)}
     for name in ("exact_match", "fetch_window"):
         e, ms, pms, shape, bms, by, info = res[name]
         print(f"  {name} {shape}: exact in int32 and int64; kernel "
               f"{ms:.3f} ms, plain {pms:.3f} ms; bound {bms:.4f} ms ({by}), "
               f"{100 * bms / ms:.1f}% of it; {json.dumps(info)}")
+    print(f"  K1 step entry ({B} x {L}, window {wl}): exact on the edges and "
+          f"at the step, equal to K8 + orientation + the tile entry; "
+          f"{json.dumps(step)}")
     print(f"  K5 lookup entry ({B} rows): exact in int32 and int64, equal to "
           f"sa_lookup_batch_host; {json.dumps(res['sa_lookup'])}")
+    _past_2_31(put, same)
 
     # the align steps at 8,192 x 151: the kernels' run counted
     steps = (st.align_step_smem, st.align_step)
@@ -1203,10 +1290,13 @@ def phase_align_step(fasta, pk, logs):
                            [fn(gg, rd, lens, mat) for fn in steps]):
             want = fn(gg, rd, lens, mat, plain=True)
             same(got, want, f"{fn.__name__} ({gg.fmd.idx_dtype})")
-    want_on = {"smem_exhaustive": 1, "sa_walk": 2, "fetch_window": 2,
+    # every extension through the step entry: no window fetch (K8) and no
+    # oriented copy; the seed mask is K7's own
+    want_on = {"smem_exhaustive": 1, "sa_walk": 2, "fetch_window": 0,
                "sw_extend": 2, "exact_match": 1}
     if any(launches[k] != v for k, v in want_on.items()) or \
-            entries["lariat_sa_lookup"] != 2:
+            entries["lariat_sa_lookup"] != 2 or \
+            entries["lariat_sw_extend_step"] != 2:
         raise AssertionError(f"the align steps' launches: {launches}, "
                              f"{entries}")
     for fn, r in zip(steps, runs):
@@ -1229,7 +1319,95 @@ def phase_align_step(fasta, pk, logs):
         raise AssertionError(f"device_step: {out}")
     print(f"  device_step: {json.dumps(out)}")
     res["sa_lookup"]["step_launches"] = entries["lariat_sa_lookup"]
-    return res, launches
+    step["step_launches"] = entries["lariat_sw_extend_step"]
+    return res, step, launches
+
+
+# the synthetic tables past 2^31: a text of 2.4e9 codes (a multiple of
+# 128), its primary row past 2^31
+BIG_SEQ_LEN, BIG_PRIMARY = 2_400_000_000, 2_200_000_017
+
+
+def _past_2_31(put, same):
+    """K7 (both entries), K8 and K1's step entry against their twins at
+    positions and rows on both sides of 2^31, int64 indices: a valid rank
+    table of a random text of 2.4e9 codes made on the card (checkpoints the
+    running counts of its words; about 0.9 GB) and a random 2-bit pac of
+    as many bases (about 600 MB)."""
+    import numpy as np
+    import torch
+    from lariat_tpu_torch.ops import fm_batch, resident, sw_extend
+    from lariat_tpu_torch.parallel import align_step as st
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    n, nb, two31 = BIG_SEQ_LEN, BIG_SEQ_LEN // 128, 1 << 31
+    w = torch.randint(0, 1 << 32, (nb, 8), generator=gen, device=dev)
+    counts = torch.stack([fm_batch._popcount32(fm_batch._match(w, c)).sum(1)
+                          for c in range(4)], dim=1)
+    ckpt = torch.zeros((nb + 1, 4), dtype=torch.int64, device=dev)
+    ckpt[1:] = counts.cumsum(0)
+    fused = torch.zeros((nb + 1, 12), dtype=torch.int32, device=dev)
+    fused[:, :4] = ckpt.to(torch.int32)
+    fused[:nb, 4:] = (w - (w >> 31) * (1 << 32)).to(torch.int32)
+    del w, counts
+    L2 = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                    ckpt[-1].cumsum(0)])
+    big = fm_batch.DeviceFMIndex(fused, L2, BIG_PRIMARY, n)
+    rng = np.random.default_rng(43)
+    B, L = 4096, STEP_L
+    reads = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    reads[rng.random((B, L)) < 0.01] = 4
+    lens = np.full(B, L, np.int32)
+    lens[:64] = rng.integers(0, L + 40, 64)
+    start = np.maximum(lens - 32, 0).astype(np.int32)
+    touched = torch.zeros(nb + 1, dtype=torch.bool, device=dev)
+    for skip_n, s, mi in ((True, start, 32), (False, start, 32),
+                          (False, None, None)):
+        a = (put(reads), put(lens), None if s is None else put(s), mi, skip_n)
+        same(fm_batch.backward_search(big, *a),
+             fm_batch.backward_search_plain(big, *a, touched=touched),
+             f"K7 past 2^31 (skip_n {skip_n}, suffix {s is not None})")
+    lo, hi = int(touched[:two31 >> 7].sum()), int(touched[two31 >> 7:].sum())
+    k = np.concatenate([np.arange(two31 - 300, two31 + 300),
+                        np.arange(BIG_PRIMARY - 200, BIG_PRIMARY + 200),
+                        [-1, 0, n - 1, n], rng.integers(0, n + 1, 20000)])
+    kd = put(k).to(torch.int64)
+    cd = put(rng.integers(0, 4, len(k)), np.int32)
+    same([fm_batch.occ1_rank(big, kd, cd)],
+         [fm_batch.occ1_batch(big, kd, cd)], "K7's occ1 entry past 2^31")
+    pac = torch.randint(0, 1 << 32, (n // 16,), generator=gen, device=dev)
+    pac = (pac - (pac >> 31) * (1 << 32)).to(torch.int32)
+    g = st.DeviceGenome(fmd=big, sa_intv=32, l_pac=n, pac_words=pac)
+    wl = L + 32
+    fs = np.concatenate([np.arange(two31 - wl - 20, two31 + 20),
+                         np.arange(n - wl - 20, n + 20),
+                         rng.integers(-wl, n, 4000)])
+    sd = put(fs, np.int64)
+    same([st.fetch_window_batch(g, sd, wl)],
+         [st.fetch_window_batch_plain(g, sd, wl)], "K8 past 2^31")
+    # the step entry on reads planted at their windows, both strands
+    fwd = sd[:2048]
+    isr = put(np.arange(2048) % 2 == 1)
+    sl = put(np.full(2048, L, np.int32))
+    win = resident.fetch_forward_batch(pac, n, fwd, L).to(torch.uint8)
+    rd = sw_extend.orient_reads(win, sl, isr)
+    ext = dict(h0=st.STEP_H0, match_sc=1, mismatch_sc=-4, n_sc=-1,
+               **st.STEP_SCORING)
+    a = (rd, sl, fwd, isr, pac, n, 32)
+    got = sw_extend.extend_step(*a, **ext)
+    same([got], [sw_extend.extend_step_plain(*a, **ext)],
+         "K1's step entry past 2^31")
+    full = int((got[0] >= L).sum())
+    print(f"  past 2^31 (int64; text and pac of {n} bases, primary "
+          f"{BIG_PRIMARY}): K7 both rules and forms equal to the twin over "
+          f"{lo} fused rows below 2^31 and {hi} above, its occ1 entry on "
+          f"{len(k)} rows, K8 on {len(fs)} windows, the step entry on 2048 "
+          f"planted reads ({full} scored the whole read)")
+    if not (lo and hi and full):
+        raise AssertionError("the checks past 2^31 missed a side of it")
+    del g, big, fused, pac
+    torch.cuda.empty_cache()
 
 
 def _bam_records(path: str):
@@ -1420,7 +1598,8 @@ def main(argv=None) -> int:
         sres, exh_launches = phase_seeding(fasta, reads, pk)
     kres.update(sres)
     with Phase("align step kernels vs plain"):
-        ares, step_launches = phase_align_step(fasta, pk, args.logs)
+        ares, step_entry, step_launches = phase_align_step(fasta, pk,
+                                                           args.logs)
     kres.update(ares)
     env = {k: v for k, v in os.environ.items()
            if k not in ("LARIAT_TORCH_DEVICE", "LARIAT_DEVICE_SEED")}
@@ -1480,7 +1659,8 @@ def main(argv=None) -> int:
                     f"{out} pairs: host {n_host}, port {n_port}, primed "
                     f"{primed}, host-routed {host_pairs}; want {want_pairs} "
                     f"all primed")
-        idle = [k for k in KERNEL_INFO if launches.get(k, 0) <= 0]
+        idle = [k for k in KERNEL_INFO
+                if k not in OFF_PATH and launches.get(k, 0) <= 0]
         if idle:
             raise AssertionError(f"kernels never launched on their "
                                  f"path: {idle}")
@@ -1499,7 +1679,8 @@ def main(argv=None) -> int:
                                  "card")
     desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
     extra = {"sw_extend": {"desc_launches": desc,
-                           "desc_wave": kres.pop("sw_extend_desc")},
+                           "desc_wave": kres.pop("sw_extend_desc"),
+                           "step_entry": step_entry},
              "sa_walk": {**walks, "lookup_entry": kres.pop("sa_lookup")}}
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

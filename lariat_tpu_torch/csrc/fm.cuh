@@ -1,9 +1,10 @@
 // K6: FM-index rank primitives on the fused occ table: the group rank of
 // K4a and K4c (G threads a rank pair), the pair rank of K4b (one thread a
 // rank pair, one row fetch when both ranks share a block), K5's `lf` and
-// K7's single-code rank `occ1` (with its pair form). Shared __device__ code
-// of the seeding kernels (smem.cu: K4a-K4c), the SA walk (sa_walk.cu: K5)
-// and the exact match (exact_match.cu: K7); no launch of its own.
+// K7's single-code group rank (and `occ1`, its one-thread form). Shared
+// __device__ code of the seeding kernels (smem.cu: K4a-K4c), the SA walk
+// (sa_walk.cu: K5) and the exact match (exact_match.cu: K7); no launch of
+// its own.
 //
 // Replaces lariat_tpu/ops/fm_batch.py `occ4_fused_batch` (with
 // `_block_counts`), `bwt_extend_dir_batch` / `bwt_extend_batch`,
@@ -422,33 +423,59 @@ __device__ __forceinline__ IDX occ1(const FMView<IDX>& f, IDX k, int c) {
   return occ1_edge(f, k, c, counted);
 }
 
-// both single-code ranks of one backward-search step, at ka = k - 1 and
-// kb = l: one row fetch when they share a block (nearly always once the
-// interval is small). Returns the rows fetched (0-2).
-template <typename IDX>
-__device__ __forceinline__ int occ1_pair(const FMView<IDX>& f, IDX ka, IDX kb,
-                                         int c, IDX& ta, IDX& tb) {
+// ---- the single-code group rank (K7) --------------------------------------
+//
+// G threads (4 or 8 consecutive lanes of a warp, `gmask`, g their rank in
+// the group) compute occ1 at ka = k - 1 and kb = l for one code c, as the
+// group rank does for occ4: every thread loads checkpoint word c of both
+// rows (one address across the group, so one request; the second skipped
+// when both ranks share a block), the first G/2 threads load ka's bwt
+// words and the others kb's (16/G words a thread, none past the rank's
+// position), so both rows arrive in one round of loads; when both share a
+// block the kb threads' words are the ka threads' sectors and the row is
+// fetched once. A thread counts code c in its words (field_match and one
+// popcount a word), __shfl_xor_sync sums the counts over the half and swaps
+// them with the other half, and every thread of the group ends with both
+// ranks.
+template <typename IDX, int G>
+__device__ __forceinline__ void occ1_pair_group(const FMView<IDX>& f, IDX ka,
+                                                IDX kb, int c, int g,
+                                                unsigned gmask, IDX& ta,
+                                                IDX& tb) {
+  static_assert(G == 4 || G == 8, "a group is 4 or 8 lanes");
+  constexpr int H = G / 2;    // threads a rank
+  constexpr int WPT = 8 / H;  // bwt words a thread
   bool la, lb;
   long long ba, bb;
   int ra, rb;
   rank_at(f, ka, la, ba, ra);
   rank_at(f, kb, lb, bb, rb);
   const bool same = la && lb && ba == bb;
-  IDX ca = 0, cb = 0;
-  uint4 ck;
-  uint32_t w[8];
-  if (la) {
-    load_pieces(f.rows, ba, same ? max(ra, rb) : ra, ck, w);
-    ca = static_cast<IDX>(ckpt_of(ck, c)) + count_code(w, ra, c);
-    if (same) cb = static_cast<IDX>(ckpt_of(ck, c)) + count_code(w, rb, c);
-  }
-  if (lb && !same) {
-    load_pieces(f.rows, bb, rb, ck, w);
-    cb = static_cast<IDX>(ckpt_of(ck, c)) + count_code(w, rb, c);
-  }
-  ta = occ1_edge(f, ka, c, ca);
-  tb = occ1_edge(f, kb, c, cb);
-  return (la ? 1 : 0) + (lb && !same ? 1 : 0);
+  const bool on_b = g >= H;
+  const int part = g & (H - 1);
+  uint32_t cka = 0, ckb = 0;
+  uint32_t wv[WPT];
+#pragma unroll
+  for (int i = 0; i < WPT; ++i) wv[i] = 0;
+  if (la) cka = __ldg(reinterpret_cast<const uint32_t*>(f.rows + ba * 3) + c);
+  if (lb && !same)
+    ckb = __ldg(reinterpret_cast<const uint32_t*>(f.rows + bb * 3) + c);
+  const int rem = on_b ? rb : ra;
+  if ((on_b ? lb : la) && rem > 16 * WPT * part)
+    load_words<WPT>(f.rows + (on_b ? bb : ba) * 3 + 1, part, wv);
+  if (same) ckb = cka;
+  int cnt = 0;
+#pragma unroll
+  for (int i = 0; i < WPT; ++i)
+    cnt += __popc(field_match(wv[i], c)
+                  & keep_mask(min(max(rem - 16 * (part * WPT + i), 0), 16)));
+#pragma unroll
+  for (int o = 1; o < H; o <<= 1) cnt += __shfl_xor_sync(gmask, cnt, o);
+  const int other = __shfl_xor_sync(gmask, cnt, H);
+  ta = occ1_edge(f, ka, c,
+                 static_cast<IDX>(cka) + static_cast<IDX>(on_b ? other : cnt));
+  tb = occ1_edge(f, kb, c,
+                 static_cast<IDX>(ckb) + static_cast<IDX>(on_b ? cnt : other));
 }
 
 }  // namespace lariat

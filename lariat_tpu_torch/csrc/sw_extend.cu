@@ -31,14 +31,18 @@
 // substitution score and DPX instructions (VIMNMX3 for H, VIADDMNMX relu
 // for E and F, VIBMAX for the row maximum with its predicate).
 //
-// Two entries share the body. One takes (B, Lq) / (B, Lt) code tiles. The
-// other takes a wave's (B, 9) descriptor matrix (ops/resident.py
+// Three entries share the body. One takes (B, Lq) / (B, Lt) code tiles.
+// The second takes a wave's (B, 9) descriptor matrix (ops/resident.py
 // pack_desc, int32 or int64), the resident reads and the 2-bit pac words,
 // and gathers its own inputs: a lane loads its query columns from
 // reads[rid, qstart + j * qdir], and the warp decodes its target codes into
 // shared memory once, a byte a row (the doubled text: a position >= l_pac
 // mirrors to the complement strand) -- the wave's gathers and transposes
-// folded into the kernel's loads.
+// folded into the kernel's loads. The third is the align step's
+// (`StepFeed`): each read oriented in place to its hit's strand, against a
+// forward-strand window the warp stages from the pac a word a lane -- K8
+// (csrc/fetch_window.cu) and the orientation folded into the kernel's
+// loads.
 //
 // Past 256 query columns the tiles run in turn, the row boundary (h1, F,
 // m, mj) in device memory. Only the last tile's row completion can stop
@@ -131,6 +135,65 @@ struct DescFeed {
         if (rev) c = 3 - c;
       }
       ts[i] = static_cast<uint8_t>(c);
+    }
+  }
+};
+
+// The align step's tasks (parallel/align_step.py `_map_and_extend`): task
+// b is read b, oriented to the strand of its hit, against the window of
+// the forward strand at fwd_start[b] (Lt bases), band w, h0 for every task.
+// The reference builds the oriented reads (revcomp and a where over the
+// whole batch) and K8's window in device memory; here a lane reads its
+// query columns in place, and the warp decodes its window from the pac
+// into shared memory, a lane a word.
+struct StepFeed {
+  const uint8_t* reads;
+  const int32_t* lens;
+  const int64_t* fwd_start;
+  const uint8_t* is_rev;
+  const int32_t* pac;
+  long long l_pac;
+  int L, Lt, w, h0;
+
+  __device__ void task(int b, int& ql, int& tl, int& wb, int32_t& h) const {
+    ql = min(lens[b], L);
+    tl = Lt;
+    wb = w;
+    h = h0;
+  }
+  // reads[b, j], or on a reverse hit the complement of reads[b, clip(len -
+  // 1 - j, 0, L - 1)] (N stays N): the reference's revcomp, read in place
+  __device__ int qcode(int b, int j) const {
+    const uint8_t* r = reads + static_cast<size_t>(b) * L;
+    if (!is_rev[b]) return r[j];
+    const int len = lens[b];
+    if (j >= len) return 4;
+    const int c = r[min(max(len - 1 - j, 0), L - 1)];
+    return c < 4 ? 3 - c : 4;
+  }
+  // K8's rule: the forward-strand code at fwd_start + i, 4 outside [0,
+  // l_pac) (no mirror onto the reverse strand). Lane k loads the k-th pac
+  // word the window touches and writes its codes that fall in [0, n).
+  __device__ void targets(int b, uint8_t* ts, int n, int lane) const {
+    const long long s = fwd_start[b];
+    const long long w0 = s >> 4;  // floor, negative starts too
+    const int off = static_cast<int>(s - (w0 << 4));
+    const int n_words = (off + n + 15) >> 4;
+    for (int k = lane; k < n_words; k += 32) {
+      const long long wi = w0 + k;
+      const long long p0 = wi << 4;
+      const uint32_t word =
+          wi >= 0 && p0 < l_pac ? static_cast<uint32_t>(pac[wi]) : 0u;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int i = 16 * k + e - off;
+        if (i >= 0 && i < n) {
+          const long long p = p0 + e;
+          ts[i] = p >= 0 && p < l_pac
+                      ? static_cast<uint8_t>((word >> (2 * (15 - e))) & 3u)
+                      : uint8_t{4};
+        }
+      }
     }
   }
 };
@@ -384,5 +447,21 @@ extern "C" int lariat_sw_extend_desc(
   }
   const DescFeed<int32_t> fd{static_cast<const int32_t*>(desc), reads, pac,
                              l_pac, n_reads, L, Lq, Lt};
+  return launch_extend(fd, B, Lt, a, bnd, out, n_steps, stream);
+}
+
+// The align step: reads (B, L) uint8, lens (B,) int32, fwd_start (B,)
+// int64, is_rev (B,) bool bytes; pac int32 words of the l_pac-base forward
+// strand; every task's window is Lt bases, its band w and its h0 h0; bnd,
+// out and n_steps as above (bnd past 256 query columns, with Lq = L).
+extern "C" int lariat_sw_extend_step(
+    const uint8_t* reads, const int32_t* lens, const int64_t* fwd_start,
+    const uint8_t* is_rev, const int32_t* pac, long long l_pac, int B, int L,
+    int Lt, int w, int h0, int o_del, int e_del, int o_ins, int e_ins,
+    int end_bonus, int zdrop, int match_sc, int mismatch_sc, int n_sc,
+    int32_t* bnd, int32_t* out, int32_t* n_steps, void* stream) {
+  const StepFeed fd{reads, lens, fwd_start, is_rev, pac, l_pac, L, Lt, w, h0};
+  const Scoring a{o_del, e_del, o_ins, e_ins, end_bonus, zdrop, match_sc,
+                  mismatch_sc, n_sc};
   return launch_extend(fd, B, Lt, a, bnd, out, n_steps, stream);
 }

@@ -48,7 +48,7 @@ KERNELS = {
                        [_P] * 4 + [_L] * 3 + [_I] * 5 + [_P] * 3),
     "sa_walk": ("lariat_sa_walk", [_P] * 5 + [_L] * 3 + [_I] * 3 + [_P] * 2),
     "exact_match": ("lariat_exact_match",
-                    [_P] * 5 + [_L] * 2 + [_I] * 5 + [_P] * 2),
+                    [_P] * 5 + [_L] * 2 + [_I] * 5 + [_P] * 3),
     "fetch_window": ("lariat_fetch_window", [_P] * 2 + [_L] + [_I] * 2
                      + [_P] * 2),
 }
@@ -58,6 +58,8 @@ KERNELS = {
 ENTRIES = {
     "lariat_sw_extend_desc": ("sw_extend", [_P, _I, _P, _I, _I, _P, _L]
                               + [_I] * 12 + [_P] * 4),
+    "lariat_sw_extend_step": ("sw_extend", [_P] * 5 + [_L] + [_I] * 14
+                              + [_P] * 4),
     "lariat_occ1": ("exact_match", [_P] * 4 + [_L] * 2 + [_I] * 2 + [_P] * 2),
     "lariat_sa_lookup": ("sa_walk", [_P] * 3 + [_L] * 3 + [_I, _P, _L]
                          + [_I] * 2 + [_P] * 2),

@@ -307,7 +307,9 @@ def backward_search_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
                           touched: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of K7, every lane in lock step as in the reference;
-    ``touched`` (a bool per fused row) gets the rows its ranks read set."""
+    ``touched`` (a bool per fused row) gets the rows its ranks read set.
+    With ``start``, the base at p is N unless start <= p < lens: the
+    reference align step's seed mask, applied where the base is read."""
     B, L = reads.shape
     lens = lens.long()
     span = lens if start is None else lens - start.long()
@@ -317,6 +319,8 @@ def backward_search_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
     for t in range(min(n_iters, int(span.max()) if B else 0)):
         idx = torch.clamp(lens - 1 - t, 0, L - 1)
         c = reads.gather(1, idx[:, None])[:, 0].long()
+        if start is not None:
+            c = torch.where((idx >= start.long()) & (idx < lens), c, 4)
         in_span = t < span
         active = in_span & (k <= l) & (c < 4)
         if touched is not None:
@@ -333,13 +337,20 @@ def backward_search_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
 
 def backward_search(fmd: DeviceFMIndex, reads: torch.Tensor,
                     lens: torch.Tensor, start: Optional[torch.Tensor] = None,
-                    max_iters: Optional[int] = None, skip_n: bool = False
+                    max_iters: Optional[int] = None, skip_n: bool = False,
+                    steps: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7: the backward search of reads[start:lens) (start None: the whole
     read), at most ``max_iters`` steps -> (k, l) inclusive intervals in the
     index dtype, empty when k > l. reads (B, L) codes 0..4, lens and start
-    (B,). An N empties the interval, or with ``skip_n`` is skipped."""
+    (B,); with ``start`` the bases outside [start, lens) read as N (the
+    seed mask), so the caller passes the reads unmasked. An N empties the
+    interval, or with ``skip_n`` is skipped. ``steps``, a (B,) int32 CUDA
+    tensor, gets each read's rank steps (the kernel's own count)."""
     if not _build.on_cuda(reads):
+        if steps is not None:
+            raise ValueError("steps are counted by the kernel, on a CUDA "
+                             "tensor")
         return backward_search_plain(fmd, reads, lens, start, max_iters,
                                      skip_n)
     dev = reads.device
@@ -348,13 +359,15 @@ def backward_search(fmd: DeviceFMIndex, reads: torch.Tensor,
     lens = lens.to(dev, torch.int32).contiguous()
     if start is not None:
         start = start.to(dev, torch.int32).contiguous()
+    if steps is not None:
+        _build.check("steps", steps, dev, (B,))
     dt = fmd.idx_dtype
     out = torch.empty((2, B), dtype=dt, device=dev)
     _build.launch("exact_match", reads.to(torch.uint8).contiguous(),
                   0 if start is None else start, lens, fmd.fused, fmd.L2,
                   fmd.primary, fmd.seq_len, int(dt == torch.int64), B, L,
                   L if max_iters is None else min(L, max_iters),
-                  int(skip_n), out)
+                  int(skip_n), out, 0 if steps is None else steps)
     return out[0], out[1]
 
 

@@ -96,6 +96,19 @@ def fetch_fmd_batch(pac_words: torch.Tensor, l_pac: int,
     return torch.where(inb, c, 4).to(torch.int32)
 
 
+def fetch_forward_batch(pac_words: torch.Tensor, l_pac: int,
+                        start: torch.Tensor, length: int) -> torch.Tensor:
+    """(B, length) int32 codes of the forward strand at start[b] + i, 4
+    outside [0, l_pac) (no mirror); start (B,) may be negative: the plain
+    twin of K8 (``csrc/fetch_window.cu``) and of the align step's window."""
+    i = torch.arange(length, dtype=torch.int64, device=start.device)
+    pos = start.long()[:, None] + i[None, :]
+    valid = (pos >= 0) & (pos < l_pac)
+    p = torch.clamp(pos, 0, l_pac - 1)
+    code = (pac_words[p >> 4] >> ((15 - (p & 15)) * 2).to(torch.int32)) & 3
+    return torch.where(valid, code, 4).to(torch.int32)
+
+
 def pac_words_host(fm) -> np.ndarray:
     """(ceil(l_pac/16),) uint32 forward pac, 16 bases/word (byte 0 in the
     high bits). Copied from lariat_tpu/ops/fm_batch.py (which imports jax),

@@ -2,16 +2,18 @@
 ``csrc/sw_extend.cu`` and the port of lariat_tpu/ops/sw_extend_pallas.py
 ``extend_batch_pallas`` (v1 and v2 compute the same function).
 
-The kernel has two entries, counted as one kernel (``sw_extend``):
-``extend_batch`` takes (B, Lq) / (B, Lt) code tiles, and ``extend_desc``
-takes a wave's descriptor matrix and lets the kernel gather its own inputs.
-A CUDA tensor launches the kernel; a CPU tensor runs the plain twin
-``sw_batch.extend_batch`` (after ``resident.build_qt`` for the descriptor
-entry). The result is the (8, B) int32 block of the Pallas entry with
-``packed=True``: rows score, qle, tle, gtle, gscore, max_off, then two zero
-rows.
+The kernel has three entries, counted as one kernel (``sw_extend``):
+``extend_batch`` takes (B, Lq) / (B, Lt) code tiles, ``extend_desc``
+takes a wave's descriptor matrix and lets the kernel gather its own inputs,
+and ``extend_step`` takes the align step's reads and hits and lets the
+kernel orient the reads and stage the windows. A CUDA tensor launches the
+kernel; a CPU tensor runs the plain twin ``sw_batch.extend_batch`` (after
+``resident.build_qt`` for the descriptor entry, and the window fetch and
+the orientation for the step entry). The result is the (8, B) int32 block
+of the Pallas entry with ``packed=True``: rows score, qle, tle, gtle,
+gscore, max_off, then two zero rows.
 
-Either entry takes ``steps``, a (B,) int32 CUDA tensor that the kernel
+Each entry takes ``steps``, a (B,) int32 CUDA tensor that the kernel
 fills with each task's warp steps (its column tiles' summed): the kernel's
 own count of what its schedule ran. The twin has no schedule, so a CPU call
 takes no ``steps``.
@@ -52,7 +54,8 @@ def _plain(query, qlen, target, tlen, w, h0, steps, *, o_del, e_del, o_ins,
         w, h0, o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
         end_bonus=end_bonus, zdrop=zdrop, packed=True)
     return torch.cat([rows, torch.zeros((2, qlen.shape[0]),
-                                        dtype=torch.int32)])
+                                        dtype=torch.int32,
+                                        device=rows.device)])
 
 
 def _launch(B, Lq, Lt, dev, scores, steps, entry, *head) -> torch.Tensor:
@@ -135,3 +138,86 @@ def extend_desc(reads: torch.Tensor, pac_words: torch.Tensor, l_pac: int,
     return _launch(B, Lq, Lt, dev, sc, steps, "lariat_sw_extend_desc", desc,
                    int(desc.dtype == torch.int64), reads, N, L, pac_words,
                    int(l_pac), B, Lq, Lt)
+
+
+def orient_reads(reads: torch.Tensor, lens: torch.Tensor,
+                 is_rev: torch.Tensor) -> torch.Tensor:
+    """(B, L) uint8 reads oriented to the forward strand: the reverse
+    complement of reads[b, :lens[b]] (N stays N, 4 past lens) where
+    is_rev[b], else the read as it is."""
+    B, L = reads.shape
+    idx = torch.arange(L, device=reads.device)[None, :]
+    ln = lens.long()[:, None]
+    rc = reads.gather(1, torch.clamp(ln - 1 - idx, 0, L - 1)).long()
+    revcomp = torch.where(idx < ln, torch.where(rc < 4, 3 - rc, 4), 4)
+    return torch.where(is_rev[:, None], revcomp,
+                       reads.long()).to(torch.uint8)
+
+
+def extend_step_plain(reads: torch.Tensor, lens: torch.Tensor,
+                      fwd_start: torch.Tensor, is_rev: torch.Tensor,
+                      pac_words: torch.Tensor, l_pac: int, window: int, *,
+                      h0: int = 19, o_del: int = 6, e_del: int = 1,
+                      o_ins: int = 6, e_ins: int = 1, end_bonus: int = 5,
+                      zdrop: int = 100, match_sc: int = 1,
+                      mismatch_sc: int = -4, n_sc: int = -1
+                      ) -> torch.Tensor:
+    """Plain twin of K1's step entry: the window fetch (K8's twin), the
+    orientation and ``sw_batch.extend_batch``, as the reference align step
+    runs them."""
+    from . import resident  # resident imports this module
+    B, L = reads.shape
+    target = resident.fetch_forward_batch(pac_words, l_pac, fwd_start,
+                                          L + window)
+    query = orient_reads(reads, lens, is_rev)
+
+    def full(v):
+        return torch.full((B,), v, dtype=torch.int32, device=reads.device)
+
+    return _plain(query, lens.to(torch.int32), target, full(L + window),
+                  full(window), full(h0), None, match_sc=match_sc,
+                  mismatch_sc=mismatch_sc, n_sc=n_sc, o_del=o_del,
+                  e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+                  end_bonus=end_bonus, zdrop=zdrop)
+
+
+def extend_step(reads: torch.Tensor, lens: torch.Tensor,
+                fwd_start: torch.Tensor, is_rev: torch.Tensor,
+                pac_words: torch.Tensor, l_pac: int, window: int, *,
+                h0: int = 19, o_del: int = 6, e_del: int = 1, o_ins: int = 6,
+                e_ins: int = 1, end_bonus: int = 5, zdrop: int = 100,
+                match_sc: int = 1, mismatch_sc: int = -4, n_sc: int = -1,
+                steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ksw_extend2 of each whole read, oriented to its hit's strand, against
+    the forward-strand window [fwd_start, fwd_start + L + window) (4 outside
+    [0, l_pac)), band ``window``, h0 -> (8, B) int32: the align step's
+    extension.
+
+    reads (B, L) uint8 codes 0..4, lens (B,) int32 (qlen min(lens, L)),
+    fwd_start (B,) int64, is_rev (B,) bool, pac_words int32 words of the
+    forward strand. On a CUDA tensor one launch of the step entry, which
+    reads its query columns in place and stages each window from the pac;
+    on a CPU tensor ``extend_step_plain``."""
+    sc = dict(o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+              end_bonus=end_bonus, zdrop=zdrop, match_sc=match_sc,
+              mismatch_sc=mismatch_sc, n_sc=n_sc)
+    if not _build.on_cuda(reads):
+        if steps is not None:
+            raise ValueError("steps are counted by the kernel, on a CUDA "
+                             "tensor")
+        return extend_step_plain(reads, lens, fwd_start, is_rev, pac_words,
+                                 l_pac, window, h0=h0, **sc)
+    dev = reads.device
+    B, L = reads.shape
+    _build.check("reads", reads, dev, (B, L), (torch.uint8,))
+    _build.check("lens", lens, dev, (B,))
+    _build.check("fwd_start", fwd_start, dev, (B,), (torch.int64,))
+    _build.check("is_rev", is_rev, dev, (B,), (torch.bool,))
+    _build.check("pac_words", pac_words, dev, tuple(pac_words.shape))
+    if pac_words.dim() != 1 or l_pac > 16 * pac_words.shape[0]:
+        raise ValueError(f"pac_words: {tuple(pac_words.shape)} words cannot "
+                         f"hold l_pac {l_pac}")
+    Lt = L + window
+    return _launch(B, L, Lt, dev, sc, steps, "lariat_sw_extend_step", reads,
+                   lens, fwd_start, is_rev, pac_words, int(l_pac), B, L, Lt,
+                   int(window), int(h0))

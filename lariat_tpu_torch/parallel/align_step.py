@@ -7,18 +7,21 @@ suffix array. Two callers use it:
   ``sa_walk_chunk`` (``csrc/sa_walk.cu``) through ``sa_lookup_batch_host``,
   which walks a lookup's rows in one launch and adds the samples on the
   host;
-- the one-call align steps ``align_step`` (exact suffix seed, K7) and
-  ``align_step_smem`` (round-1 SMEMs, K4b) map each read to one position:
-  the SA lookup with the samples added on the card (``sa_lookup_batch``,
-  K5's lookup entry), the implied window of the forward strand
-  (``fetch_window_batch``, K8) and a banded extension of the whole read
-  (K1's tile entry).
+- the one-call align steps ``align_step`` (exact suffix seed, K7, which
+  applies the seed mask where it reads a base) and ``align_step_smem``
+  (round-1 SMEMs, K4b) map each read to one position: the SA lookup with
+  the samples added on the card (``sa_lookup_batch``, K5's lookup entry),
+  then a banded extension of the whole read, oriented to its hit's strand,
+  against the implied window of the forward strand (K1's step entry,
+  ``sw_extend.extend_step``, which stages the window itself: K8's
+  ``fetch_window_batch`` stays the port of the reference's function, off
+  the steps' path).
 
 On a CUDA tensor every step launches its kernel; on a CPU tensor it runs
 its plain twin. ``plain=True`` runs the twins on any device (the kernels'
 yardstick on the card, as the reference's ``use_pallas=False``). The glue
-between the kernels (the seed mask, the anchor pick, the orientation of the
-read) is torch ops, as it is XLA ops in the reference.
+between the kernels (the anchor pick, the hit's strand and forward start)
+is torch ops, as it is XLA ops in the reference.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..align.ksw import _mat_params
-from ..ops import _build, resident, smem_device, sw_batch, sw_extend
+from ..ops import _build, resident, smem_device, sw_extend
 from ..ops.fm_batch import (DeviceFMIndex, backward_search,
                             backward_search_plain, lf_batch, lf_row)
 
@@ -209,13 +212,7 @@ def sa_lookup_batch_host(g: DeviceGenome, fm,
 def fetch_window_batch_plain(g: DeviceGenome, start: torch.Tensor,
                              length: int) -> torch.Tensor:
     """Plain twin of K8."""
-    pac = g.pac()
-    i = torch.arange(length, dtype=torch.int64, device=start.device)
-    pos = start.long()[:, None] + i[None, :]
-    valid = (pos >= 0) & (pos < g.l_pac)
-    p = torch.clamp(pos, 0, g.l_pac - 1)
-    code = (pac[p >> 4] >> ((15 - (p & 15)) * 2).to(torch.int32)) & 3
-    return torch.where(valid, code, 4).to(torch.int32)
+    return resident.fetch_forward_batch(g.pac(), g.l_pac, start, length)
 
 
 def fetch_window_batch(g: DeviceGenome, start: torch.Tensor,
@@ -297,29 +294,15 @@ class _NoClock:
 class _Steps(NamedTuple):
     search: Callable
     lookup: Callable
-    fetch: Callable
     min_starts: Callable
-    extend: Callable
+    fetch_extend: Callable
 
 
-def _extend_kernel(query, qlen, target, tlen, w, h0, scores):
-    a, b, n = scores
-    return sw_extend.extend_batch(query, qlen, target, tlen, w, h0,
-                                  match_sc=a, mismatch_sc=b, n_sc=n,
-                                  **STEP_SCORING)[0]
-
-
-def _extend_plain(query, qlen, target, tlen, w, h0, scores):
-    mat = sw_extend.score_matrix(*scores, device=query.device)
-    return sw_batch.extend_batch(query, qlen, target, tlen, mat, w, h0,
-                                 packed=True, **STEP_SCORING)[0]
-
-
-_KERNEL_STEPS = _Steps(backward_search, sa_lookup_batch, fetch_window_batch,
-                       smem_device.min_starts_kernel, _extend_kernel)
+_KERNEL_STEPS = _Steps(backward_search, sa_lookup_batch,
+                       smem_device.min_starts_kernel, sw_extend.extend_step)
 _PLAIN_STEPS = _Steps(backward_search_plain, sa_lookup_batch_plain,
-                      fetch_window_batch_plain,
-                      smem_device.min_starts_kernel_plain, _extend_plain)
+                      smem_device.min_starts_kernel_plain,
+                      sw_extend.extend_step_plain)
 
 
 def _scores(mat) -> Tuple[int, int, int]:
@@ -333,39 +316,34 @@ def _scores(mat) -> Tuple[int, int, int]:
     return params
 
 
+def forward_start(g: DeviceGenome, pos_fmd: torch.Tensor, qb: torch.Tensor,
+                  lens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(is_rev, fwd_start): the strand of a hit at doubled-text position
+    ``pos_fmd`` of read offset ``qb``, and the whole read's start projected
+    to the forward strand (a reverse hit spans [2 l_pac - dstart - n,
+    2 l_pac - dstart), dstart = pos_fmd - qb)."""
+    dstart = pos_fmd - qb.long()
+    is_rev = pos_fmd >= g.l_pac
+    return is_rev, torch.where(is_rev, 2 * g.l_pac - dstart - lens.long(),
+                               dstart)
+
+
 def _map_and_extend(g: DeviceGenome, steps: _Steps, clock, reads, lens, row,
                     qb, mapped, n_hits, window, scores) -> AlignStepResult:
     """The steps after the anchor: the SA lookup of ``row``, the read's
-    forward-strand start implied by the anchor's read offset ``qb``, the
-    window there and the extension of the whole read, oriented to the
-    forward strand. Unmapped lanes (row 0) extend too, as in the
-    reference."""
-    B, L = reads.shape
-    dev = reads.device
+    forward-strand start implied by the anchor's read offset ``qb``, and
+    the extension of the whole read, oriented to the forward strand,
+    against the window there. Unmapped lanes (row 0) extend too, as in the
+    reference. ``reads`` (B, L) uint8."""
     with clock.part("sa_lookup"):
         pos_fmd = steps.lookup(g, row)
     with clock.part("orient"):
-        # doubled-coords start of the whole read, projected to the forward
-        # strand (a reverse hit spans [2 l_pac - dstart - n, 2 l_pac -
-        # dstart))
-        dstart = pos_fmd - qb.long()
-        is_rev = pos_fmd >= g.l_pac
-        fwd_start = torch.where(is_rev, 2 * g.l_pac - dstart - lens.long(),
-                                dstart)
-    with clock.part("fetch_window"):
-        target = steps.fetch(g, fwd_start, L + window)
-    with clock.part("orient"):
-        idx = torch.arange(L, device=dev)[None, :]
-        ln = lens.long()[:, None]
-        rc = reads.gather(1, torch.clamp(ln - 1 - idx, 0, L - 1)).long()
-        revcomp = torch.where(idx < ln, torch.where(rc < 4, 3 - rc, 4), 4)
-        oriented = torch.where(is_rev[:, None], revcomp,
-                               reads.long()).to(torch.uint8)
-    with clock.part("extend"):
-        def full(v):
-            return torch.full((B,), v, dtype=torch.int32, device=dev)
-        score = steps.extend(oriented, lens, target, full(L + window),
-                             full(window), full(STEP_H0), scores)
+        is_rev, fwd_start = forward_start(g, pos_fmd, qb, lens)
+    with clock.part("fetch_extend"):
+        a, b, n = scores
+        score = steps.fetch_extend(reads, lens, fwd_start, is_rev, g.pac(),
+                                   g.l_pac, window, h0=STEP_H0, match_sc=a,
+                                   mismatch_sc=b, n_sc=n, **STEP_SCORING)[0]
     return AlignStepResult(pos=torch.where(mapped, fwd_start, -1),
                            is_rev=is_rev & mapped, n_hits=n_hits,
                            score=score, mapped=mapped)
@@ -377,26 +355,22 @@ def align_step(g: DeviceGenome, reads: torch.Tensor, lens: torch.Tensor,
                clock: Optional[StepClock] = None) -> AlignStepResult:
     """One device alignment step: seed by an exact match of the read's last
     ``seed_len`` bases (K7, an N skipped), SA-dereference its first row
-    (K5), fetch the implied window (K8) and extend the whole read against it
-    with band ``window`` (K1).
+    (K5), and extend the whole read against the implied window with band
+    ``window`` (K1's step entry).
 
     reads (B, L) codes 0..4, lens (B,); mat bwa's uniform (5, 5) matrix.
     ``clock`` (a StepClock) gets each part's time."""
     scores = _scores(mat)
     steps = _PLAIN_STEPS if plain else _KERNEL_STEPS
     clock = clock or _NoClock()
-    B, L = reads.shape
     lens = lens.to(reads.device, torch.int32)
-    with clock.part("seed_mask"):
-        start = torch.clamp(lens - seed_len, min=0)
-        idx = torch.arange(L, device=reads.device)[None, :]
-        keep = (idx >= start[:, None]) & (idx < lens[:, None])
-        seeds = torch.where(keep, reads, 4).to(torch.uint8)
+    reads8 = reads.to(torch.uint8).contiguous()
     with clock.part("exact_match"):
-        k, l = steps.search(g.fmd, seeds, lens, start, seed_len, True)
+        start = torch.clamp(lens - seed_len, min=0)
+        k, l = steps.search(g.fmd, reads8, lens, start, seed_len, True)
     n_hits = torch.clamp(l - k + 1, min=0)
     mapped = n_hits > 0
-    return _map_and_extend(g, steps, clock, reads, lens,
+    return _map_and_extend(g, steps, clock, reads8, lens,
                            torch.where(mapped, k, 0), start, mapped, n_hits,
                            window, scores)
 
@@ -447,5 +421,5 @@ def align_step_smem(g: DeviceGenome, reads: torch.Tensor, lens: torch.Tensor,
         qb = b.gather(1, pick)[:, 0]
         row = torch.where(mapped, x0.gather(1, pick)[:, 0], 0)
         n_hits = s.gather(1, pick)[:, 0]
-    return _map_and_extend(g, steps, clock, reads, lens, row, qb, mapped,
+    return _map_and_extend(g, steps, clock, reads8, lens, row, qb, mapped,
                            n_hits, window, scores)

@@ -5,18 +5,21 @@
         --B 64 --L 60                                             # tests only
 
 The port of bench.py ``_device_step_detail``. Reads: B (8,192) x L (151)
-bases of ``fm.get_seq_codes`` at starts drawn from ``default_rng(7)``, odd
-reads reverse complemented, each with one mutated base (the reference's
-generator). ``align_step_smem`` (the reference's measured step: K4b, K5's
-lookup entry, K8, K1) and then ``align_step`` (K7 in place of K4b): one
-warm call, then the mean of 5 calls, the last closed by a synchronise, and
-one more call with a ``StepClock`` for each part's time inside the step
-(CUDA events on the card). Prints one JSON line: ``device_step_pairs_s``
-(B / dt / 2, as the reference reckons it), ``device_step_ms``,
+bases of ``fm.get_seq_codes`` at starts drawn from ``default_rng(7)``,
+odd reads reverse complemented, each with one mutated base (the
+reference's generator). ``align_step_smem`` (the reference's measured
+step: K4b, K5's lookup entry, K1's step entry) and then ``align_step``
+(K7 in place of K4b): one warm call, then the mean of 5 calls, the last
+closed by a synchronise, and one more call with a ``StepClock`` for each
+part's time inside the step (CUDA events on the card: ``exact_match`` or
+``lanes``, ``min_starts`` and ``anchor_pick``, then ``sa_lookup``,
+``orient`` -- the hits' strands and forward starts -- and
+``fetch_extend``). Prints one JSON line: ``device_step_pairs_s`` (B / dt
+/ 2, as the reference reckons it), ``device_step_ms``,
 ``device_step_mapped_frac``, the share of reads placed at their planted
-start, the parts' ms, the same under ``exact_step_*`` for ``align_step``,
-and the kernels' launches. The index loads (or is built) as the CLI's
-``load_reference`` does.
+start, the parts' ms, the same under ``exact_step_*`` for
+``align_step``, and the kernels' launches. The index loads (or is built)
+as the CLI's ``load_reference`` does.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
-"""K1, K2b, K4a, K4b, K4c and the SA lookup (K5) timed on the card, to
-compare two trees of the port in one call, in turns (parent, new, new,
-parent):
+"""K1, K2b, K4a, K4b, K4c, the SA lookup (K5), K7 and the align step's
+extension timed on the card, to compare two trees of the port in one call,
+in turns (parent, new, new, parent):
 
     git archive <parent> lariat_tpu_torch | tar -x -C build/parent
     for t in build/parent . . build/parent; do
       PYTHONPATH=$t python3 lariat_tpu_torch/tools/kernel_turns.py \\
-          <genome.fa> <reads.fastq.gz> [k1,k2b,k4a,k4b,k4c,lookup]
+          <genome.fa> <reads.fastq.gz> [k1,k2b,k4a,k4b,k4c,lookup,k7,step]
     done
 
 The third argument picks the sections (all by default). A tuning variant
@@ -35,12 +35,22 @@ device seeding came in:
   half of the lanes and with a cold L2 (256 MB read between calls);
 - the SA lookup, ``align_step.sa_lookup_batch_host``, on chip_smoke.py
   phase 5's 65,536 random rows (seed 3), checked against the positions of
-  the twin's walk.
+  the twin's walk;
+- K7, ``fm_batch.backward_search``, on the seed suffixes of the align
+  step's 8,192 x 151 reads (``device_step.step_reads``; lens 151, so the
+  seed mask changes no base and both trees search the same bases),
+  checked against its twin; in device time also with a cold L2;
+- the align step's extension: each tree's path from the step's hits (K7,
+  K5's lookup entry, the forward projection) to its scores -- K8, the
+  orientation and K1's tile entry where the tree has no
+  ``sw_extend.extend_step``, else that one launch -- checked against the
+  twins; and ``align_step`` whole, with its parts (``StepClock``, median of
+  21 calls of each part's CUDA-event ms).
 Each time is the median of 21 calls (CUDA events around the call, its host
-time included), taken three times; K2b, K4a, K4b and K4c also once in
-device time alone (``events_ms``). Prints the card and, last, one JSON line.
-chip_smoke.py builds its K1 and seeding inputs with the same functions;
-``sa_walks.py`` times K5 alone.
+time included), taken three times; K2b, K4a, K4b, K4c, K7 and the step's
+extension also once in device time alone (``events_ms``). Prints the
+card and, last, one JSON line. chip_smoke.py builds its K1 and seeding
+inputs with the same functions; ``sa_walks.py`` times K5 alone.
 """
 
 from __future__ import annotations
@@ -147,7 +157,7 @@ def events_ms(fn, prep=None, n=21):
     return times[len(times) // 2]
 
 
-SECTIONS = ("k1", "k2b", "k4a", "k4b", "k4c", "lookup")
+SECTIONS = ("k1", "k2b", "k4a", "k4b", "k4c", "lookup", "k7", "step")
 
 
 def make_variant(dest, rel, old, new) -> str:
@@ -183,7 +193,8 @@ def main(argv=None) -> int:
         return 0
     if len(argv) not in (2, 3):
         raise SystemExit("usage: kernel_turns.py <genome.fa> "
-                         "<reads.fastq.gz> [k1,k2b,k4a,k4b,k4c,lookup]")
+                         "<reads.fastq.gz> [k1,k2b,k4a,k4b,k4c,lookup,k7,"
+                         "step]")
     want_s = set(argv[2].split(",")) if len(argv) == 3 else set(SECTIONS)
     if not want_s <= set(SECTIONS):
         raise SystemExit(f"sections: {sorted(want_s - set(SECTIONS))}?")
@@ -245,10 +256,15 @@ def main(argv=None) -> int:
         out["k2b_nowalk_dev_ms"] = events_ms(
             lambda: sw_global.traceback_ops_fused(z, ql2, tl0, w2, score, S))
 
-    if not want_s & {"k4a", "k4b", "k4c", "lookup"}:
+    if not want_s & {"k4a", "k4b", "k4c", "lookup", "k7", "step"}:
         return _finish(out)
     fm = load_reference(argv[0])
     fmd = fm_batch.DeviceFMIndex.from_host(fm, dev)
+    if want_s & {"k7", "step"}:
+        _step_sections(out, want_s, fm, fmd, dev, medians,
+                       lambda: flush.max())
+    if not want_s & {"k4a", "k4b", "k4c", "lookup"}:
+        return _finish(out)
     rmat, lens, _ = seed_batch(argv[1], 4096)
     R, L = rmat.shape
     args = (fmd, put(rmat), put(np.zeros(R), np.int32), put(lens),
@@ -317,6 +333,83 @@ def main(argv=None) -> int:
         out["lookup_rows"] = len(rows)
         out["lookup_ms"] = medians(lookup)
     return _finish(out)
+
+
+def _step_sections(out, want_s, fm, fmd, dev, medians, flush) -> None:
+    """The ``k7`` and ``step`` sections at the align step's shape; ``flush``
+    evicts the L2 (K7's cold variant)."""
+    import torch
+    from lariat_tpu_torch.align.ksw import fill_score_matrix
+    from lariat_tpu_torch.ops import fm_batch, sw_extend
+    from lariat_tpu_torch.parallel import align_step as st
+    from lariat_tpu_torch.tools.device_step import step_reads
+    reads_np, _ = step_reads(fm, 8192, 151)
+    B, L = reads_np.shape
+    rd = torch.from_numpy(reads_np).to(dev)
+    lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+    s0 = torch.clamp(lens - 32, min=0)
+    k7 = (fmd, rd, lens, s0, 32, True)
+
+    def err(got, want):
+        return max(int((a.long() - b.long()).abs().max())
+                   for a, b in zip(got, want))
+
+    if "k7" in want_s:
+        out["k7_max_abs_err"] = err(fm_batch.backward_search(*k7),
+                                    fm_batch.backward_search_plain(*k7))
+        out["k7_reads"] = [B, L, 32]
+        out["k7_ms"] = medians(lambda: fm_batch.backward_search(*k7))
+        out["k7_dev_ms"] = events_ms(lambda: fm_batch.backward_search(*k7))
+        out["k7_cold_dev_ms"] = events_ms(
+            lambda: fm_batch.backward_search(*k7), prep=flush)
+    if "step" not in want_s:
+        return
+    g = st.DeviceGenome.from_host(fm, fmd)
+    k, l = fm_batch.backward_search(*k7)
+    pos = st.sa_lookup_batch(g, torch.where(k <= l, k, 0))
+    dstart = pos - s0.long()
+    isr = pos >= g.l_pac
+    fwd = torch.where(isr, 2 * g.l_pac - dstart - lens.long(), dstart)
+    W = 32
+    sc = dict(match_sc=1, mismatch_sc=-4, n_sc=-1, **st.STEP_SCORING)
+    full = [torch.full((B,), v, dtype=torch.int32, device=dev)
+            for v in (L + W, W, st.STEP_H0)]
+    if hasattr(sw_extend, "extend_step"):
+        out["step_path"] = "extend_step"
+
+        def tail():
+            return sw_extend.extend_step(rd, lens, fwd, isr, g.pac(),
+                                         g.l_pac, W, h0=st.STEP_H0, **sc)
+    else:
+        out["step_path"] = "fetch_window + orientation + extend_batch"
+
+        def tail():
+            t = st.fetch_window_batch(g, fwd, L + W)
+            idx = torch.arange(L, device=dev)[None, :]
+            ln = lens.long()[:, None]
+            rc = rd.gather(1, torch.clamp(ln - 1 - idx, 0, L - 1)).long()
+            revcomp = torch.where(idx < ln, torch.where(rc < 4, 3 - rc, 4), 4)
+            q = torch.where(isr[:, None], revcomp, rd.long()).to(torch.uint8)
+            return sw_extend.extend_batch(q, lens, t, *full, **sc)
+
+    mat = fill_score_matrix(1, 4)
+    want = st.align_step(g, rd, lens, mat, plain=True)
+    out["step_max_abs_err"] = max(
+        err([tail()[0]], [want.score]),
+        err(st.align_step(g, rd, lens, mat), want))
+    out["step_tail_ms"] = medians(tail)
+    out["step_tail_dev_ms"] = events_ms(tail)
+    out["align_step_ms"] = medians(lambda: st.align_step(g, rd, lens, mat))
+    out["align_step_dev_ms"] = events_ms(
+        lambda: st.align_step(g, rd, lens, mat))
+    parts = {}
+    for _ in range(21):
+        clock = st.StepClock(dev)
+        st.align_step(g, rd, lens, mat, clock=clock)
+        for name, ms in clock.ms().items():
+            parts.setdefault(name, []).append(ms)
+    out["align_step_parts_ms"] = {n: sorted(v)[len(v) // 2]
+                                  for n, v in parts.items()}
 
 
 def _finish(out) -> int:

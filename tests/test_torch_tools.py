@@ -202,6 +202,8 @@ def test_kernel_turns_seed_batch_and_refusal(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             kernel_turns.main([str(fasta), str(fq)])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            kernel_turns.main([str(fasta), str(fq), "k7,step"])
 
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(
@@ -264,9 +266,8 @@ def test_device_step_tool_on_cpu(tmp_path, capsys):
                              "--L", "60"]) == 0
     (out,) = _json_lines(capsys.readouterr().out)
     parts = {"smem": {"lanes", "min_starts", "anchor_pick", "sa_lookup",
-                      "orient", "fetch_window", "extend"},
-             "exact": {"seed_mask", "exact_match", "sa_lookup", "orient",
-                       "fetch_window", "extend"}}
+                      "orient", "fetch_extend"},
+             "exact": {"exact_match", "sa_lookup", "orient", "fetch_extend"}}
     assert out["device"] == "cpu" and out["card"] is None
     assert (out["B"], out["L"], out["genome_bp"]) == (24, 60, 60000)
     # a substitution in the last 32 bases (about half of them at L 60)
