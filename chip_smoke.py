@@ -41,7 +41,13 @@ Phases (one line each with its seconds, failures end the run nonzero):
      device collect (collect_seeds_rbegs_device) on 250 reads of the
      FASTQ and six low-complexity ones, which blow K4a's step cap, so it
      runs K4b: seeds and rbegs equal to the native C++ seeder's, with no
-     SA sample uploaded;
+     SA sample uploaded; then, off every path, K4a's planes entry (round 1
+     at an 8L budget, round 2 with bwd_init at 32L, int32 and int64) and K9
+     on its planes (both layouts, round 1's mid L + 2 and round 2's mids,
+     the collect's caps and caps that overflow) against their twins,
+     exact, timed with their byte bounds (K9 also as the stable argsort
+     and gathers, its library yardstick), K9's round-1 slots against K4a's
+     direct slots, and the launches of one planes-then-compaction pass;
  5b. align step on that index: K7 (the exact match on the reads as they
      are, the seed mask in the kernel; both N rules, int32 and int64, on
      reads with N, lens 0, under the seed length, L and past L + 31; its
@@ -62,25 +68,40 @@ Phases (one line each with its seconds, failures end the run nonzero):
      a complete JSON line;
   6. host-native lariat_tpu (-use_device off -threads 8), a subprocess;
   7. the port (-use_device on -threads 8), a subprocess whose CLI resets
-     the kernel launch counts before its main loop and prints them after;
-  8. the port again with LARIAT_DEVICE_SEED=1: seeding and its SA walks
-     on the device (K4a, K4c, K5), each K5 launch logged (rows, max_steps,
-     longest walk, walks past 64 steps), one launch a lookup;
+     the kernel launch counts before its main loop and prints them after,
+     with the router's knobs set so that it has no reason to host-route
+     (LARIAT_PRIME_THREADS at the run's most batches, a 600 s
+     LARIAT_PRIME_TAIL_GRACE, LARIAT_PRIME_MIN_FRAC=0; printed);
+  8. the port again with LARIAT_DEVICE_SEED=1 and the same knobs: seeding
+     and its SA walks on the device (K4a, K4c, K5), each K5 launch logged
+     (rows, max_steps, longest walk, walks past 64 steps), one launch a
+     lookup;
+ 8b. the port at the router's defaults: its primed / host-routed split;
+ 8c. the port through the resident server (parallel/device_server.py) on
+     the card: the server starts as a subprocess and writes its ready file
+     after its build, upload and prewarm; the CLI primes through it
+     (LARIAT_DEVICE_SOCKET) and must not initialise CUDA; the server stops
+     on request, exits 0 and logs its kernel launches;
   9. tools: the three measurement entry points as subprocesses -- the T1
      ablation at full size, the kernel roofline (with its smem_seed and
      fm_rank sections), and the priming profile over 2,000 pairs of the data
      above, once with host and once with device seeding -- each to a
      complete final JSON line, every roofline share in (0, 100%];
- 10. checks: BAM records of both port runs identical to host-native file
-     for file, every pair primed on the device, every kernel launched on
+ 10. checks: BAM records of the four port runs identical to host-native
+     file for file; every pair primed in runs 7 and 8, primed plus
+     host-routed pairs all the pairs and some primed in 8b and 8c; K1-K3
+     and K2b launched in the server; every kernel launched on
      its own path (K1-K3 in the port run, K4a, K4c and K5 in the
      device-seeded run, K4b -- which runs only when K4a blows its step cap
      -- in phase 5's collect, T1 in the ablation tool, K7 in the align
      steps of phase 5b; K8, which no path launches since the steps stage
-     their windows in K1's step entry, is only held against its twin).
+     their windows in K1's step entry, is only held against its twin; the
+     planes entry and K9, off every path in the reference too, in phase
+     5's pass).
 Then a kernels JSON line (each kernel's launches on its path, max abs
-error, ms, plain ms, bound ms and what sets it, and library_ms: null, since
-no single PyTorch call computes any of these recurrences) and, last,
+error, ms, plain ms, bound ms and what sets it, and library_ms: null where
+no single PyTorch call computes the function -- these recurrences -- and
+for K9 the stable argsort and gathers) and, last,
 {"ok": true, "device": {...}}.
 """
 
@@ -124,14 +145,20 @@ KERNEL_INFO = {   # name -> (source, the TPU kernel it replaces)
                     "lariat_tpu/ops/fm_batch.py:366"),
     "fetch_window": ("lariat_tpu_torch/csrc/fetch_window.cu",
                      "lariat_tpu/parallel/align_step.py:156"),
+    "smem_planes": ("lariat_tpu_torch/csrc/smem.cu",
+                    "lariat_tpu/ops/smem_device.py:387"),
+    "compact": ("lariat_tpu_torch/csrc/compact.cu",
+                "lariat_tpu/ops/smem_device.py:391"),
 }
 CLI_KERNELS = ("sw_extend", "sw_global", "traceback", "sw_local")
 SEED_KERNELS = ("smem_twoptr", "smem_strategy1", "sa_walk")
 STEP_KERNELS = ("exact_match", "fetch_window")
 # kernels that no path launches: K8 stays the port of the reference's
 # fetch_window_batch, held against its twin in phase 5b, while the align
-# steps stage their windows in K1's step entry (phase 5b checks 0 launches)
-OFF_PATH = ("fetch_window",)
+# steps stage their windows in K1's step entry (phase 5b checks 0 launches);
+# K4a's planes entry and K9 are off every path in the reference too, and
+# their launches are those of phase 5's planes-then-compaction pass
+OFF_PATH = ("fetch_window", "smem_planes", "compact")
 # the device align step's batch (bench.py's device step detail)
 STEP_B, STEP_L = 8192, 151
 PROFILE_PAIRS = 2000
@@ -842,6 +869,9 @@ def phase_seeding(fasta, reads_path, pk):
                              *_bound(pk, 0, 48 * int(t4c.sum()) + _nbytes(
                                  rd, lens_d, *out4c)))
     res["sa_walk"] = _k5_lookup(fm, fmd, fmd64, g, pk, no_rows, err)
+    planes_res, planes_launches = _planes_k9(pk, fmd, fmd64, runs, L,
+                                             no_rows, err)
+    res.update(planes_res)
     for name, (e, ms, pms, shape, bms, by, *_) in res.items():
         print(f"  {name} {shape}: exact (max abs err {e}); kernel "
               f"{ms:.3f} ms, plain {pms:.3f} ms; bound {bms:.4f} ms "
@@ -850,7 +880,8 @@ def phase_seeding(fasta, reads_path, pk):
           f"longest lane ({r1['transitions_max']} transitions in "
           f"{r1['ms']:.3f} ms) beside its bound")
     res["sw_extend_desc"] = _k1_desc_wave(fm, pk)
-    return res, _fallback_collect(fm, fmd, g, qs[:FALLBACK_READS], opt)
+    return (res, _fallback_collect(fm, fmd, g, qs[:FALLBACK_READS], opt),
+            planes_launches)
 
 
 def _k5_lookup(fm, fmd, fmd64, g, pk, no_rows, err):
@@ -1031,6 +1062,162 @@ def _k1_desc_wave(fm, pk):
           f"gained on h0): exact in int32 and int64, and equal to the tile "
           f"entry on build_qt's tiles; {json.dumps(out)}")
     return out
+
+
+def _planes_k9(pk, fmd, fmd64, runs, L, no_rows, err):
+    """K4a's planes entry and K9 (phase 5), off every path: round 1 of the
+    4,096-read batch at an 8L budget and round 2 (bwd_init) on its reseed
+    lanes at 32L, each in int32 and int64 indices against the planes twin;
+    K9 on those planes in both layouts, at round 1's mid (L + 2) and round
+    2's real mids, and at a cap that overflows, against its twins; K9's
+    round-1 slots against K4a's direct slots where both finished. Returns
+    (name -> result row, the launches of one planes-then-compaction pass
+    over both rounds)."""
+    import numpy as np
+    import torch
+    from lariat_tpu_torch.ops import _build, smem_device as sd
+    min_seed = 19
+    rd, se1, ee1, mi1 = runs["round1"][:4]
+    dev = rd.device
+    rd2, se2, ee2, mi2, md2 = runs["round2"][:5]
+    R = rd.shape[0]
+    md1 = torch.full((R,), L + 2, dtype=torch.int32, device=dev)
+    cases = {"round1": (rd, se1, ee1, mi1, 8 * L, False, md1, sd.CAP1),
+             "round2": (rd2, se2, ee2, mi2, 32 * L, True, md2, sd.CAP2)}
+
+    def planes(f, name):
+        r, se, ee, mi, steps, bwd = cases[name][:6]
+        return sd.min_starts_twoptr_planes(f, r, se, ee, mi, L,
+                                           max_steps=steps, bwd_init=bwd)
+
+    def planes_plain(f, name, touched=None):
+        r, se, ee, mi, steps, bwd = cases[name][:6]
+        return sd.min_starts_twoptr_plain(
+            f, r, se.to(torch.int32), ee.to(torch.int32),
+            mi.to(f.idx_dtype), None, L, sd._budget(steps), bwd, 0, 0,
+            touched, planes=True)
+
+    # the path: planes then the packed compaction, both rounds, int32
+    _build.reset_launches()
+    for name, (_, se, ee, _, _, _, md, cap) in cases.items():
+        b, x0, x1, s, v, done, _ = planes(fmd, name)
+        sd.compact_starts_packed(b, x0, x1, s, v, se, ee, md, done,
+                                 min_seed, cap)
+    torch.cuda.synchronize()
+    drive = {k: _build.launches()[k] for k in ("smem_planes", "compact")}
+    if drive != {"smem_planes": 2, "compact": 2}:
+        raise AssertionError(f"planes pass launches: {drive}")
+
+    res, info, kept = {}, {}, {}
+    touched = no_rows()
+    e_pl = 0
+    for name in cases:
+        for f in (fmd, fmd64):
+            got = planes(f, name)
+            want = planes_plain(f, name, touched if (
+                name == "round1" and f is fmd) else None)
+            e_pl = max(e_pl, err(got[:5] + got[6:], want))
+            if bool(got[5]) != bool(want[5][:, 0].all()):
+                raise AssertionError(f"planes {name}: done flag")
+            kept[name, f.idx_dtype] = got
+        aux = got[6].cpu().numpy().astype(np.int64)
+        info[name] = {"lanes": int(aux.shape[0]), "done": bool(got[5]),
+                      "transitions_max": int(aux[:, 1].max()),
+                      "transitions_sum": int(aux[:, 1].sum()),
+                      "rows_sum": int(aux[:, 2].sum())}
+    # times and bounds of round 1: 48 B a distinct fused row its ranks
+    # read, its inputs and its planes out
+    for f, tag in ((fmd, ""), (fmd64, "_int64")):
+        out = kept["round1", f.idx_dtype]
+        info["round1"]["ms" + tag] = _median_ms(lambda: planes(f, "round1"))
+        info["round1"]["bound" + tag] = _bound(
+            pk, 0, 48 * int(touched.sum()) + _nbytes(rd, se1, ee1, mi1)
+            + _nbytes(*out[:5], out[6]))
+    print(f"  K4a planes entry: exact in int32 and int64 (round 1 {R} "
+          f"lanes at 8L, round 2 {info['round2']['lanes']} lanes at 32L); "
+          f"{json.dumps(info)}")
+    r1 = info["round1"]
+    res["smem_planes"] = (e_pl, r1["ms"],
+                          _median_ms(lambda: planes_plain(fmd, "round1"),
+                                     n=3),
+                          (R, L), *r1["bound"],
+                          {"rows_distinct": int(touched.sum()),
+                           "ms_int64": r1["ms_int64"],
+                           "bound_ms_int64": r1["bound_int64"][0],
+                           "rounds": info})
+
+    # K9 on those planes: both layouts, both rounds' mids, the collect's
+    # caps, then min_seed 0 at a cap one below the longest lane's count
+    e9, k9, ovf = 0, {}, []
+    for (name, dt), (b, x0, x1, s, v, done, _) in kept.items():
+        se, ee, md, cap = (cases[name][i] for i in (1, 2, 6, 7))
+        args = (b, x0, x1, s, v, se, ee, md)
+        for ms_, cp in ((min_seed, cap), (0, None)):
+            if cp is None:
+                most = int(sd.compact_starts_plain(*args, 0, L)[5].max())
+                cp = max(1, most - 1)
+            got = sd.compact_starts(*args, ms_, cp)
+            want = sd.compact_starts_plain(*args, ms_, cp)
+            gpk = sd.compact_starts_packed(*args, done, ms_, cp)
+            wpk = sd.compact_starts_packed_plain(*args, done, ms_, cp)
+            e9 = max(e9, err(got, want), err([gpk], [wpk]))
+            if ms_ == 0:
+                ovf.append(bool(got[6]))
+            else:
+                k9[f"{name}_seeds"] = int(got[5].long().sum())
+    if not any(ovf):
+        raise AssertionError(f"K9: no small cap overflowed: {ovf}")
+    # K9's round-1 slots against K4a's direct slots (8L), lanes done in both
+    b, x0, x1, s, v, done, aux = kept["round1", fmd.idx_dtype]
+    qb, qe, cx0, cx1, cs, counts, _ = sd.compact_starts(
+        b, x0, x1, s, v, se1, ee1, md1, min_seed, sd.CAP1)
+    meta, big, _ = sd.min_starts_twoptr(fmd, rd, se1, ee1, mi1, L,
+                                        max_steps=8 * L, min_seed=min_seed,
+                                        cap=sd.CAP1, mid=md1)
+    C = sd.CAP1
+    both = (meta[:, C + 1] == 1) & (aux[:, 0] == 1)
+    n = counts.clamp(max=C)
+    k = torch.arange(C, device=dev)[None, :] < n[:, None]
+    slots = (qb << 16) | qe
+    same = ((meta[:, C] == n)
+            & ((~k) | ((meta[:, :C] == slots)
+                       & (big[:, :C] == cx0) & (big[:, C:2 * C] == cx1)
+                       & (big[:, 2 * C:] == cs))).all(dim=1))
+    if not bool(same[both].all()):
+        raise AssertionError("K9's round-1 slots differ from K4a's")
+    k9["lanes_checked_against_k4a"] = int(both.sum())
+    # time and bound at round 1 in int32 (and int64): b and valid of every
+    # column, x0, x1, s of the kept columns, the lanes' ranges, the slots
+    for f, tag in ((fmd, ""), (fmd64, "_int64")):
+        b, x0, x1, s, v = kept["round1", f.idx_dtype][:5]
+        args = (b, x0, x1, s, v, se1, ee1, md1)
+        out = sd.compact_starts(*args, min_seed, C)
+        need = (_nbytes(b, v, se1, ee1, md1) + 3 * R * C * x0.element_size()
+                + _nbytes(*out[:6]))
+        k9["ms" + tag] = _median_ms(lambda: sd.compact_starts(
+            *args, min_seed, C))
+        k9["bound" + tag] = _bound(pk, 0, need)
+        if not tag:
+            k9["plain_ms"] = _median_ms(lambda: sd.compact_starts_plain(
+                *args, min_seed, C))
+            # the stable argsort and gathers: one PyTorch route to the same
+            # function (the twin's own), timed as the yardstick
+            k9["library_ms"] = _median_ms(lambda: sd.compact_starts_plain(
+                *args, min_seed, C))
+            k9["packed_ms"] = _median_ms(lambda: sd.compact_starts_packed(
+                *args, done, min_seed, C))
+    print(f"  K9: exact in both layouts, int32 and int64, mids L + 2 and "
+          f"round 2's, caps 32/16 and caps that overflow; "
+          f"{json.dumps(k9)}")
+    res["compact"] = (e9, k9["ms"], k9["plain_ms"], (R, L), *k9["bound"],
+                      {"library_ms": k9["library_ms"],
+                       "packed_ms": k9["packed_ms"],
+                       "ms_int64": k9["ms_int64"],
+                       "bound_ms_int64": k9["bound_int64"][0],
+                       "seeds": {n: k9[f"{n}_seeds"] for n in cases},
+                       "lanes_checked_against_k4a":
+                           k9["lanes_checked_against_k4a"]})
+    return res, drive
 
 
 def _fallback_collect(fm, fmd, g, qs, opt) -> int:
@@ -1563,6 +1750,71 @@ def _port_run(fasta, reads, out, log, env):
     return n, rate, int(m.group(4)), int(m.group(5)), launches
 
 
+def _server_run(fasta, reads, env, logs):
+    """The port's CLI through a resident server on the card: the server
+    starts as a subprocess, builds, uploads and prewarms, and writes its
+    ready file; the CLI primes through it (LARIAT_DEVICE_SOCKET) and never
+    initialises CUDA; then ``stop``, and the server must exit 0 with its
+    kernel launches in its log. Returns _port_run's tuple, the launches
+    being the server's."""
+    from lariat_tpu_torch.parallel.device_server import stop_server
+    sock = os.path.join(SMOKE, "srv.sock")
+    ready = os.path.join(SMOKE, "srv.ready")
+    for f in (sock, ready):
+        if os.path.exists(f):
+            os.remove(f)
+    log_path = os.path.join(logs, "server.log")
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lariat_tpu_torch.parallel.device_server",
+             "-genome", fasta, "-socket", sock, "-ready_file", ready,
+             "-idle_timeout", "600"], cwd=REPO, env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        while not os.path.exists(ready):
+            if proc.poll() is not None or time.time() - t0 > 300:
+                raise RuntimeError(f"the server never became ready "
+                                   f"(exit {proc.poll()})")
+            time.sleep(0.2)
+        ready_s = time.time() - t0
+        stdout, wall = _cli("lariat_tpu_torch.cli", "on", fasta, reads,
+                            os.path.join(SMOKE, "out_port_server"), THREADS,
+                            os.path.join(logs, "port_server.log"),
+                            {**env, "LARIAT_DEVICE_SOCKET": sock})
+        stop_server(sock)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"the server exited {rc}")
+    if f"device priming via server ({sock}" not in stdout:
+        raise AssertionError("the CLI did not prime through the server")
+    if "cuda initialized in the CLI process: False" not in stdout:
+        raise AssertionError("the CLI initialised CUDA beside the server")
+    n, rate = _summary(stdout)
+    m = re.search(r"primed pairs (\d+)\s+host pairs (\d+)", stdout)
+    with open(log_path) as f:
+        slog = f.read()
+    lm = re.search(r"kernel launches: (\{.*\})", slog)
+    em = re.search(r"kernel entry launches: (\{.*\})", slog)
+    pm = re.search(r"prewarm ([\d.]+)s", slog)
+    if not (m and lm and em and pm):
+        raise AssertionError("no priming split, prewarm or launch line")
+    launches = json.loads(lm.group(1))
+    launches["entries"] = json.loads(em.group(1))
+    launches["walks"] = []
+    print(f"  out_port_server: {n} pairs, {rate} pairs/s ({wall:.1f}s wall "
+          f"with index load); server ready after {ready_s:.1f}s (prewarm "
+          f"{pm.group(1)}s of it); primed {m.group(1)}, host {m.group(2)}; "
+          f"the CLI never initialised CUDA")
+    print(f"  kernel launches in the server: "
+          f"{json.dumps({k: v for k, v in launches.items() if k != 'walks'})}")
+    return n, rate, int(m.group(1)), int(m.group(2)), launches
+
+
 def _cli_walks(walks, n_launches):
     """K5's launches in the device-seeded CLI run, one per SA lookup, as
     the CLI logged them: [rows (padded), max_steps, longest walk, walks
@@ -1595,7 +1847,8 @@ def main(argv=None) -> int:
     with Phase("data"):
         fasta, reads = phase_data(SCALE, BARCODES, PAIRS_PER_BC)
     with Phase("seeding kernels vs plain"):
-        sres, exh_launches = phase_seeding(fasta, reads, pk)
+        sres, exh_launches, planes_launches = phase_seeding(fasta, reads,
+                                                            pk)
     kres.update(sres)
     with Phase("align step kernels vs plain"):
         ares, step_entry, step_launches = phase_align_step(fasta, pk,
@@ -1614,24 +1867,43 @@ def main(argv=None) -> int:
     # each port run is a subprocess whose CLI resets its launch counts
     # before its main loop and prints them after
     runs = {}
+    env = {k: v for k, v in env.items() if not k.startswith("LARIAT_PRIME")
+           and k not in ("LARIAT_DEVICE_SOCKET",
+                         "LARIAT_DEVICE_SERVER_CPU_OK")}
+    # the all-primed runs: the router's own knobs leave it no reason to
+    # host-route (a thread for every batch the run can make, batches being
+    # 512 pairs or more but the last; a tail grace past the run; no
+    # dormancy)
+    knobs = {"LARIAT_PRIME_THREADS":
+             str(-(-BARCODES * PAIRS_PER_BC // 512)),
+             "LARIAT_PRIME_TAIL_GRACE": "600", "LARIAT_PRIME_MIN_FRAC": "0"}
+    print(f"  router knobs of the all-primed port runs: {json.dumps(knobs)}")
     with Phase("port run"):
         runs["out_port"] = _port_run(fasta, reads, "out_port",
                                      os.path.join(args.logs, "port.log"),
-                                     env)
+                                     {**env, **knobs})
     with Phase("port run, device seeding"):
         runs["out_port_seed"] = _port_run(
             fasta, reads, "out_port_seed",
             os.path.join(args.logs, "port_seed.log"),
-            {**env, "LARIAT_DEVICE_SEED": "1"})
-        print(f"  pairs/s: host-seeded port {runs['out_port'][1]}, "
-              f"device-seeded port {runs['out_port_seed'][1]}, host-native "
-              f"{rate_host}")
+            {**env, **knobs, "LARIAT_DEVICE_SEED": "1"})
+    with Phase("port run, router defaults"):
+        runs["out_port_default"] = _port_run(
+            fasta, reads, "out_port_default",
+            os.path.join(args.logs, "port_default.log"), env)
+    with Phase("port run through the resident server"):
+        runs["out_port_server"] = _server_run(fasta, reads, env, args.logs)
+    print(f"  pairs/s: host-seeded port {runs['out_port'][1]}, "
+          f"device-seeded port {runs['out_port_seed'][1]}, router defaults "
+          f"{runs['out_port_default'][1]}, through the server "
+          f"{runs['out_port_server'][1]}, host-native {rate_host}")
     with Phase("tools"):
         launches = {k: runs["out_port"][4].get(k, 0) for k in CLI_KERNELS}
         launches.update({k: runs["out_port_seed"][4].get(k, 0)
                          for k in SEED_KERNELS})
         launches["smem_exhaustive"] = exh_launches
         launches.update({k: step_launches[k] for k in STEP_KERNELS})
+        launches.update(planes_launches)
         launches["extend_ablate"] = phase_tools(fasta, reads, env, args.logs)
     with Phase("checks"):
         want_pairs = BARCODES * PAIRS_PER_BC
@@ -1653,12 +1925,24 @@ def main(argv=None) -> int:
                 n_rec += n
             print(f"  {out}: {len(names)} BAMs, {n_rec} records "
                   f"byte-identical to host-native")
-            if not (n_host == n_port == primed == want_pairs
-                    and host_pairs == 0):
+            if out in ("out_port", "out_port_seed"):
+                if not (n_host == n_port == primed == want_pairs
+                        and host_pairs == 0):
+                    raise AssertionError(
+                        f"{out} pairs: host {n_host}, port {n_port}, primed "
+                        f"{primed}, host-routed {host_pairs}; want "
+                        f"{want_pairs} all primed")
+            elif not (n_host == n_port == primed + host_pairs == want_pairs
+                      and primed > 0):
                 raise AssertionError(
                     f"{out} pairs: host {n_host}, port {n_port}, primed "
-                    f"{primed}, host-routed {host_pairs}; want {want_pairs} "
-                    f"all primed")
+                    f"{primed}, host-routed {host_pairs}; want {want_pairs}, "
+                    f"some primed")
+            print(f"  {out}: primed {primed}, host-routed {host_pairs}")
+        srv = runs["out_port_server"][4]
+        idle = [k for k in CLI_KERNELS if srv.get(k, 0) <= 0]
+        if idle:
+            raise AssertionError(f"the server launched no {idle}")
         idle = [k for k in KERNEL_INFO
                 if k not in OFF_PATH and launches.get(k, 0) <= 0]
         if idle:

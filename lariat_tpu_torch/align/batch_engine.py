@@ -11,6 +11,16 @@ sequential control flow between waves exactly as in the reference:
   mate rescue     ``local_align_device``     two-pass K3
   reg2aln         ``_r2s_dispatch``/``_feed`` K2, then K2b's backtrack
 
+The engine is the reference's drop-in: ``prime_regions(recs)`` without a
+score delta returns the pairs' (regs1, regs2) before rescue,
+``prime_pairs`` fills ``_pair_cache`` for ``rfa.candidates.get_chains``,
+and ``align1`` runs one read through ``align_batch``. Setting
+``abort_prime`` makes a priming pass raise ``PrimeAborted`` at its next
+wave boundary (the seeding call, each seed-extension wave, the rescue wave,
+each reg2aln wave); its sessions close without finishing. The CLI's router
+sets it at the end of its input, after a grace, and host-routes the
+batches whose passes it abandons.
+
 Seeding follows the reference's policy: ``LARIAT_DEVICE_SEED=1`` runs the
 3-round SMEM seeding and its SA walks on the device (``_device_seed``,
 kernels K4a-K4c and K5), ``=0`` keeps the host C++ seeder, and unset turns
@@ -38,6 +48,12 @@ from ..parallel import align_step
 from . import ksw, native_engine
 from .engine import AlignmentEngine, SingleReadAlignment, encode_read
 from .extension import AlnReg
+
+
+class PrimeAborted(Exception):
+    """A priming pass stopped between waves because ``abort_prime`` was
+    set: the caller discards the batch's partial results and host-routes
+    it."""
 
 
 class TorchBatchAlignmentEngine(AlignmentEngine):
@@ -76,6 +92,13 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         self._pac_res = None
         self._seed_lock = threading.Lock()
         self._seed_state = None     # (DeviceFMIndex, DeviceGenome)
+        # set by the CLI's router (or a server's abort request) to make the
+        # passes in flight stop at their next wave boundary
+        self.abort_prime = False
+
+    def _check_abort(self) -> None:
+        if self.abort_prime:
+            raise PrimeAborted()
 
     def _wave_done(self, seconds: float, n: int = 1) -> None:
         with self._stats_lock:
@@ -127,6 +150,7 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
 
         LARIAT_DEVICE_SEED=1 forces it on, =0 off; unset, it is on for a
         CUDA device at l_pac >= DEVICE_SEED_AUTO_MIN_LPAC."""
+        self._check_abort()
         if not (nonempty and self.device_seeding()):
             return None
         fmd, dg = self._seed_index()
@@ -175,6 +199,7 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
             reads = resident.put_reads(qs, self.device).codes
             pac_words, l_pac = self._pac_resident()
             while sess.pending():
+                self._check_abort()
                 bonus = opt.pen_clip5 if sess.phase() == 0 else opt.pen_clip3
                 (rid, qstart, qdir, qlen, tstart, tdir, tlen, h0, w,
                  Lq, Lt) = sess.wave_descs()
@@ -196,6 +221,7 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
     def local_align_device(self, tasks):
         """Mate-rescue local SW for a whole batch as one two-pass K3 wave;
         bit-identical to per-task ksw.local_align."""
+        self._check_abort()
         opt = self.opt
         t_dev = time.time()
         out = ksw.local_align_batch(
@@ -205,19 +231,30 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         self._wave_done(time.time() - t_dev)
         return out
 
-    def prime_regions(self, recs, score_delta: int) -> List[tuple]:
-        """Candidate regions, mate rescue and the final global SW of many
-        read pairs, every DP on the device. Returns per pair
-        (regs1, regs2, True, sras1, sras2): workers then interpret and walk
-        without touching any DP."""
+    def _pairs_regions(self, recs):
+        """(regs1, regs2) of every pair, from one ``align_batch`` over both
+        mates of every record."""
         seqs = []
         for rec in recs:
             seqs.append(rec.read1)
             seqs.append(rec.read2)
         all_regs = self.align_batch(seqs)
-        per_pair = [(all_regs[2 * i] if len(rec.read1) else [],
-                     all_regs[2 * i + 1] if len(rec.read2) else [])
-                    for i, rec in enumerate(recs)]
+        return [(all_regs[2 * i] if len(rec.read1) else [],
+                 all_regs[2 * i + 1] if len(rec.read2) else [])
+                for i, rec in enumerate(recs)]
+
+    def prime_regions(self, recs, score_delta: Optional[int] = None
+                      ) -> List[tuple]:
+        """Candidate regions of many read pairs on the device.
+
+        With ``score_delta``, mate rescue and the final global SW run here
+        too and each pair gets (regs1, regs2, True, sras1, sras2): workers
+        then interpret and walk without touching any DP. Without it, each
+        pair gets (regs1, regs2) before rescue, and workers rescue and
+        realign on the host."""
+        per_pair = self._pairs_regions(recs)
+        if score_delta is None:
+            return per_pair
         pairs = [(encode_read(rec.read1), encode_read(rec.read2), r1, r2)
                  for rec, (r1, r2) in zip(recs, per_pair)]
         self.rescue_pairs_batch(pairs, score_delta,
@@ -241,6 +278,33 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
             off += n1 + n2
         return out
 
+    def prime_pairs(self, recs, score_delta: int) -> None:
+        """Candidate regions and mate rescue of many pairs on the device;
+        caches each record's finished pair (keyed by ``id(rec)``) in
+        ``_pair_cache``, which ``rfa.candidates.get_chains`` consumes."""
+        per_pair = self._pairs_regions(recs)
+        pairs = [(encode_read(rec.read1), encode_read(rec.read2), r1, r2)
+                 for rec, (r1, r2) in zip(recs, per_pair)]
+        self.rescue_pairs_batch(pairs, score_delta,
+                                local_align_fn=self.local_align_device)
+        cache = getattr(self, "_pair_cache", None)
+        if cache is None:
+            cache = self._pair_cache = {}
+        for rec, (q1, q2, regs1, regs2) in zip(recs, pairs):
+            cache[id(rec)] = self.finish_pair(q1, q2, regs1, regs2,
+                                              score_delta, skip_rescue=True)
+
+    def align1(self, q: np.ndarray, mems=None, rbegs=None) -> List[AlnReg]:
+        """One read's candidate regions through ``align_batch``; with its
+        seeds given (``mems`` and ``rbegs``), the host path of
+        ``AlignmentEngine.align1``, which takes them."""
+        if mems is not None and rbegs is not None:
+            return super().align1(q, mems, rbegs)
+        if len(q) == 0:
+            return []
+        return self.align_batch([bytes(b"ACGTN"[min(int(c), 4)]
+                                       for c in q)])[0]
+
     # -------------------------------------------------- batched mem_reg2aln
 
     def reg2aln_batch(self, tasks) -> List[SingleReadAlignment]:
@@ -258,11 +322,20 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
                         if st["sess"] is not None and st["sess"].pending()]
                 if not live:
                     break
+                self._check_abort()
                 t_dev = time.time()
                 handles = [(st, self._r2s_dispatch(st)) for st in live]
                 for st, h in handles:
                     self._r2s_feed(st, h)
                 self._wave_done(time.time() - t_dev, len(handles))
+        except PrimeAborted:
+            # close without finish(): the sessions are mid-ladder and the
+            # caller discards the batch
+            for st in states:
+                if st["sess"] is not None:
+                    st["sess"].close()
+                    st["sess"] = None
+            raise
         finally:
             metas = []
             for st in states:

@@ -4,14 +4,23 @@
 Usage: python -m lariat_tpu_torch.cli -reads in.fastq.gz -genome ref.fa
        -output dir -threads 8 -use_device on
 
-With ``-threads > 1`` the worker pool forks first; then, unless
-``-use_device off``, the main process builds the PyTorch engine (on CUDA
-by default: it raises without CUDA unless ``LARIAT_TORCH_DEVICE=cpu`` asks
-for the CPU) and every barcode batch is primed on the device by a priming
-thread (``LARIAT_PRIME_THREADS``, default 2): seed extension, mate rescue
-and the final global alignment. Workers run RFA and BAM emission from the
-primed regions and never touch CUDA. ``-use_device off`` runs the
-host-native workers alone.
+With ``-threads > 1`` the worker pool forks first. Then, unless
+``-use_device off``, priming starts: through a resident device server when
+one answers on ``LARIAT_DEVICE_SOCKET`` (or the genome's default socket,
+``parallel/device_server.py``; a server on the CPU only with
+``LARIAT_DEVICE_SERVER_CPU_OK=1``), else through a PyTorch engine of this
+process (on CUDA by default: it raises without CUDA unless
+``LARIAT_TORCH_DEVICE=cpu`` asks for the CPU). The hybrid router
+(``_primed_iter``, the reference's) sends each batch of barcodes to a
+priming thread (``LARIAT_PRIME_THREADS``, default 2) when one is free, and
+straight to the host workers when every thread is busy, when the device
+went dormant (``LARIAT_PRIME_MIN_FRAC``), or at the end of the input after
+a grace (``LARIAT_PRIME_TAIL_GRACE``). A primed batch carries seed
+extension, mate rescue and the final global alignment; workers run RFA and
+BAM emission and never touch CUDA. Every host-routed pair is counted in the
+summary. A priming error ends the run nonzero: only a deliberate abort
+(``PrimeAborted``) host-routes. ``-use_device off`` runs the host-native
+workers alone.
 """
 
 from __future__ import annotations
@@ -24,8 +33,12 @@ import sys
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as wait_futures
+
+import torch
 
 from . import __version__
+from .align.batch_engine import PrimeAborted, TorchBatchAlignmentEngine
 from .align.engine import AlignmentEngine
 from .config import RFAConfig
 from .device import describe
@@ -33,6 +46,7 @@ from .index import fmindex
 from .io.bamwriter import LariatBAMs
 from .io.fastq import FastQReader
 from .ops import _build
+from .parallel.device_server import DeviceServerClient
 from .parallel.host_pipeline import ParallelRunner, write_packed
 from .rfa.pipeline import (RFAStats, load_centromeres, process_barcode,
                            worth_running_rfa)
@@ -108,45 +122,132 @@ def load_reference(genome: str, index_prefix: str = ""):
     return fm
 
 
+def _device_engine(genome: str, fm):
+    """The priming engine: a resident server's client when one answers
+    (``LARIAT_DEVICE_SOCKET``, else the genome's default socket; a server
+    on the CPU only with ``LARIAT_DEVICE_SERVER_CPU_OK=1``), else a
+    ``TorchBatchAlignmentEngine`` of this process."""
+    srv = DeviceServerClient.connect(
+        genome, path=os.environ.get("LARIAT_DEVICE_SOCKET") or None)
+    if srv is not None and (
+            srv.device_type != "cpu"
+            or os.environ.get("LARIAT_DEVICE_SERVER_CPU_OK") == "1"):
+        print(f"device priming via server ({srv.path}, device "
+              f"{srv.device_name})")
+        return srv
+    eng = TorchBatchAlignmentEngine(fm)
+    print(f"device priming on {describe(eng.device)}")
+    return eng
+
+
 def main(argv=None) -> int:
     rc, _ = run(argv)
     return rc
 
 
-def _batch_target(pairs_s) -> int:
-    """Prime batch size: ~2 s of device work at the measured rate (1024
-    pairs until the first batch lands), clamped to [512, 16384]."""
+def _batch_target(pairs_s, fixed_batch=None) -> int:
+    """Prime batch size: the server's fixed batch when priming goes
+    through one; else ~2 s of device work at the measured rate (1024 pairs
+    until the first batch lands), clamped to [512, 16384]."""
+    if fixed_batch:
+        return fixed_batch
     if pairs_s is None:
         return 1024
     return max(512, min(16384, int(pairs_s * 2.0)))
 
 
-def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats):
-    """Tagged work feed (seq, work): every barcode batch is primed on the
-    device by one of ``n_prime`` threads; results come back possibly out of
-    order and the caller reorders by seq. A failed priming pass ends the
-    feed and is re-raised by the caller (the pool's feeder thread must not
-    see the exception)."""
+def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
+                 t0=None):
+    """Tagged work feed (seq, work), possibly out of reader order (the
+    caller reorders by seq): the reference's hybrid router.
+
+    Barcode groups batch up to ``_batch_target`` pairs. A batch goes to one
+    of ``n_prime`` priming threads when one is free, and straight to the
+    host workers (who run the native DP themselves) when all are busy or
+    the device is dormant (``dormant``). Through a server
+    (``device_engine.path``) batches are of the fixed size
+    ``LARIAT_PRIME_BATCH`` (default 1024): a batch that would overshoot it
+    is sent as it stands when it holds more than half of it, and
+    host-routed otherwise. At the end of the input the remainder is primed
+    only when a thread is free, queued batches are cancelled and
+    host-routed, and batches still priming get a grace
+    (``LARIAT_PRIME_TAIL_GRACE`` seconds, else 1.5 batch times at the
+    measured rate, at least 2 s, at most 30 s or 15% of the elapsed run);
+    then ``device_engine.abort_prime`` is set, they are host-routed and
+    their results, whenever they land, are discarded. Every item is yielded
+    exactly once; ``feed_stats`` counts primed and host-routed pairs.
+
+    A pass that raises ``PrimeAborted`` host-routes its batch. Any other
+    error of a priming pass ends the feed and is left in
+    ``feed_stats["error"]``, which the caller re-raises (the pool's feeder
+    thread must not see it): a failure never becomes host routing."""
     seq = itertools.count()
+    t0 = time.time() if t0 is None else t0
     rate = {"pairs_s": None}
+    fixed = (int(os.environ.get("LARIAT_PRIME_BATCH", "1024"))
+             if getattr(device_engine, "path", None) else None)
 
     def prime(tagged):
-        t0 = time.time()
-        primed = _prime_group(device_engine, [it for _, it in tagged], config)
+        t = time.time()
+        try:
+            primed = _prime_group(device_engine, [it for _, it in tagged],
+                                  config)
+        except PrimeAborted:
+            return None
         n = sum(len(it[0]) for _, it in tagged)
-        r = n / max(time.time() - t0, 1e-3)
+        r = n / max(time.time() - t, 1e-3)
         prev = rate["pairs_s"]
         rate["pairs_s"] = r if prev is None else 0.5 * prev + 0.5 * r
         return [(s, p) for (s, _), p in zip(tagged, primed)]
 
-    futs = deque()
+    futs = deque()       # (future, tagged batch), in submission order
+    abandoned = []       # futures left running past the tail grace
+    dorm = {"first_submit": None, "off": False}
 
-    def drain(keep: int):
-        """Yield primed batches in submission order: every finished one,
-        and the oldest (waiting for it) while more than ``keep`` are in
-        flight -- the reader never runs more than a few batches ahead."""
-        while futs and (futs[0].done() or len(futs) > keep):
-            for t in futs.popleft().result():
+    def busy() -> int:
+        return sum(1 for f, _ in futs if not f.done())
+
+    def dormant() -> bool:
+        """Give up on priming for the rest of the run when the device
+        cannot pull its weight: it must add at least LARIAT_PRIME_MIN_FRAC
+        (default 0.15) of the host pool's concurrent rate, and complete a
+        batch within 45 s of the first submission."""
+        if dorm["off"]:
+            return True
+        r = rate["pairs_s"]
+        if r is None:
+            fs = dorm["first_submit"]
+            if fs is not None and time.time() - fs > 45.0:
+                dorm["off"] = True
+        else:
+            host_rate = feed_stats["host_pairs"] / max(time.time() - t0,
+                                                       1e-3)
+            frac = float(os.environ.get("LARIAT_PRIME_MIN_FRAC", "0.15"))
+            if r < frac * host_rate:
+                dorm["off"] = True
+        if dorm["off"]:
+            print(f"device priming dormant (measured {r or 0:.0f} "
+                  f"pairs/s)", flush=True)
+        return dorm["off"]
+
+    def host(tagged):
+        for s, it in tagged:
+            feed_stats["host_pairs"] += len(it[0])
+            yield (s, it)
+
+    def submit(tagged):
+        if dorm["first_submit"] is None:
+            dorm["first_submit"] = time.time()
+        futs.append((ex.submit(prime, tagged), tagged))
+
+    def drain(block: bool):
+        while futs and (block or futs[0][0].done()):
+            f, tagged = futs.popleft()
+            res = f.result()
+            if res is None:                 # the pass was aborted
+                yield from host(tagged)
+                continue
+            for t in res:
                 feed_stats["primed_pairs"] += len(t[1][0])
                 yield t
 
@@ -156,15 +257,74 @@ def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats):
         buf = []
         pending = 0
         for item in work_iter:
-            buf.append((next(seq), item))
-            pending += len(item[0])
-            if pending >= _batch_target(rate["pairs_s"]):
-                futs.append(ex.submit(prime, buf))
+            t = (next(seq), item)
+            npairs = len(item[0])
+            if fixed and pending and pending + npairs > fixed:
+                # never overshoot the server's batch: send what is there
+                # when it is over half of it, else host-route it
+                if (pending <= fixed // 2 or dormant()
+                        or busy() >= n_prime):
+                    yield from host(buf)
+                else:
+                    submit(buf)
                 buf, pending = [], 0
-                yield from drain(keep=2 * n_prime)
+                yield from drain(block=False)
+            buf.append(t)
+            pending += npairs
+            if pending >= _batch_target(rate["pairs_s"], fixed):
+                if (fixed and pending > fixed) or dormant() \
+                        or busy() >= n_prime:
+                    # one oversized barcode group, or priming saturated or
+                    # dormant: host route now
+                    yield from host(buf)
+                else:
+                    submit(buf)
+                buf, pending = [], 0
+                yield from drain(block=False)
+        # end of input: the remainder only to a free thread (and, with a
+        # server, only past half its batch); queued batches host-route
         if buf:
-            futs.append(ex.submit(prime, buf))
-        yield from drain(keep=0)
+            if (fixed and pending <= fixed // 2) or busy() >= n_prime:
+                yield from host(buf)
+            else:
+                submit(buf)
+        # a batch just handed to a free thread gets a moment to start: only
+        # batches still queued behind busy threads are cancelled (the
+        # reference cancels whatever its threads have not picked up yet,
+        # the remainder submitted a line above included)
+        if any(not (f.running() or f.done()) for f, _ in futs):
+            time.sleep(0.05)
+        keep = deque()
+        while futs:
+            f, tagged = futs.popleft()
+            if f.cancel():
+                yield from host(tagged)
+            else:
+                keep.append((f, tagged))
+        futs.extend(keep)
+        if futs:
+            r = rate["pairs_s"]
+            auto = (1.5 * _batch_target(r, fixed) / r) if r else 5.0
+            grace = float(os.environ.get("LARIAT_PRIME_TAIL_GRACE", "0")) \
+                or min(max(2.0, auto), max(2.0, 0.15 * (time.time() - t0)),
+                       30.0)
+            wait_futures([f for f, _ in futs], timeout=grace)
+            if any(not f.done() for f, _ in futs):
+                device_engine.abort_prime = True
+                keep = deque()
+                while futs:
+                    f, tagged = futs.popleft()
+                    if f.done():
+                        keep.append((f, tagged))
+                    else:
+                        abandoned.append(f)
+                        yield from host(tagged)
+                futs.extend(keep)
+        yield from drain(block=True)
+        # an abandoned pass ends at its next wave boundary; its result is
+        # discarded, but an error other than the abort still fails the run
+        for f in abandoned:
+            f.result()
     except Exception as e:  # noqa: BLE001 -- re-raised by run()
         feed_stats["error"] = e
     finally:
@@ -228,9 +388,7 @@ def run(argv=None):
                                 position_chunk_size=args.position_chunk_size)
         try:
             if args.use_device != "off":
-                from .align.batch_engine import TorchBatchAlignmentEngine
-                device_engine = TorchBatchAlignmentEngine(fm)
-                print(f"device priming on {describe(device_engine.device)}")
+                device_engine = _device_engine(args.genome, fm)
             if device_engine is None:
                 feed = ((s, it) for s, it in enumerate(work_iter()))
             else:
@@ -238,7 +396,7 @@ def run(argv=None):
                 n_prime = max(1, int(os.environ.get("LARIAT_PRIME_THREADS",
                                                     "2")))
                 feed = _primed_iter(work_iter(), device_engine, config,
-                                    n_prime, feed_stats)
+                                    n_prime, feed_stats, t0=t0)
             reorder = {}
             next_seq = 0
             for seq_i, packed in runner.imap_seq(feed):
@@ -285,10 +443,19 @@ def run(argv=None):
               f"busy fraction {min(ws['wall'] / max(dt, 1e-9), 1.0):.2f}  "
               f"primed pairs {feed_stats['primed_pairs']}  "
               f"host pairs {feed_stats['host_pairs']}")
-        print(f"kernel launches: {json.dumps(_build.launches())}")
-        print(f"kernel entry launches: "
-              f"{json.dumps(_build.entry_launches())}")
-        print(f"sa walks: {json.dumps(device_engine.sa_walks())}")
+        if getattr(device_engine, "path", None):
+            print(f"priming ran in the server {device_engine.path} on "
+                  f"{device_engine.device_name} (its kernel launches are in "
+                  f"its log)")
+        else:
+            print(f"priming ran in this process on "
+                  f"{describe(device_engine.device)}")
+            print(f"kernel launches: {json.dumps(_build.launches())}")
+            print(f"kernel entry launches: "
+                  f"{json.dumps(_build.entry_launches())}")
+            print(f"sa walks: {json.dumps(device_engine.sa_walks())}")
+        print(f"cuda initialized in the CLI process: "
+              f"{torch.cuda.is_initialized()}")
     print(f"Processed {n_pairs} read pairs across {n_bcs} barcodes "
           f"in {dt:.1f}s ({n_pairs / max(dt, 1e-9):.1f} pairs/s)")
     if stats.picks:

@@ -4,6 +4,9 @@
 // Replaces the XLA loops of lariat_tpu/ops/smem_device.py:
 //   K4a `min_starts_twoptr` (emit_direct=True): the two-pointer minimal-
 //       start machine; plateau-end seeds go straight into per-lane slots;
+//       its planes entry (emit_direct=False) runs the same machine without
+//       the midpoint pruning and writes b(e), x0, x1, s and valid as (R, L)
+//       planes, which K9 (compact.cu) turns into slots;
 //   K4b `min_starts_kernel`: the exhaustive per-(read, e) backward
 //       extension, the fallback on a blown step cap or a slot overflow;
 //   K4c `strategy1_kernel` + `_pack_r3`: the round-3 forward-greedy walker.
@@ -46,14 +49,28 @@ namespace {
 using lariat::FMView;
 
 // ---- K4a ------------------------------------------------------------------
-// meta (R, cap+3) int32 [qb<<16|qe slots | min(n, cap) | lane_done | flags]
-// and big (R, 3*cap) [x0 | x1 | s] arrive zeroed; the wrapper fills the
-// flags column from aux (R, 3) = [n (uncapped), transitions run, fused rows
-// fetched].
+// Slots (kPlanes false): meta (R, cap+3) int32 [qb<<16|qe slots | min(n,
+// cap) | lane_done | flags] and big (R, 3*cap) [x0 | x1 | s] arrive zeroed;
+// the wrapper fills the flags column from aux (R, 3) = [n (uncapped),
+// transitions run, fused rows fetched].
+// Planes (kPlanes true, the reference's emit_direct=False): no midpoint
+// pruning (mid, min_seed, cap, meta and big unused); every transition that
+// settles a column e writes (b, x0, x1, s, valid) at column e - 1 of the
+// zeroed (R, L) planes, and aux gets [lane done, transitions run, fused
+// rows fetched].
 constexpr int kTwoptrG = 8;         // threads a lane
 constexpr int kTwoptrThreads = 32;  // a block: one warp, 4 lanes
 
-template <typename IDX, int G>
+template <typename IDX>
+struct Planes {
+  int32_t* b;
+  IDX* x0;
+  IDX* x1;
+  IDX* s;
+  bool* valid;
+};
+
+template <typename IDX, int G, bool kPlanes>
 __global__ void __launch_bounds__(kTwoptrThreads) twoptr_kernel(
     const uint8_t* __restrict__ reads, const int32_t* __restrict__ start_v,
     const int32_t* __restrict__ end_v, const IDX* __restrict__ min_intv_v,
@@ -61,7 +78,7 @@ __global__ void __launch_bounds__(kTwoptrThreads) twoptr_kernel(
     const IDX* __restrict__ L2, long long primary, long long seq_len, int R,
     int L, int budget, int bwd_init, int min_seed, int cap,
     int32_t* __restrict__ meta, IDX* __restrict__ big,
-    int32_t* __restrict__ aux) {
+    int32_t* __restrict__ aux, Planes<IDX> pl) {
   extern __shared__ __align__(16) uint8_t qs[];
   constexpr int kLanes = kTwoptrThreads / G;  // lanes a block
   const int lane0 = blockIdx.x * kLanes;
@@ -76,7 +93,8 @@ __global__ void __launch_bounds__(kTwoptrThreads) twoptr_kernel(
   const unsigned gmask = ((1u << G) - 1) << ((threadIdx.x & 31) & ~(G - 1));
   const FMView<IDX> f = lariat::fm_view(fused, L2, primary, seq_len);
   const uint8_t* q = qs + (threadIdx.x / G) * L;
-  const int start_e = start_v[lane], end_e = end_v[lane], mid = mid_v[lane];
+  const int start_e = start_v[lane], end_e = end_v[lane];
+  const int mid = kPlanes ? 0 : mid_v[lane];
   const IDX min_intv = lariat::at_least_one(min_intv_v[lane]);
   // state: [b, e) with interval (x0, x1, s); in BWD, the scratch interval
   // (bx0, bx1, bs) of [p, etgt)
@@ -98,8 +116,17 @@ __global__ void __launch_bounds__(kTwoptrThreads) twoptr_kernel(
     bwd = false;
     p = etgt = 0;
   }
-  int32_t* slots = meta + static_cast<size_t>(lane) * (cap + 3);
-  IDX* bl = big + static_cast<size_t>(lane) * 3 * cap;
+  int32_t* slots =
+      kPlanes ? nullptr : meta + static_cast<size_t>(lane) * (cap + 3);
+  IDX* bl = kPlanes ? nullptr : big + static_cast<size_t>(lane) * 3 * cap;
+  const size_t prow = static_cast<size_t>(lane) * L;  // the lane's plane row
+  // the planes' value at a column an N leaves invalid: the reference ranks
+  // every lane, so a lane with no extension to run writes the forward
+  // extension of (1, 1, 0) by code 3 (an N, clamped) there
+  IDX dn0 = 0, dn1 = 0, dns = 0;
+  if constexpr (kPlanes)
+    lariat::extend_dir_group<IDX, G>(f, true, IDX(1), IDX(1), IDX(0), 3,
+                                     false, g, gmask, dn0, dn1, dns);
   int n = 0, used = 0, rows = 0;
   while (used < budget) {
     const bool fwd_live = !bwd && e + 1 <= end_e;
@@ -143,13 +170,27 @@ __global__ void __launch_bounds__(kTwoptrThreads) twoptr_kernel(
     const IDX n_bx0 = enter_bwd ? sc0 : (bwd_acc ? nx0 : bx0);
     const IDX n_bx1 = enter_bwd ? sc1 : (bwd_acc ? nx1 : bx1);
     const IDX n_bs = enter_bwd ? scs : (bwd_acc ? ns : bs);
+    if constexpr (kPlanes) {
+      // column e - 1 of the e this transition settles: e + 1 forward, etgt
+      // on a backward exit; an N leaves it invalid
+      const int col = (bwd_exit ? etgt : e + 1) - 1;
+      if ((fwd_emit || bwd_exit) && g == 0 && col >= 0 && col < L) {
+        pl.b[prow + col] = bwd_exit ? p : b;
+        pl.x0[prow + col] =
+            bwd_exit ? bx0 : (empty ? sc0 : (need ? nx0 : dn0));
+        pl.x1[prow + col] =
+            bwd_exit ? bx1 : (empty ? sc1 : (need ? nx1 : dn1));
+        pl.s[prow + col] = bwd_exit ? bs : (empty ? scs : (need ? ns : dns));
+        pl.valid[prow + col] = !(fwd_live && nf);
+      }
+    }
     // midpoint pruning: a FWD lane whose b passed mid never emits again
-    if (!n_bwd && n_b > mid) n_e = end_e + 1;
+    if (!kPlanes && !n_bwd && n_b > mid) n_e = end_e + 1;
     // a plateau ends when FWD fails, an N breaks it, or the lane reaches
     // end_e: its seed is [b, e), or the new state's at end_e
     const bool em1 = (enter_bwd || (fwd_live && nf)) && b < e;
     const bool em2 = (fwd_emit || bwd_exit) && n_e == end_e && n_b < n_e;
-    if (em1 || em2) {
+    if (!kPlanes && (em1 || em2)) {
       const int sqb = em2 ? n_b : b, sqe = em2 ? n_e : e;
       if (sqe - sqb >= min_seed && sqb <= mid && sqe > start_e) {
         if (n < cap && g == 0) {
@@ -166,9 +207,13 @@ __global__ void __launch_bounds__(kTwoptrThreads) twoptr_kernel(
   }
   if (g != 0) return;
   const bool live = bwd ? etgt <= end_e : e + 1 <= end_e;
-  slots[cap] = min(n, cap);
-  slots[cap + 1] = live ? 0 : 1;
-  aux[3 * lane] = n;
+  if constexpr (kPlanes) {
+    aux[3 * lane] = live ? 0 : 1;
+  } else {
+    slots[cap] = min(n, cap);
+    slots[cap + 1] = live ? 0 : 1;
+    aux[3 * lane] = n;
+  }
   aux[3 * lane + 1] = used;
   aux[3 * lane + 2] = rows;
 }
@@ -319,23 +364,24 @@ cudaError_t allow_smem(K kernel, int smem) {
              : cudaSuccess;
 }
 
-template <typename IDX>
+template <typename IDX, bool kPlanes>
 int launch_twoptr(const uint8_t* reads, const int32_t* start_e,
                   const int32_t* end_e, const void* min_intv,
                   const int32_t* mid, const int32_t* fused, const void* L2,
                   long long primary, long long seq_len, int R, int L,
                   int budget, int bwd_init, int min_seed, int cap,
-                  int32_t* meta, void* big, int32_t* aux,
+                  int32_t* meta, void* big, int32_t* aux, Planes<IDX> pl,
                   cudaStream_t st) {
   constexpr int kLanes = kTwoptrThreads / kTwoptrG;
   const int smem = kLanes * L;  // the block's reads
-  const cudaError_t err = allow_smem(twoptr_kernel<IDX, kTwoptrG>, smem);
+  const cudaError_t err =
+      allow_smem(twoptr_kernel<IDX, kTwoptrG, kPlanes>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  twoptr_kernel<IDX, kTwoptrG>
+  twoptr_kernel<IDX, kTwoptrG, kPlanes>
       <<<(R + kLanes - 1) / kLanes, kTwoptrThreads, smem, st>>>(
       reads, start_e, end_e, static_cast<const IDX*>(min_intv), mid, fused,
       static_cast<const IDX*>(L2), primary, seq_len, R, L, budget, bwd_init,
-      min_seed, cap, meta, static_cast<IDX*>(big), aux);
+      min_seed, cap, meta, static_cast<IDX*>(big), aux, pl);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -370,13 +416,40 @@ extern "C" int lariat_smem_twoptr(
   if (R <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (idx64)
-    return launch_twoptr<int64_t>(reads, start_e, end_e, min_intv, mid,
-                                  fused, L2, primary, seq_len, R, L, budget,
-                                  bwd_init, min_seed, cap, meta, big, aux,
-                                  st);
-  return launch_twoptr<int32_t>(reads, start_e, end_e, min_intv, mid, fused,
-                                L2, primary, seq_len, R, L, budget, bwd_init,
-                                min_seed, cap, meta, big, aux, st);
+    return launch_twoptr<int64_t, false>(
+        reads, start_e, end_e, min_intv, mid, fused, L2, primary, seq_len, R,
+        L, budget, bwd_init, min_seed, cap, meta, big, aux, {}, st);
+  return launch_twoptr<int32_t, false>(
+      reads, start_e, end_e, min_intv, mid, fused, L2, primary, seq_len, R,
+      L, budget, bwd_init, min_seed, cap, meta, big, aux, {}, st);
+}
+
+// The planes entry: the same arguments without mid, min_seed, cap, meta
+// and big; b (R, L) int32, x0/x1/s (R, L) IDX and valid (R, L) bool arrive
+// zeroed; aux (R, 3) int32 gets [lane done, transitions, rows fetched].
+extern "C" int lariat_smem_twoptr_planes(
+    const uint8_t* reads, const int32_t* start_e, const int32_t* end_e,
+    const void* min_intv, const int32_t* fused, const void* L2,
+    long long primary, long long seq_len, int idx64, int R, int L,
+    int budget, int bwd_init, int32_t* b, void* x0, void* x1, void* s,
+    bool* valid, int32_t* aux, void* stream) {
+  if (R <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (idx64) {
+    const Planes<int64_t> pl{b, static_cast<int64_t*>(x0),
+                             static_cast<int64_t*>(x1),
+                             static_cast<int64_t*>(s), valid};
+    return launch_twoptr<int64_t, true>(
+        reads, start_e, end_e, min_intv, nullptr, fused, L2, primary,
+        seq_len, R, L, budget, bwd_init, 0, 0, nullptr, nullptr, aux, pl,
+        st);
+  }
+  const Planes<int32_t> pl{b, static_cast<int32_t*>(x0),
+                           static_cast<int32_t*>(x1),
+                           static_cast<int32_t*>(s), valid};
+  return launch_twoptr<int32_t, true>(
+      reads, start_e, end_e, min_intv, nullptr, fused, L2, primary, seq_len,
+      R, L, budget, bwd_init, 0, 0, nullptr, nullptr, aux, pl, st);
 }
 
 // N lanes (read_idx[i], e[i], min_intv[i]) -> b (N,) int32, x0/x1/s (N,)

@@ -12,6 +12,11 @@ the (n, 5) int64 rows ``[x0, x1, s, qb, qe]`` come out in the same order.
   K4a ``min_starts_twoptr``  two-pointer minimal-start machine, one lane per
                              read (or reseed request); plateau-end seeds go
                              straight into per-lane slots
+      ``min_starts_twoptr_planes``  its planes entry (the reference's
+                             ``emit_direct=False``): b(e), x0, x1, s and
+                             valid as (R, L) planes, no midpoint pruning
+  K9  ``compact_starts``     the emission rule and left-compaction of those
+      ``compact_starts_packed``  planes into slots (``csrc/compact.cu``)
   K4b ``min_starts_kernel``  the exhaustive per-(read, e) backward
                              extension, run only when K4a blows its step
                              cap or overflows its slots
@@ -82,16 +87,24 @@ def min_starts_twoptr_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
                             min_intv: torch.Tensor, mid: torch.Tensor,
                             L: int, budget: int, bwd_init: bool,
                             min_seed: int, cap: int,
-                            touched: Optional[torch.Tensor] = None):
+                            touched: Optional[torch.Tensor] = None,
+                            planes: bool = False):
     """Plain twin of K4a: every lane steps in lock step (the reference's
     body, with masks) -> (meta, big, aux); aux = (R, 3) int32 [seeds
     counted, transitions run, fused rows read (``rank_rows``)] per lane.
-    ``touched`` (a bool per fused row) gets the rows read set."""
+    ``touched`` (a bool per fused row) gets the rows read set.
+
+    ``planes`` is the twin of the planes entry (the reference's
+    ``emit_direct=False``: no midpoint pruning; ``mid``, ``min_seed`` and
+    ``cap`` unused) -> (b, x0, x1, s, valid, aux): (R, L) planes, b int32,
+    x0, x1, s in the index dtype, valid bool, and aux = [lane done,
+    transitions run, fused rows read]."""
     dev = reads.device
     R = reads.shape[0]
     rd = reads.long()
     L2 = fmd.L2.long()
-    se, ee, md = start_e.long(), end_e.long(), mid.long()
+    se, ee = start_e.long(), end_e.long()
+    md = None if planes else mid.long()
     mi = min_intv.long().clamp(min=1)
     one = torch.ones(R, dtype=torch.long, device=dev)
     zero = torch.zeros(R, dtype=torch.long, device=dev)
@@ -114,8 +127,12 @@ def min_starts_twoptr_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
         p, etgt, bx0, bx1, bs = zero, zero, one, one, zero
     n, used, nrows = zero, zero, zero
     rows = torch.arange(R, device=dev)
-    slots = torch.zeros((R, cap), dtype=torch.long, device=dev)
-    outb = torch.zeros((R, 3, cap), dtype=torch.long, device=dev)
+    if planes:
+        opl = torch.zeros((4, R, L), dtype=torch.long, device=dev)
+        oval = torch.zeros((R, L), dtype=torch.bool, device=dev)
+    else:
+        slots = torch.zeros((R, cap), dtype=torch.long, device=dev)
+        outb = torch.zeros((R, 3, cap), dtype=torch.long, device=dev)
     for _ in range(budget):
         fwd_live = ~bwd & (e + 1 <= ee)
         bwd_live = bwd & (etgt <= ee)
@@ -165,6 +182,23 @@ def min_starts_twoptr_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
         n_bx0 = torch.where(enter_bwd, sc0, torch.where(bwd_acc, nx0, bx0))
         n_bx1 = torch.where(enter_bwd, sc1, torch.where(bwd_acc, nx1, bx1))
         n_bs = torch.where(enter_bwd, scs, torch.where(bwd_acc, ns, bs))
+        if planes:
+            # every transition that settles a column writes it (an N
+            # leaves it invalid); each column is written once
+            w = fwd_emit | bwd_exit
+            ri = rows[w]
+            col = (torch.where(bwd_exit, etgt, e + 1) - 1)[w]
+            for j, v in enumerate((
+                    torch.where(bwd_exit, p, b),
+                    torch.where(bwd_exit, bx0, torch.where(empty, sc0, nx0)),
+                    torch.where(bwd_exit, bx1, torch.where(empty, sc1, nx1)),
+                    torch.where(bwd_exit, bs, torch.where(empty, scs, ns)))):
+                opl[j, ri, col] = v[w]
+            oval[ri, col] = ~(fwd_live & nf)[w]
+            e, b, x0, x1, s = n_e, n_b, n_x0, n_x1, n_s
+            bwd, p, etgt = n_bwd, n_p, n_etgt
+            bx0, bx1, bs = n_bx0, n_bx1, n_bs
+            continue
         # midpoint pruning: a FWD lane whose b passed mid never emits again
         n_e = torch.where(~n_bwd & (n_b > md), ee + 1, n_e)
         # a plateau ends when FWD fails, an N breaks it, or the lane
@@ -185,6 +219,11 @@ def min_starts_twoptr_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
         e, b, x0, x1, s = n_e, n_b, n_x0, n_x1, n_s
         bwd, p, etgt, bx0, bx1, bs = n_bwd, n_p, n_etgt, n_bx0, n_bx1, n_bs
     live = torch.where(bwd, etgt, e + 1) <= ee
+    if planes:
+        dt = fmd.idx_dtype
+        aux = torch.stack([(~live).long(), used, nrows], dim=1)
+        return (opl[0].to(torch.int32), opl[1].to(dt), opl[2].to(dt),
+                opl[3].to(dt), oval, aux.to(torch.int32))
     meta = torch.cat([slots, n.clamp(max=cap)[:, None],
                       (~live).long()[:, None],
                       torch.zeros((R, 1), dtype=torch.long, device=dev)],
@@ -232,6 +271,139 @@ def min_starts_twoptr(fmd: DeviceFMIndex, reads: torch.Tensor,
                       int(min_seed), cap, meta, big, aux)
     _twoptr_flags(meta, aux, cap)
     return meta, big, aux
+
+
+def min_starts_twoptr_planes(fmd: DeviceFMIndex, reads: torch.Tensor,
+                             start_e: torch.Tensor, end_e: torch.Tensor,
+                             min_intv: torch.Tensor, L: int, *,
+                             max_steps: int = 0, bwd_init: bool = False):
+    """K4a's planes entry, the reference's ``min_starts_twoptr(
+    emit_direct=False)``: per lane, b(e), x0(e), x1(e), s(e) and valid(e)
+    for every end e in (start_e, end_e], at column e - 1, where b(e) is the
+    greedy backward stop from e under ``min_intv``; no midpoint pruning.
+
+    reads (R, L) codes (uint8 for the kernel); start_e, end_e, min_intv
+    (R,); ``max_steps`` defaults to 8L, and each lane gets the reference's
+    budget (``_budget``). Returns (b (R, L) int32, x0, x1, s (R, L) in the
+    index dtype, valid (R, L) bool, done (a 0-d bool: every lane finished),
+    aux (R, 3) int32 = [lane done, transitions run, fused rows read])."""
+    dev = reads.device
+    R = reads.shape[0]
+    dt = fmd.idx_dtype
+    budget = _budget(max_steps or 8 * L)
+    start_e, end_e = (v.to(dev, torch.int32).contiguous()
+                      for v in (start_e, end_e))
+    min_intv = min_intv.to(dev, dt).contiguous()
+    if not _build.on_cuda(reads):
+        out = min_starts_twoptr_plain(fmd, reads, start_e, end_e, min_intv,
+                                      None, L, budget, bwd_init, 0, 0,
+                                      planes=True)
+    else:
+        _build.check("reads", reads, dev, (R, L), (torch.uint8,))
+        _build.check("fused", fmd.fused, dev, tuple(fmd.fused.shape))
+        out = (torch.zeros((R, L), dtype=torch.int32, device=dev),
+               *(torch.zeros((R, L), dtype=dt, device=dev) for _ in range(3)),
+               torch.zeros((R, L), dtype=torch.bool, device=dev),
+               torch.empty((R, 3), dtype=torch.int32, device=dev))
+        _build.launch("smem_planes", reads, start_e, end_e, min_intv,
+                      *_fm_args(fmd), R, L, budget, int(bwd_init), *out)
+    aux = out[5]
+    return (*out[:5], aux[:, 0].bool().all(), aux)
+
+
+def compact_starts_plain(b, x0, x1, s, valid, start_e, end_e, mid,
+                         min_seed: int, cap: int):
+    """Plain twin of K9, the reference's formulation: the emission mask, a
+    stable argsort of ~emit a lane and five gathers -> (qb, qe, x0, x1, s)
+    (R, min(cap, L)), counts (R,) int32, overflow (a 0-d bool)."""
+    R, L = b.shape
+    e = torch.arange(1, L + 1, dtype=torch.int32, device=b.device)[None, :]
+    big = torch.full((R, 1), 1 << 30, dtype=b.dtype, device=b.device)
+    bnext = torch.cat([torch.where(valid[:, 1:], b[:, 1:], big), big], dim=1)
+    emit = (valid & (e > start_e[:, None]) & (e <= end_e[:, None])
+            & (b.long() <= mid[:, None].long()) & ((e - b) >= min_seed)
+            & (bnext > b))
+    counts = emit.sum(dim=1).to(torch.int32)
+    order = torch.argsort((~emit).to(torch.int8), dim=1, stable=True)
+    order = order[:, :cap]
+
+    def take(a):
+        return torch.gather(a, 1, order)
+
+    return (take(b), take(e.expand(R, L)), take(x0), take(x1), take(s),
+            counts, (counts > cap).any())
+
+
+def _compact_args(b, x0, x1, s, valid, start_e, end_e, mid):
+    dev = b.device
+    R, L = b.shape
+    _build.check("b", b, dev, (R, L))
+    for name, v in (("x0", x0), ("x1", x1), ("s", s)):
+        _build.check(name, v, dev, (R, L), (x0.dtype,))
+    if x0.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"x0: dtype {x0.dtype}, expected int32 or int64")
+    _build.check("valid", valid, dev, (R, L), (torch.bool,))
+    return (b, x0, x1, s, valid,
+            *(v.to(dev, torch.int32).contiguous()
+              for v in (start_e, end_e, mid)),
+            int(x0.dtype == torch.int64), R, L)
+
+
+def compact_starts(b, x0, x1, s, valid, start_e, end_e, mid, min_seed: int,
+                   cap: int):
+    """K9, the reference's ``compact_starts``: the SMEM emission rule over
+    the planes (valid, e in (start_e, end_e], b <= mid, e - b >= min_seed,
+    b(e + 1) > b(e); mid >= L for round 1) and the emitted (qb, qe, x0, x1,
+    s) packed left a lane, e ascending, into C = min(cap, L) slots (past a
+    lane's count, its first non-emitted columns, as the stable sort leaves
+    them). Returns (qb, qe (R, C) int32, x0, x1, s (R, C) in the planes'
+    dtype, counts (R,) int32 uncapped, overflow: a 0-d bool, any count >
+    cap)."""
+    if not _build.on_cuda(b):
+        return compact_starts_plain(b, x0, x1, s, valid, start_e, end_e,
+                                    mid, min_seed, cap)
+    args = _compact_args(b, x0, x1, s, valid, start_e, end_e, mid)
+    R, L = b.shape
+    C = min(cap, L)
+    out = (*(torch.empty((R, C), dtype=torch.int32, device=b.device)
+             for _ in range(2)),
+           *(torch.empty((R, C), dtype=x0.dtype, device=b.device)
+             for _ in range(3)))
+    counts = torch.empty(R, dtype=torch.int32, device=b.device)
+    _build.launch("compact", *args, int(min_seed), C, *out, 0, counts)
+    return (*out, counts, (counts > cap).any())
+
+
+def compact_starts_packed_plain(b, x0, x1, s, valid, start_e, end_e, mid,
+                                done, min_seed: int, cap: int):
+    """Plain twin of K9's packed layout: ``compact_starts_plain``'s outputs
+    concatenated as the reference does."""
+    qb, qe, x0c, x1c, sc, counts, ovf = compact_starts_plain(
+        b, x0, x1, s, valid, start_e, end_e, mid, min_seed, cap)
+    flags = done.long() | (ovf.long() << 1)
+    return torch.cat([qb.long(), qe.long(), x0c.long(), x1c.long(),
+                      sc.long(), counts.long()[:, None],
+                      flags.expand(b.shape[0], 1)], dim=1)
+
+
+def compact_starts_packed(b, x0, x1, s, valid, start_e, end_e, mid, done,
+                          min_seed: int, cap: int):
+    """K9 in the reference's ``compact_starts_packed`` layout: one int64
+    (R, 5C + 2) matrix [qb | qe | x0 | x1 | s | count | flags], flags =
+    done | overflow << 1 on every row (``done`` a 0-d bool, the planes'
+    all-lanes-done flag)."""
+    R = b.shape[0]
+    if not _build.on_cuda(b):
+        return compact_starts_packed_plain(b, x0, x1, s, valid, start_e,
+                                           end_e, mid, done, min_seed, cap)
+    args = _compact_args(b, x0, x1, s, valid, start_e, end_e, mid)
+    C = min(cap, b.shape[1])
+    packed = torch.empty((R, 5 * C + 2), dtype=torch.int64, device=b.device)
+    counts = torch.empty(R, dtype=torch.int32, device=b.device)
+    _build.launch("compact", *args, int(min_seed), C, 0, 0, 0, 0, 0, packed,
+                  counts)
+    packed[:, -1] = done.long() | ((counts > cap).any().long() << 1)
+    return packed
 
 
 def min_starts_kernel_plain(fmd: DeviceFMIndex, reads: torch.Tensor,
