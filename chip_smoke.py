@@ -44,10 +44,16 @@ Phases (one line each with its seconds, failures end the run nonzero):
      SA sample uploaded; then, off every path, K4a's planes entry (round 1
      at an 8L budget, round 2 with bwd_init at 32L, int32 and int64) and K9
      on its planes (both layouts, round 1's mid L + 2 and round 2's mids,
-     the collect's caps and caps that overflow) against their twins,
-     exact, timed with their byte bounds (K9 also as the stable argsort
-     and gathers, its library yardstick), K9's round-1 slots against K4a's
-     direct slots, and the launches of one planes-then-compaction pass;
+     the collect's caps, caps that overflow and then L, whose flags must
+     read 0) against their twins, exact, timed with their byte bounds (K9
+     with its wrapper in both layouts and int64, in device time as a spun
+     single call and as the mean of 200 back-to-back calls from a CUDA
+     graph, with what one call enqueues -- K9 and at most one memset -- by
+     torch.profiler; its twin, the stable argsort and gathers, is also its
+     library yardstick: one timing under both names), one packed call
+     captured in a CUDA graph and replayed, K9's round-1 slots against
+     K4a's direct slots, and the launches of one planes-then-compaction
+     pass;
  5b. align step on that index: K7 (the exact match on the reads as they
      are, the seed mask in the kernel; both N rules, int32 and int64, on
      reads with N, lens 0, under the seed length, L and past L + 31; its
@@ -61,7 +67,11 @@ Phases (one line each with its seconds, failures end the run nonzero):
      entry beside K8 + orientation + the tile entry, the path it
      replaces); K7, K8 and the step entry again at positions and
      rows on both sides of 2^31 (int64; a rank table and a pac of 2.4e9
-     bases made on the card); then align_step and align_step_smem at
+     bases made on the card, the text's halves complementary), and there
+     too K4a's slots and planes entries (rounds 1 and 2), K9 on those
+     planes, K4b, K4c, K5's walk and K1's descriptor entry, each kernel's
+     fused rows (K9: kept x0, K1: target positions) below and above 2^31
+     printed, both sides required; then align_step and align_step_smem at
      8,192 x 151 (launches counted over that run: every extension through
      the step entry, no K8 launch), every field equal to the same steps on
      the twins on the card (int32 and int64); then tools/device_step.py to
@@ -1076,6 +1086,8 @@ def _planes_k9(pk, fmd, fmd64, runs, L, no_rows, err):
     import numpy as np
     import torch
     from lariat_tpu_torch.ops import _build, smem_device as sd
+    from lariat_tpu_torch.tools.kernel_turns import (backtoback_ms,
+                                                     device_split, events_ms)
     min_seed = 19
     rd, se1, ee1, mi1 = runs["round1"][:4]
     dev = rd.device
@@ -1148,11 +1160,13 @@ def _planes_k9(pk, fmd, fmd64, runs, L, no_rows, err):
 
     # K9 on those planes: both layouts, both rounds' mids, the collect's
     # caps, then min_seed 0 at a cap one below the longest lane's count
+    # (an overflow), then at L (none: the flag and the flags column must
+    # read 0 after the call that overflowed)
     e9, k9, ovf = 0, {}, []
     for (name, dt), (b, x0, x1, s, v, done, _) in kept.items():
         se, ee, md, cap = (cases[name][i] for i in (1, 2, 6, 7))
         args = (b, x0, x1, s, v, se, ee, md)
-        for ms_, cp in ((min_seed, cap), (0, None)):
+        for ms_, cp in ((min_seed, cap), (0, None), (0, L)):
             if cp is None:
                 most = int(sd.compact_starts_plain(*args, 0, L)[5].max())
                 cp = max(1, most - 1)
@@ -1161,12 +1175,32 @@ def _planes_k9(pk, fmd, fmd64, runs, L, no_rows, err):
             gpk = sd.compact_starts_packed(*args, done, ms_, cp)
             wpk = sd.compact_starts_packed_plain(*args, done, ms_, cp)
             e9 = max(e9, err(got, want), err([gpk], [wpk]))
-            if ms_ == 0:
+            if ms_ == 0 and cp < L:
                 ovf.append(bool(got[6]))
-            else:
+            elif ms_ == 0 and (bool(got[6]) or bool(
+                    (gpk[:, -1] != int(bool(done))).any())):
+                raise AssertionError("K9: the overflow of the call before "
+                                     "stayed set")
+            elif ms_:
                 k9[f"{name}_seeds"] = int(got[5].long().sum())
     if not any(ovf):
         raise AssertionError(f"K9: no small cap overflowed: {ovf}")
+    # one packed call captured in a CUDA graph (so the wrapper never waits
+    # for the card) and replayed twice: an overflowing cap, then L
+    b, x0, x1, s, v, done = kept["round1", fmd.idx_dtype][:6]
+    args = (b, x0, x1, s, v, se1, ee1, md1)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap_out = [sd.compact_starts_packed(*args, done, 0, cp)
+                   for cp in (2, L)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        e9 = max(e9, err(cap_out, [sd.compact_starts_packed_plain(
+            *args, done, 0, cp) for cp in (2, L)]))
+    del graph
+    k9["graph_replays_exact"] = 2
     # K9's round-1 slots against K4a's direct slots (8L), lanes done in both
     b, x0, x1, s, v, done, aux = kept["round1", fmd.idx_dtype]
     qb, qe, cx0, cx1, cs, counts, _ = sd.compact_starts(
@@ -1186,37 +1220,55 @@ def _planes_k9(pk, fmd, fmd64, runs, L, no_rows, err):
     if not bool(same[both].all()):
         raise AssertionError("K9's round-1 slots differ from K4a's")
     k9["lanes_checked_against_k4a"] = int(both.sum())
-    # time and bound at round 1 in int32 (and int64): b and valid of every
-    # column, x0, x1, s of the kept columns, the lanes' ranges, the slots
+    # times and bounds at round 1 in int32 and int64, both layouts: with
+    # the wrapper (median of 7), in device time as a spun single call and
+    # as the mean of 200 calls back to back (a CUDA graph), and what one
+    # call enqueues (torch.profiler). Bound: b and valid of every column,
+    # x0, x1, s of the kept columns, the lanes' ranges, the outputs
     for f, tag in ((fmd, ""), (fmd64, "_int64")):
-        b, x0, x1, s, v = kept["round1", f.idx_dtype][:5]
+        b, x0, x1, s, v, done = kept["round1", f.idx_dtype][:6]
         args = (b, x0, x1, s, v, se1, ee1, md1)
         out = sd.compact_starts(*args, min_seed, C)
-        need = (_nbytes(b, v, se1, ee1, md1) + 3 * R * C * x0.element_size()
-                + _nbytes(*out[:6]))
-        k9["ms" + tag] = _median_ms(lambda: sd.compact_starts(
-            *args, min_seed, C))
-        k9["bound" + tag] = _bound(pk, 0, need)
+        pko = sd.compact_starts_packed(*args, done, min_seed, C)
+        need = (_nbytes(b, v, se1, ee1, md1) + 3 * R * C * x0.element_size())
+        calls = {"": lambda: sd.compact_starts(*args, min_seed, C),
+                 "packed_": lambda: sd.compact_starts_packed(
+                     *args, done, min_seed, C)}
+        for lay, fn in calls.items():
+            k9[f"{lay}ms{tag}"] = _median_ms(fn)
+            k9[f"{lay}dev_ms{tag}"] = events_ms(fn)
+            k9[f"{lay}b2b_ms{tag}"] = backtoback_ms(fn)
+            split = device_split(fn)
+            others = {n_: c for n_, (c, _) in split.items()
+                      if n_ != "compact_kernel"}
+            if (split.get("compact_kernel", [0])[0] != 1
+                    or any(not n_.lower().startswith("memset")
+                           for n_ in others)
+                    or sum(others.values()) > 1):
+                raise AssertionError(f"K9 call enqueues more than K9 and "
+                                     f"one memset: {split}")
+            k9[f"{lay}enqueued{tag}"] = split
+        k9["bound" + tag] = _bound(pk, 0, need + _nbytes(*out[:7]))
+        k9["packed_bound" + tag] = _bound(pk, 0, need + _nbytes(pko))
         if not tag:
-            k9["plain_ms"] = _median_ms(lambda: sd.compact_starts_plain(
-                *args, min_seed, C))
-            # the stable argsort and gathers: one PyTorch route to the same
-            # function (the twin's own), timed as the yardstick
-            k9["library_ms"] = _median_ms(lambda: sd.compact_starts_plain(
-                *args, min_seed, C))
-            k9["packed_ms"] = _median_ms(lambda: sd.compact_starts_packed(
-                *args, done, min_seed, C))
+            # the stable argsort and gathers are both the twin and the one
+            # PyTorch route to this function: one timing, reported as
+            # plain_ms and as library_ms
+            k9["plain_ms"] = k9["library_ms"] = _median_ms(
+                lambda: sd.compact_starts_plain(*args, min_seed, C), n=3)
     print(f"  K9: exact in both layouts, int32 and int64, mids L + 2 and "
-          f"round 2's, caps 32/16 and caps that overflow; "
-          f"{json.dumps(k9)}")
+          f"round 2's, caps 32/16, caps that overflow and then L (flags "
+          f"reset), and replayed from a CUDA graph; {json.dumps(k9)}")
     res["compact"] = (e9, k9["ms"], k9["plain_ms"], (R, L), *k9["bound"],
                       {"library_ms": k9["library_ms"],
-                       "packed_ms": k9["packed_ms"],
-                       "ms_int64": k9["ms_int64"],
+                       "library_ms_is_plain_ms": True,
+                       **{key: k9[key] for key in k9
+                          if key not in ("ms", "plain_ms", "library_ms",
+                                         "bound")},
                        "bound_ms_int64": k9["bound_int64"][0],
-                       "seeds": {n: k9[f"{n}_seeds"] for n in cases},
-                       "lanes_checked_against_k4a":
-                           k9["lanes_checked_against_k4a"]})
+                       "share_b2b": k9["bound"][0] / k9["b2b_ms"],
+                       "share_dev": k9["bound"][0] / k9["dev_ms"],
+                       "share_wrapper": k9["bound"][0] / k9["ms"]})
     return res, drive
 
 
@@ -1520,7 +1572,11 @@ def _past_2_31(put, same):
     positions and rows on both sides of 2^31, int64 indices: a valid rank
     table of a random text of 2.4e9 codes made on the card (checkpoints the
     running counts of its words; about 0.9 GB) and a random 2-bit pac of
-    as many bases (about 600 MB)."""
+    as many bases (about 600 MB). The text's second half is the complement
+    of its first, so each code is as frequent as its complement, as in a
+    doubled text: a bidirectional interval then stays inside the table.
+    Then the seeding kernels, K9 and K1's descriptor entry on the same
+    tables (``_seeding_past_2_31``)."""
     import numpy as np
     import torch
     from lariat_tpu_torch.ops import fm_batch, resident, sw_extend
@@ -1530,6 +1586,7 @@ def _past_2_31(put, same):
     gen.manual_seed(41)
     n, nb, two31 = BIG_SEQ_LEN, BIG_SEQ_LEN // 128, 1 << 31
     w = torch.randint(0, 1 << 32, (nb, 8), generator=gen, device=dev)
+    w[nb // 2:] = w[:nb // 2] ^ ((1 << 32) - 1)
     counts = torch.stack([fm_batch._popcount32(fm_batch._match(w, c)).sum(1)
                           for c in range(4)], dim=1)
     ckpt = torch.zeros((nb + 1, 4), dtype=torch.int64, device=dev)
@@ -1593,8 +1650,160 @@ def _past_2_31(put, same):
           f"planted reads ({full} scored the whole read)")
     if not (lo and hi and full):
         raise AssertionError("the checks past 2^31 missed a side of it")
+    sides = _seeding_past_2_31(big, g, pac, put, same)
+    print(f"  past 2^31, [below, above] 2^31 on each kernel's side: fused "
+          f"rows its twin read (K4a-K4c, K5), kept x0 values (K9), target "
+          f"positions (K1's descriptor entry): {json.dumps(sides)}")
+    if not all(lo and hi for lo, hi in sides.values()):
+        raise AssertionError(f"a kernel past 2^31 touched one side: {sides}")
     del g, big, fused, pac
     torch.cuda.empty_cache()
+
+
+def _seeding_past_2_31(big, g, pac, put, same):
+    """On ``_past_2_31``'s tables (int64 indices), against their twins:
+    K4a's slots entry and planes entry at round 1 (start 0, mid L + 2) and
+    round 2 (bwd_init, mids inside the reads) on 4,096 random reads x L
+    192 with 1% N; K9 in both layouts on those planes (min_seed 0; the
+    rounds' caps, then 1 and L in turn); K4b on every (read, e) lane of
+    512 of the reads; K4c; K5's walk from rows around 2^31, around the
+    primary row and at random; K1's descriptor entry on 4,096 extensions
+    (both directions) whose target windows straddle 2^31 or l_pac, the
+    seam of the doubled text, their queries planted from the windows.
+    Returns
+    {kernel: [below, above]}: the fused rows its twin read below and
+    above position 2^31, K9's kept x0 values and K1's target positions."""
+    import numpy as np
+    import torch
+    from lariat_tpu_torch.ops import resident, smem_device as sd
+    from lariat_tpu_torch.ops import sw_batch, sw_extend
+    from lariat_tpu_torch.parallel import align_step as st
+    dev = big.fused.device
+    n, two31 = big.seq_len, 1 << 31
+    cut = two31 >> 7                 # the first fused row past 2^31
+    rng = np.random.default_rng(47)
+    R, L, min_seed = 4096, 192, 19
+    reads = rng.integers(0, 4, (R, L)).astype(np.uint8)
+    reads[rng.random((R, L)) < 0.01] = 4
+    lens = rng.integers(100, L + 1, R).astype(np.int32)
+    lens[:3] = 0, 1, L
+    reads[np.arange(L)[None, :] >= lens[:, None]] = 4
+    rd, ld = put(reads), put(lens)
+    sides = {}
+
+    def rows():
+        return torch.zeros(big.fused.shape[0], dtype=torch.bool, device=dev)
+
+    def count(name, touched):
+        sides[name] = [int(touched[:cut].sum()), int(touched[cut:].sum())]
+
+    mid2 = rng.integers(0, np.maximum(lens, 1)).astype(np.int32)
+    rounds = {"round 1": (put(np.zeros(R), np.int32), put(np.ones(R),
+                                                           np.int64),
+                          put(np.full(R, L + 2), np.int32), 8 * L, False,
+                          sd.CAP1),
+              "round 2": (put(mid2), put(rng.integers(1, 6, R), np.int64),
+                          put(mid2), 4 * L, True, sd.CAP2)}
+    t_slots, t_planes, kept = rows(), rows(), []
+    for name, (se, mi, md, steps, bwd, cap) in rounds.items():
+        budget = sd._budget(steps)
+        got = sd.min_starts_twoptr(big, rd, se, ld, mi, L, max_steps=steps,
+                                   min_seed=min_seed, cap=cap, mid=md,
+                                   bwd_init=bwd)
+        want = sd.min_starts_twoptr_plain(big, rd, se, ld, mi, md, L, budget,
+                                          bwd, min_seed, cap, t_slots)
+        sd._twoptr_flags(want[0], want[2], cap)
+        same(got, want, f"K4a's slots entry past 2^31 ({name})")
+        pl = sd.min_starts_twoptr_planes(big, rd, se, ld, mi, L,
+                                         max_steps=steps, bwd_init=bwd)
+        same(pl[:5] + pl[6:], sd.min_starts_twoptr_plain(
+            big, rd, se, ld, mi, None, L, budget, bwd, 0, 0, t_planes,
+            planes=True), f"K4a's planes entry past 2^31 ({name})")
+        # min_seed 0: random reads hold few SMEMs of 19 bases
+        a = (*pl[:5], se, ld, md)
+        for cp in (cap, 1, L):
+            got = sd.compact_starts(*a, 0, cp)
+            same(got, sd.compact_starts_plain(*a, 0, cp),
+                 f"K9 past 2^31 ({name}, cap {cp})")
+            same([sd.compact_starts_packed(*a, pl[5], 0, cp)],
+                 [sd.compact_starts_packed_plain(*a, pl[5], 0, cp)],
+                 f"K9's packed layout past 2^31 ({name}, cap {cp})")
+        filled = torch.arange(L, device=dev)[None, :] < got[5][:, None]
+        kept.append(got[2][filled])
+    count("smem_twoptr", t_slots)
+    count("smem_planes", t_planes)
+    x0 = torch.cat(kept)
+    sides["compact"] = [int((x0 < two31).sum()), int((x0 >= two31).sum())]
+    # K4b over every (read, e) lane of the first 512 reads
+    ri = put(np.repeat(np.arange(512), L), np.int32)
+    ee = put(np.tile(np.arange(1, L + 1), 512), np.int32)
+    mi = put(np.ones(512 * L), np.int64)
+    t4b = rows()
+    same(sd.min_starts_kernel(big, rd, ri, ee, mi, L),
+         sd.min_starts_kernel_plain(big, rd, ri, ee, mi, L, t4b),
+         "K4b past 2^31")
+    count("smem_exhaustive", t4b)
+    t4c = rows()
+    s1 = (big, rd, ld, 20, L, min_seed, L // min_seed + 2)
+    same(sd.strategy1(*s1), sd.pack_r3(*sd.strategy1_plain(*s1, t4c)),
+         "K4c past 2^31")
+    count("smem_strategy1", t4c)
+    # K5's walk at the lookup's budget
+    p = big.primary
+    k = np.concatenate([np.arange(two31 - 2000, two31 + 2000),
+                        np.arange(p - 2000, p + 2000), [0, n - 1, n],
+                        rng.integers(0, n + 1, 8000)])
+    kd = put(k, np.int64)
+    z = torch.zeros_like(kd)
+    t5 = rows()
+    same([st.sa_walk_chunk(g, kd, z, z.bool(), st.LOOKUP_STEPS)],
+         [st.sa_walk_chunk_plain(g, kd, z, z.bool(), st.LOOKUP_STEPS, t5)],
+         "K5's walk past 2^31")
+    count("sa_walk", t5)
+    # K1's descriptor entry: right extensions start below a seam and run
+    # across it, left ones start above it and run back across it
+    B, Lq, Lt, ql = 4096, 192, 256, 151
+    seam = np.where(np.arange(B) < B // 2, two31, n)
+    right = rng.random(B) < 0.5
+    tdir = np.where(right, 1, -1)
+    tstart = seam + np.where(right, -rng.integers(1, 150, B),
+                             rng.integers(0, 150, B))
+    tlen = np.minimum(ql + rng.integers(0, 100, B), Lt)
+    codes = resident.fetch_fmd_batch(pac, n, put(tstart, np.int64),
+                                     put(tdir, np.int64), ql).cpu().numpy()
+    qr = np.where(right[:, None], codes, codes[:, ::-1]).astype(np.uint8)
+    mut = rng.random(qr.shape) < 0.02
+    qr[mut] = (qr[mut] + 1) % 4
+    qr[rng.random(qr.shape) < 0.01] = 4
+    qm = np.full((B, Lq), 4, np.uint8)
+    qm[:, :ql] = qr
+    h0 = rng.integers(19, 152, B)
+    w = np.where(rng.random(B) < 0.8, 100, rng.integers(0, 100, B))
+    desc = resident.pack_desc(np.arange(B), np.where(right, 0, ql - 1),
+                              tdir, np.full(B, ql), tstart, tdir, tlen, h0,
+                              w, n)
+    rdq, dd = put(qm), put(desc)
+    got = sw_extend.extend_desc(rdq, pac, n, dd, Lq, Lt)
+    q, t = resident.build_qt(rdq, pac, n, dd, Lq, Lt)
+    cols = [dd[:, c].to(torch.int32).contiguous() for c in (
+        resident.D_QL, resident.D_TL, resident.D_W, resident.D_H0)]
+    want = sw_batch.extend_batch(q, cols[0], t, cols[1],
+                                 sw_extend.score_matrix(1, -4, -1, dev),
+                                 cols[2], cols[3], packed=True)
+    same([got[:6], got[6:]], [want, torch.zeros_like(got[6:])],
+         "K1's descriptor entry past 2^31")
+    pos = tstart[:, None] + np.arange(Lt)[None, :] * tdir[:, None]
+    pos = pos[np.arange(Lt)[None, :] < tlen[:, None]]
+    sides["sw_extend"] = [int((pos < two31).sum()), int((pos >= two31).sum())]
+    gained = int((got[0] > torch.from_numpy(h0).to(dev)).sum())
+    print(f"  past 2^31, seeding: K4a (both entries, rounds 1 and 2), K9 "
+          f"(both layouts, caps {sd.CAP1}/{sd.CAP2}, 1, L), K4b ({512 * L} "
+          f"lanes), K4c, K5's walk ({len(k)} rows) and K1's descriptor "
+          f"entry ({B} extensions across 2^31 and l_pac, {gained} gained on "
+          f"h0, int64 descriptors) equal to their twins")
+    if not gained:
+        raise AssertionError("K1 past 2^31: no extension scored")
+    return sides
 
 
 def _bam_records(path: str):

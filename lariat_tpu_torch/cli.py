@@ -156,6 +156,17 @@ def _batch_target(pairs_s, fixed_batch=None) -> int:
     return max(512, min(16384, int(pairs_s * 2.0)))
 
 
+def _tail_grace(pairs_s, batch, elapsed) -> float:
+    """Seconds the router waits at the end of the input for batches still
+    priming: ``LARIAT_PRIME_TAIL_GRACE`` when set, else the reference's
+    formula -- 1.5 batch times at the measured rate (5 s while no batch
+    has landed), at least 2 s, at most 30 s or 15% of the elapsed run (at
+    least 2 s)."""
+    auto = (1.5 * batch / pairs_s) if pairs_s else 5.0
+    return float(os.environ.get("LARIAT_PRIME_TAIL_GRACE", "0")) \
+        or min(max(2.0, auto), max(2.0, 0.15 * elapsed), 30.0)
+
+
 def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
                  t0=None):
     """Tagged work feed (seq, work), possibly out of reader order (the
@@ -170,9 +181,7 @@ def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
     is sent as it stands when it holds more than half of it, and
     host-routed otherwise. At the end of the input the remainder is primed
     only when a thread is free, queued batches are cancelled and
-    host-routed, and batches still priming get a grace
-    (``LARIAT_PRIME_TAIL_GRACE`` seconds, else 1.5 batch times at the
-    measured rate, at least 2 s, at most 30 s or 15% of the elapsed run);
+    host-routed, and batches still priming get a grace (``_tail_grace``);
     then ``device_engine.abort_prime`` is set, they are host-routed and
     their results, whenever they land, are discarded. Every item is yielded
     exactly once; ``feed_stats`` counts primed and host-routed pairs.
@@ -304,10 +313,8 @@ def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
         futs.extend(keep)
         if futs:
             r = rate["pairs_s"]
-            auto = (1.5 * _batch_target(r, fixed) / r) if r else 5.0
-            grace = float(os.environ.get("LARIAT_PRIME_TAIL_GRACE", "0")) \
-                or min(max(2.0, auto), max(2.0, 0.15 * (time.time() - t0)),
-                       30.0)
+            grace = _tail_grace(r, _batch_target(r, fixed),
+                                time.time() - t0)
             wait_futures([f for f, _ in futs], timeout=grace)
             if any(not f.done() for f, _ in futs):
                 device_engine.abort_prime = True

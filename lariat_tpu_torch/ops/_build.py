@@ -44,7 +44,7 @@ KERNELS = {
                     [_P] * 7 + [_L] * 2 + [_I] * 7 + [_P] * 4),
     "smem_planes": ("lariat_smem_twoptr_planes",
                     [_P] * 6 + [_L] * 2 + [_I] * 5 + [_P] * 7),
-    "compact": ("lariat_compact_starts", [_P] * 8 + [_I] * 5 + [_P] * 8),
+    "compact": ("lariat_compact_starts", [_P] * 9 + [_I] * 5 + [_P] * 11),
     "smem_exhaustive": ("lariat_smem_exhaustive",
                         [_P] * 6 + [_L] * 2 + [_I] * 3 + [_P] * 7),
     "smem_strategy1": ("lariat_smem_strategy1",

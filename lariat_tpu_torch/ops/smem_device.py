@@ -16,7 +16,9 @@ the (n, 5) int64 rows ``[x0, x1, s, qb, qe]`` come out in the same order.
                              ``emit_direct=False``): b(e), x0, x1, s and
                              valid as (R, L) planes, no midpoint pruning
   K9  ``compact_starts``     the emission rule and left-compaction of those
-      ``compact_starts_packed``  planes into slots (``csrc/compact.cu``)
+      ``compact_starts_packed``  planes into slots (``csrc/compact.cu``);
+                             ``smems_from_starts`` is the same rule on one
+                             read's planes on the host
   K4b ``min_starts_kernel``  the exhaustive per-(read, e) backward
                              extension, run only when K4a blows its step
                              cap or overflows its slots
@@ -334,19 +336,41 @@ def compact_starts_plain(b, x0, x1, s, valid, start_e, end_e, mid,
             counts, (counts > cap).any())
 
 
-def _compact_args(b, x0, x1, s, valid, start_e, end_e, mid):
+# ballots a lane of K9 keeps in shared memory (compact.cu's kMaxChunks);
+# a lane of more 32-column chunks keeps them in a scratch of the call
+COMPACT_SHARED_CHUNKS = 32
+
+
+def _on(v: torch.Tensor, dev, dtype) -> torch.Tensor:
+    """``v`` itself when it is a contiguous ``dtype`` tensor on ``dev``,
+    else a converted copy."""
+    if v.dtype == dtype and v.device == dev and v.is_contiguous():
+        return v
+    return v.to(dev, dtype).contiguous()
+
+
+def _compact_args(b, x0, x1, s, valid, start_e, end_e, mid, done):
+    """K9's inputs in the C entry's order up to ``min_seed``, checked (the
+    checks read only metadata), and the ballot scratch of lanes past
+    ``COMPACT_SHARED_CHUNKS`` chunks (0 when none is needed)."""
     dev = b.device
     R, L = b.shape
     _build.check("b", b, dev, (R, L))
-    for name, v in (("x0", x0), ("x1", x1), ("s", s)):
-        _build.check(name, v, dev, (R, L), (x0.dtype,))
     if x0.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"x0: dtype {x0.dtype}, expected int32 or int64")
+    for name, v in (("x0", x0), ("x1", x1), ("s", s)):
+        _build.check(name, v, dev, (R, L), (x0.dtype,))
     _build.check("valid", valid, dev, (R, L), (torch.bool,))
-    return (b, x0, x1, s, valid,
-            *(v.to(dev, torch.int32).contiguous()
-              for v in (start_e, end_e, mid)),
-            int(x0.dtype == torch.int64), R, L)
+    if done is not None:
+        done = _on(done, dev, torch.bool)
+        _build.check("done", done, dev, (), (torch.bool,))
+    chunks = -(-L // 32)
+    far = (torch.empty(R * chunks, dtype=torch.int32, device=dev)
+           if chunks > COMPACT_SHARED_CHUNKS else 0)
+    return ((b, x0, x1, s, valid,
+             *(_on(v, dev, torch.int32) for v in (start_e, end_e, mid)),
+             0 if done is None else done, int(x0.dtype == torch.int64), R,
+             L), far)
 
 
 def compact_starts(b, x0, x1, s, valid, start_e, end_e, mid, min_seed: int,
@@ -358,20 +382,24 @@ def compact_starts(b, x0, x1, s, valid, start_e, end_e, mid, min_seed: int,
     lane's count, its first non-emitted columns, as the stable sort leaves
     them). Returns (qb, qe (R, C) int32, x0, x1, s (R, C) in the planes'
     dtype, counts (R,) int32 uncapped, overflow: a 0-d bool, any count >
-    cap)."""
+    cap). On the card: one memset and one K9 launch, which writes the
+    overflow flag too; nothing waits for the card."""
     if not _build.on_cuda(b):
         return compact_starts_plain(b, x0, x1, s, valid, start_e, end_e,
                                     mid, min_seed, cap)
-    args = _compact_args(b, x0, x1, s, valid, start_e, end_e, mid)
+    args, far = _compact_args(b, x0, x1, s, valid, start_e, end_e, mid, None)
+    dev = b.device
     R, L = b.shape
     C = min(cap, L)
-    out = (*(torch.empty((R, C), dtype=torch.int32, device=b.device)
-             for _ in range(2)),
-           *(torch.empty((R, C), dtype=x0.dtype, device=b.device)
-             for _ in range(3)))
-    counts = torch.empty(R, dtype=torch.int32, device=b.device)
-    _build.launch("compact", *args, int(min_seed), C, *out, 0, counts)
-    return (*out, counts, (counts > cap).any())
+    # two allocations for the five slot planes: the host's time, not the
+    # card's, sets a call's pace
+    out = (*torch.empty((2, R, C), dtype=torch.int32, device=dev),
+           *torch.empty((3, R, C), dtype=x0.dtype, device=dev))
+    counts = torch.empty(R, dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    _build.launch("compact", *args, int(min_seed), C, *out, counts, overflow,
+                  0, 0, far)
+    return (*out, counts, overflow)
 
 
 def compact_starts_packed_plain(b, x0, x1, s, valid, start_e, end_e, mid,
@@ -391,18 +419,21 @@ def compact_starts_packed(b, x0, x1, s, valid, start_e, end_e, mid, done,
     """K9 in the reference's ``compact_starts_packed`` layout: one int64
     (R, 5C + 2) matrix [qb | qe | x0 | x1 | s | count | flags], flags =
     done | overflow << 1 on every row (``done`` a 0-d bool, the planes'
-    all-lanes-done flag)."""
-    R = b.shape[0]
+    all-lanes-done flag). On the card: one memset (the launch's ticket
+    scratch) and one K9 launch, whose lanes write done into the flags
+    column and whose last block adds the overflow there; nothing waits for
+    the card."""
     if not _build.on_cuda(b):
         return compact_starts_packed_plain(b, x0, x1, s, valid, start_e,
                                            end_e, mid, done, min_seed, cap)
-    args = _compact_args(b, x0, x1, s, valid, start_e, end_e, mid)
-    C = min(cap, b.shape[1])
-    packed = torch.empty((R, 5 * C + 2), dtype=torch.int64, device=b.device)
-    counts = torch.empty(R, dtype=torch.int32, device=b.device)
-    _build.launch("compact", *args, int(min_seed), C, 0, 0, 0, 0, 0, packed,
-                  counts)
-    packed[:, -1] = done.long() | ((counts > cap).any().long() << 1)
+    args, far = _compact_args(b, x0, x1, s, valid, start_e, end_e, mid, done)
+    dev = b.device
+    R, L = b.shape
+    C = min(cap, L)
+    packed = torch.empty((R, 5 * C + 2), dtype=torch.int64, device=dev)
+    scratch = torch.empty(2, dtype=torch.int32, device=dev)
+    _build.launch("compact", *args, int(min_seed), C, 0, 0, 0, 0, 0, 0, 0,
+                  packed, scratch, far)
     return packed
 
 
@@ -593,6 +624,37 @@ def _slots(meta, big, cap, n_rows):
     m = np.stack([b[:, j * cap:(j + 1) * cap][ri, ki].astype(np.int64)
                   for j in range(3)] + [qbqe >> 16, qbqe & 0xFFFF], axis=1)
     return ri, m
+
+
+def smems_from_starts(b: np.ndarray, x0: np.ndarray, x1: np.ndarray,
+                      s: np.ndarray, valid: np.ndarray, length: int,
+                      min_seed_len: int) -> List[Tuple]:
+    """Round-1 SMEM list for ONE read from its per-e arrays (e = 1..L,
+    array index e-1): the port's copy of the reference's
+    ``smems_from_starts``, host code on one read's planes (K4a's planes
+    entry, ``min_starts_twoptr_planes``). Returns (x0, x1, s, b, e) tuples
+    in e order.
+
+    [b(e), e) is an SMEM iff it is right-maximal: b(e+1) > b(e), where
+    crossing an N or the read end counts as +inf. Proof of equivalence to
+    bwa's scan enumeration: every occurrence of [b(e), e) is an occurrence
+    of any [x, e) with x >= b(e); if all occurrences of [x, e) extend by
+    the same base then so do all occurrences of [b(e), e) -- hence
+    right-maximality at the scan level and at the b level coincide, and
+    b's monotonicity makes each SMEM appear for exactly one e.
+    """
+    out = []
+    for e in range(1, length + 1):
+        if not valid[e - 1]:
+            continue
+        be = int(b[e - 1])
+        if e - be < min_seed_len:
+            continue
+        if e < length and valid[e] and int(b[e]) <= be:
+            continue  # extensible to the right: not maximal
+        out.append((int(x0[e - 1]), int(x1[e - 1]), int(s[e - 1]),
+                    be, e))
+    return out
 
 
 def collect_seeds_arrays_device(fmd: DeviceFMIndex, fm,

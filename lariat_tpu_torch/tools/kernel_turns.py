@@ -1,11 +1,12 @@
-"""K1, K2b, K4a, K4b, K4c, the SA lookup (K5), K7 and the align step's
-extension timed on the card, to compare two trees of the port in one call,
-in turns (parent, new, new, parent):
+"""K1, K2b, K4a, K4b, K4c, K9, the SA lookup (K5), K7 and the align
+step's extension timed on the card, to compare two trees of the port in
+one call, in turns (parent, new, new, parent):
 
     git archive <parent> lariat_tpu_torch | tar -x -C build/parent
     for t in build/parent . . build/parent; do
       PYTHONPATH=$t python3 lariat_tpu_torch/tools/kernel_turns.py \\
-          <genome.fa> <reads.fastq.gz> [k1,k2b,k4a,k4b,k4c,lookup,k7,step]
+          <genome.fa> <reads.fastq.gz> \\
+          [k1,k2b,k4a,k4b,k4c,k9,lookup,k7,step]
     done
 
 The third argument picks the sections (all by default). A tuning variant
@@ -25,6 +26,14 @@ device seeding came in:
   its twin, with the transitions of its longest lane (flags bits 2+);
 - K4c, ``smem_device.strategy1``, on the same reads at the collect's
   max_intv, min_len and cap, checked against its twin;
+- K9, ``smem_device.compact_starts`` and ``compact_starts_packed``, on
+  round 1's planes of those reads (K4a's planes entry at 8L; start 0, mid
+  L + 2, min_seed 19, cap 32) in int32 and int64 indices, checked against
+  its twins; besides the medians, its device time as a spun single call
+  (``events_ms``) and as the mean of 200 back-to-back calls replayed
+  from a CUDA graph (``backtoback_ms``), and what one call enqueues on
+  the card, by kernel, with each kernel's device time (``device_split``,
+  torch.profiler);
 - K2b, ``sw_global.traceback_ops_fused``, on K2's z of chip_smoke.py
   phase 3's reg2aln chunk (``k2_inputs``: 2,048 x 192 x 384, S 576),
   checked against its twin; in device time also with a cold L2, over the
@@ -47,8 +56,8 @@ device seeding came in:
   twins; and ``align_step`` whole, with its parts (``StepClock``, median of
   21 calls of each part's CUDA-event ms).
 Each time is the median of 21 calls (CUDA events around the call, its host
-time included), taken three times; K2b, K4a, K4b, K4c, K7 and the step's
-extension also once in device time alone (``events_ms``). Prints the
+time included), taken three times; K2b, K4a, K4b, K4c, K9, K7 and the
+step's extension also once in device time alone (``events_ms``). Prints the
 card and, last, one JSON line. chip_smoke.py builds its K1 and seeding
 inputs with the same functions; ``sa_walks.py`` times K5 alone.
 """
@@ -157,7 +166,65 @@ def events_ms(fn, prep=None, n=21):
     return times[len(times) // 2]
 
 
-SECTIONS = ("k1", "k2b", "k4a", "k4b", "k4c", "lookup", "k7", "step")
+def backtoback_ms(fn, n=200):
+    """Mean device ms of ``n`` calls of ``fn`` back to back: the calls are
+    captured in one CUDA graph (``fn`` must not wait for the card), which
+    replays between two CUDA events, so no host time falls between them;
+    the median of five replays."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del g
+    times.sort()
+    return times[2]
+
+
+def short_kernel_name(name: str) -> str:
+    """A profiler event's name without its signature: "void (anonymous
+    namespace)::twoptr_kernel<int>(...)" -> "twoptr_kernel", "Memcpy DtoH
+    (Device -> Pageable)" -> "Memcpy DtoH"."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].strip().removeprefix("void ")
+
+
+def device_split(fn, n=20):
+    """What one call of ``fn`` runs on the card, from torch.profiler over
+    ``n`` calls after a warm one: {kernel or memset name: [launches a call,
+    mean device us a launch]}; {} when the profiler saw no device work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    acc: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            c = acc.setdefault(short_kernel_name(e.name), [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us()
+    return {k: [c / n, us / c] for k, (c, us) in sorted(acc.items())}
+
+
+SECTIONS = ("k1", "k2b", "k4a", "k4b", "k4c", "k9", "lookup", "k7", "step")
 
 
 def make_variant(dest, rel, old, new) -> str:
@@ -193,8 +260,8 @@ def main(argv=None) -> int:
         return 0
     if len(argv) not in (2, 3):
         raise SystemExit("usage: kernel_turns.py <genome.fa> "
-                         "<reads.fastq.gz> [k1,k2b,k4a,k4b,k4c,lookup,k7,"
-                         "step]")
+                         "<reads.fastq.gz> [k1,k2b,k4a,k4b,k4c,k9,lookup,"
+                         "k7,step]")
     want_s = set(argv[2].split(",")) if len(argv) == 3 else set(SECTIONS)
     if not want_s <= set(SECTIONS):
         raise SystemExit(f"sections: {sorted(want_s - set(SECTIONS))}?")
@@ -256,14 +323,14 @@ def main(argv=None) -> int:
         out["k2b_nowalk_dev_ms"] = events_ms(
             lambda: sw_global.traceback_ops_fused(z, ql2, tl0, w2, score, S))
 
-    if not want_s & {"k4a", "k4b", "k4c", "lookup", "k7", "step"}:
+    if not want_s & {"k4a", "k4b", "k4c", "k9", "lookup", "k7", "step"}:
         return _finish(out)
     fm = load_reference(argv[0])
     fmd = fm_batch.DeviceFMIndex.from_host(fm, dev)
     if want_s & {"k7", "step"}:
         _step_sections(out, want_s, fm, fmd, dev, medians,
                        lambda: flush.max())
-    if not want_s & {"k4a", "k4b", "k4c", "lookup"}:
+    if not want_s & {"k4a", "k4b", "k4c", "k9", "lookup"}:
         return _finish(out)
     rmat, lens, _ = seed_batch(argv[1], 4096)
     R, L = rmat.shape
@@ -315,6 +382,9 @@ def main(argv=None) -> int:
         out["k4c_ms"] = medians(k4c)
         out["k4c_dev_ms"] = events_ms(k4c)
 
+    if "k9" in want_s:
+        _k9_section(out, fmd, args, mid, medians, err)
+
     if "lookup" in want_s:
         g = align_step.DeviceGenome.from_host(fm, fmd)
         rows = lookup_rows(fm.seq_len)
@@ -333,6 +403,39 @@ def main(argv=None) -> int:
         out["lookup_rows"] = len(rows)
         out["lookup_ms"] = medians(lookup)
     return _finish(out)
+
+
+def _k9_section(out, fmd, args, mid, medians, err) -> None:
+    """K9 on round 1's planes (K4a's planes entry at 8L) in int32 and int64
+    indices, both layouts, cap 32, min_seed 19: checked against the twins,
+    then the medians, ``events_ms``, ``backtoback_ms`` and
+    ``device_split`` of each call."""
+    import torch
+    from lariat_tpu_torch.ops import fm_batch, smem_device as sd
+    _, rd, start, lens, mi, L = args
+    fmd64 = fm_batch.DeviceFMIndex(fmd.fused, fmd.L2.long(), fmd.primary,
+                                   fmd.seq_len)
+    for tag, f in (("int32", fmd), ("int64", fmd64)):
+        b, x0, x1, s, v, done = sd.min_starts_twoptr_planes(
+            f, rd, start, lens, mi, L, max_steps=8 * L)[:6]
+        a = (b, x0, x1, s, v, start, lens, mid)
+        calls = {"slots": (lambda: sd.compact_starts(*a, 19, 32),
+                           lambda: sd.compact_starts_plain(*a, 19, 32)),
+                 "packed": (lambda: [sd.compact_starts_packed(
+                     *a, done, 19, 32)], lambda: [
+                         sd.compact_starts_packed_plain(*a, done, 19, 32)])}
+        for lay, (fn, twin) in calls.items():
+            key = f"k9_{tag}_{lay}"
+            out[key + "_max_abs_err"] = err(fn(), twin())
+            out[key + "_ms"] = medians(fn)
+            out[key + "_dev_ms"] = events_ms(fn)
+            out[key + "_b2b_ms"] = backtoback_ms(fn)
+            out[key + "_split"] = device_split(fn)
+        out[f"k9_{tag}_seeds"] = int(sd.compact_starts(*a, 19, 32)[5]
+                                     .long().sum())
+        out["k9_lanes"] = [int(b.shape[0]), L]
+        del b, x0, x1, s, v
+        torch.cuda.empty_cache()
 
 
 def _step_sections(out, want_s, fm, fmd, dev, medians, flush) -> None:

@@ -58,18 +58,14 @@ def seed_profile(seed) -> dict:
     name) and the share of the wall that is not device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from .kernel_turns import short_kernel_name
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_ms = seed() * 1e3
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            # "void (anonymous namespace)::twoptr_kernel<int>(...)" ->
-            # "twoptr_kernel"; "Memcpy DtoH (Device -> Pageable)" ->
-            # "Memcpy DtoH"
-            name = e.name.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("<")[0].strip()
-            name = name.removeprefix("void ")
+            name = short_kernel_name(e.name)
             by_name[name] = by_name.get(name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
     device_ms = sum(by_name.values())

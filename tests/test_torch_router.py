@@ -2,8 +2,9 @@
 lariat_tpu/cli.py primed_iter) on stand-in engines: saturation
 host-routing, dormancy (the 45 s first-batch rule and
 LARIAT_PRIME_MIN_FRAC), the server's fixed batch (LARIAT_PRIME_BATCH), and
-the end of input (queued batches cancelled, the tail grace, then the abort
-with its batch host-routed). In every case each item is yielded exactly
+the end of input (queued batches cancelled, the tail grace -- set, and the
+reference's formula when LARIAT_PRIME_TAIL_GRACE is unset -- then the
+abort with its batch host-routed). In every case each item is yielded exactly
 once, and primed plus host-routed pairs are all the pairs. A raising
 engine ends the CLI run with an error."""
 
@@ -190,6 +191,47 @@ def test_eof_cancels_queued_then_aborts_after_grace(monkeypatch):
     # the third batch host-routed at once (both slots busy), then the
     # remainder, the cancelled batch, the abandoned one
     assert seqs == [4, 5, 6, 2, 3, 0, 1]
+
+
+# (pairs/s measured, batch pairs, elapsed s, grace s): the reference's
+# min(max(2, auto), max(2, 0.15 elapsed), 30), auto = 1.5 batch / rate or
+# 5 s before a batch lands (lariat_tpu/cli.py primed_iter)
+GRACES = [(None, 1024, 0.1, 2.0), (None, 1024, 20.0, 3.0),
+          (None, 1024, 100.0, 5.0), (1000.0, 2000, 100.0, 3.0),
+          (1000.0, 800, 100.0, 2.0), (100.0, 16384, 1000.0, 30.0),
+          (100.0, 16384, 60.0, 9.0)]
+
+
+@pytest.mark.parametrize("rate,batch,elapsed,want", GRACES)
+def test_tail_grace_formula(monkeypatch, rate, batch, elapsed, want):
+    monkeypatch.delenv("LARIAT_PRIME_TAIL_GRACE", raising=False)
+    assert cli._tail_grace(rate, batch, elapsed) == pytest.approx(want)
+    monkeypatch.setenv("LARIAT_PRIME_TAIL_GRACE", "0.7")
+    assert cli._tail_grace(rate, batch, elapsed) == 0.7
+
+
+def test_default_tail_grace_aborts_after_2s(monkeypatch):
+    """LARIAT_PRIME_TAIL_GRACE unset and a pass that never lands: with no
+    rate measured the grace is min(5.0, max(2.0, 0.15 x elapsed), 30) =
+    2.0 s in a run this short; then the engine is told to abort and the
+    batch is host-routed, every item once. Tolerance: the wait ends 2.0 s
+    after the end of the input, less 0.05 s for the timer, plus 0.5 s for
+    the abort's poll and the threads."""
+    _target(monkeypatch, 2)
+    monkeypatch.delenv("LARIAT_PRIME_TAIL_GRACE", raising=False)
+    eng = _Engine(hold=True)
+    items = _items([1] * 4)
+    eof = {}
+
+    def feed():
+        yield from items
+        eof["t"] = time.monotonic()
+
+    _, primed, stats = _run(items, eng, 1, feed())
+    waited = time.monotonic() - eof["t"]
+    assert eng.abort_prime and eng.batches == [2] and primed == []
+    assert stats == {"primed_pairs": 0, "host_pairs": 4}
+    assert 1.95 <= waited < 2.5, waited
 
 
 def test_eof_remainder_primed_when_a_slot_is_free(monkeypatch):

@@ -165,7 +165,7 @@ def test_kernel_turns_k2_inputs_and_sections():
     assert (np.abs(tlen - qlen) <= 10).all()
     assert (w >= np.abs(qlen - tlen)).all() and (w >= 1).all()
     with pytest.raises(SystemExit, match="sections"):
-        kernel_turns.main(["g.fa", "r.fq", "k2b,k9"])
+        kernel_turns.main(["g.fa", "r.fq", "k2b,k10"])
 
 
 def test_kernel_turns_variant(tmp_path):
