@@ -92,11 +92,10 @@ Phases (one line each with its seconds, failures end the run nonzero):
      after its build, upload and prewarm; the CLI primes through it
      (LARIAT_DEVICE_SOCKET) and must not initialise CUDA; the server stops
      on request, exits 0 and logs its kernel launches;
-  9. tools: the three measurement entry points as subprocesses -- the T1
-     ablation at full size, the kernel roofline (with its smem_seed and
-     fm_rank sections), and the priming profile over 2,000 pairs of the data
-     above, once with host and once with device seeding -- each to a
-     complete final JSON line, every roofline share in (0, 100%];
+  9. tools: two measurement entry points as subprocesses -- the T1
+     ablation at full size and the priming profile over 2,000 pairs of the
+     data above, once with host and once with device seeding -- each to a
+     complete final JSON line (the kernel roofline runs in the bench);
  10. checks: BAM records of the four port runs identical to host-native
      file for file; every pair primed in runs 7 and 8, primed plus
      host-routed pairs all the pairs and some primed in 8b and 8c; K1-K3
@@ -107,8 +106,31 @@ Phases (one line each with its seconds, failures end the run nonzero):
      steps of phase 5b; K8, which no path launches since the steps stage
      their windows in K1's step entry, is only held against its twin; the
      planes entry and K9, off every path in the reference too, in phase
-     5's pass).
-Then a kernels JSON line (each kernel's launches on its path, max abs
+     5's pass);
+ 11. whole BAM: every BAM of the four port runs against host-native's as a
+     whole file (lariat_tpu_torch/io/bamcompare.py): the decompressed
+     streams equal with only the @PG CL field set to one value, every BGZF
+     block past the header that covers the same stream range equal byte
+     for byte, the EOF block; blocks and bytes compared printed per file;
+ 12. bench: python -m lariat_tpu_torch.tools.bench (the 4.6 Mb genome,
+     320 x 100 pairs, 5 workers, host-native and device-primed through
+     the resident server, a warm-up and the median of 3 each; the RFA row
+     probe, the record diff rate, the roofline and the device step), its
+     JSON line printed and held: both rates, primed pairs in the device
+     median, a diff rate of 0, the torch rows in the probe, the device
+     step present, the roofline's sections with every share of a peak in
+     (0, 100%] and K6's bound (fm_rank), hg38 said skipped without
+     data_big/, K1 (every launch through its descriptor entry), K2 and
+     K2b launched in its server (K3's count printed: no rescue window
+     survives on its proper pairs), K4b, K5 and K1 in its device step;
+ 13. probe and entry: python -m lariat_tpu_torch.tools.probe_device (launch
+     latency, 8 MB transfers pageable and pinned, K1 at B 128 and 1,024,
+     its twin at 1,024 and 8,192), its lines printed; then tools/entry.py's
+     align_step_smem on the card (64 x 100, a 20 kb index), its launches
+     counted (K4b, K5's lookup entry, K1's step entry), every field equal
+     to the same step on the CPU.
+Then each kernel's loss on its path (launches x (ms - bound ms)), a
+kernels JSON line (each kernel's launches on its path, max abs
 error, ms, plain ms, bound ms and what sets it, and library_ms: null where
 no single PyTorch call computes the function -- these recurrences -- and
 for K9 the stable argsort and gathers) and, last,
@@ -1863,11 +1885,34 @@ def _last_json(stdout, keys, what):
     return out
 
 
-def phase_tools(fasta, reads, env, logs):
-    """The three measurement entry points, each a subprocess of its own;
-    returns the ablation tool's T1 launch count."""
-    from lariat_tpu_torch.ops import extend_ablate
+def _check_roofline(roof):
+    """The kernel roofline's JSON line (run by the bench): every section,
+    every share of a peak in (0, 100%], the seeding section's counts."""
     from lariat_tpu_torch.tools.kernel_roofline import shares
+    missing = {"device", "card", "attributes", "peaks", "extend",
+               "global_tb", "local_2pass", "smem_seed", "fm_rank",
+               "launches"} - set(roof)
+    if missing:
+        raise AssertionError(f"kernel_roofline lacks {sorted(missing)}")
+    sh = shares(roof)
+    if len(sh) != 6 or not all(0 < v <= 100 for v in sh.values()):
+        raise AssertionError(f"kernel_roofline shares: {sh}")
+    print(f"  kernel_roofline peaks {json.dumps(roof['peaks'])}")
+    for k in ("extend", "global_tb", "local_2pass", "smem_seed", "fm_rank"):
+        print(f"  kernel_roofline {k}: {json.dumps(roof[k])}")
+    seed = roof["smem_seed"]
+    if not (seed.get("reads_per_s", 0) > 0
+            and seed.get("rbegs_total", 0) >= seed.get("mems_total", 0) > 0):
+        raise AssertionError(f"kernel_roofline smem_seed: {seed}")
+    if not 0 < roof["fm_rank"].get("bound_ms", 0) < roof["fm_rank"]["ms"]:
+        raise AssertionError(f"kernel_roofline fm_rank: {roof['fm_rank']}")
+
+
+def phase_tools(fasta, reads, env, logs):
+    """The T1 ablation and the priming profile, each a subprocess of its
+    own (the roofline runs in the bench); returns the ablation tool's T1
+    launch count."""
+    from lariat_tpu_torch.ops import extend_ablate
 
     def tool(name, *args, log=None, **extra_env):
         return _run([sys.executable, "-m", f"lariat_tpu_torch.tools.{name}",
@@ -1890,22 +1935,6 @@ def phase_tools(fasta, reads, env, logs):
                            "launches"), "extend_ablate")
     t1_launches = int(fin["launches"].get("extend_ablate", 0))
     print(f"  extend_ablate on {fin['card']}: {t1_launches} T1 launches")
-
-    roof = _last_json(tool("kernel_roofline"),
-                      ("device", "card", "attributes", "peaks", "extend",
-                       "global_tb", "local_2pass", "smem_seed", "fm_rank",
-                       "launches"),
-                      "kernel_roofline")
-    sh = shares(roof)
-    if len(sh) != 6 or not all(0 < v <= 100 for v in sh.values()):
-        raise AssertionError(f"kernel_roofline shares: {sh}")
-    print(f"  kernel_roofline peaks {json.dumps(roof['peaks'])}")
-    for k in ("extend", "global_tb", "local_2pass", "smem_seed", "fm_rank"):
-        print(f"  kernel_roofline {k}: {json.dumps(roof[k])}")
-    seed = roof["smem_seed"]
-    if not (seed.get("reads_per_s", 0) > 0
-            and seed.get("rbegs_total", 0) >= seed.get("mems_total", 0) > 0):
-        raise AssertionError(f"kernel_roofline smem_seed: {seed}")
 
     # the same 2,000 pairs seeded by host C++ and on the device
     for flag, seeder in (("0", "host"), ("1", "device")):
@@ -2036,6 +2065,127 @@ def _cli_walks(walks, n_launches):
     print(f"  K5 in the device-seeded run ([rows, max_steps, longest walk, "
           f"walks past 64] a launch): {json.dumps(out)}")
     return out
+
+
+def phase_whole_bam(runs):
+    """Every BAM of each port run against host-native lariat_tpu's as a
+    whole file, CL normalised (io/bamcompare.py): the decompressed streams
+    in full, every BGZF block past the header at the same stream range,
+    the EOF block; each file's counts printed."""
+    from lariat_tpu_torch.io.bamcompare import compare_bams
+    names = sorted(os.path.basename(f) for f in glob.glob(
+        os.path.join(SMOKE, "out_host", "*.bam")))
+    for run in runs:
+        for name in names:
+            rep = compare_bams(os.path.join(SMOKE, "out_host", name),
+                               os.path.join(SMOKE, run, name))
+            print(f"  {run}/{name}: {rep['records']} records, "
+                  f"{rep['stream_bytes']} stream bytes equal (CL "
+                  f"normalised); {rep['blocks_compared']} of "
+                  f"{rep['blocks']} BGZF blocks ({rep['bytes_compared']} "
+                  f"bytes) equal byte for byte, {rep['header_blocks']} "
+                  f"holding header bytes, {rep['shifted_blocks']} shifted "
+                  f"by the CL's length")
+
+
+def phase_bench(env, logs):
+    """python -m lariat_tpu_torch.tools.bench in a subprocess: its JSON
+    line, held to the port's bench contract; returns it."""
+    out = _run([sys.executable, "-m", "lariat_tpu_torch.tools.bench"],
+               timeout=700, log=os.path.join(logs, "bench.log"), env=env)
+    res = _last_json(out, ("metric", "value", "unit", "vs_baseline",
+                           "detail"), "bench")
+    print(f"  bench result: {json.dumps(res)}")
+    d = res["detail"]
+    host, dev = d["cli_host_native_5w"], d["cli_device_primed_5w"]
+    diff = d.get("device_vs_host_diff", {})
+    step = d.get("device_step_launches", {})
+    srv = dev.get("server_launches", {})
+    bad = []
+    if not ("pairs_s" in host and "pairs_s" in dev):
+        bad.append("a mode has no pairs_s")
+    if not dev.get("primed_pairs", 0) > 0:
+        bad.append("the device median primed no pair")
+    if diff.get("sam_diff_rate") != 0.0:
+        bad.append(f"device vs host diff {diff}")
+    if d.get("rfa_jit_probe", {}).get("rfa_rows") != "jit":
+        bad.append(f"rfa probe {d.get('rfa_jit_probe')}")
+    if not d.get("device_step_pairs_s", 0) > 0:
+        bad.append(f"device step {d.get('device_step_error')}")
+    if "roofline" not in d:
+        bad.append(f"roofline {d.get('roofline_error')}")
+    else:
+        _check_roofline(d["roofline"])
+    if not d.get("card"):
+        bad.append("no card")
+    skipped = "hg38 regime SKIPPED" in res["metric"]
+    if skipped == os.path.isdir(os.path.join(REPO, "data_big")):
+        bad.append(f"metric {res['metric']!r} with data_big/ "
+                   f"{'present' if not skipped else 'absent'}")
+    # K3 runs only where a mate rescue window survives, which the bench's
+    # reads (all proper pairs) never give: its count is printed, not held
+    idle = [k for k in ("sw_extend", "sw_global", "traceback")
+            if srv.get(k, 0) <= 0]
+    idle += [k for k in ("smem_exhaustive", "sa_walk", "sw_extend")
+             if step.get(k, 0) <= 0]
+    if idle:
+        bad.append(f"kernels never launched on the bench's paths: {idle}")
+    desc = dev.get("server_entry_launches", {}).get("lariat_sw_extend_desc")
+    if desc != srv.get("sw_extend"):
+        bad.append(f"{desc} of {srv.get('sw_extend')} K1 launches in the "
+                   f"bench's server through the descriptor entry")
+    if bad:
+        raise AssertionError(f"bench: {bad}")
+    print(f"  bench on {d['card']}: host-native {host['pairs_s']} pairs/s, "
+          f"device-primed {dev['pairs_s']} pairs/s (primed "
+          f"{dev['primed_pairs']}, host {dev['host_pairs']}); server "
+          f"launches {json.dumps({k: srv[k] for k in CLI_KERNELS})}; device "
+          f"step {d['device_step_pairs_s']:.1f} pairs/s")
+    return res
+
+
+def phase_probe_entry(env, logs):
+    """python -m lariat_tpu_torch.tools.probe_device (its lines printed),
+    then tools/entry.py's step on the card, its launches counted, every
+    field against the same step on the CPU (the plain twins)."""
+    import torch
+    from lariat_tpu_torch.ops import _build
+    from lariat_tpu_torch.tools.entry import entry
+    out = _run([sys.executable, "-m", "lariat_tpu_torch.tools.probe_device"],
+               timeout=600, log=os.path.join(logs, "probe_device.log"),
+               env=env)
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    for x in lines:
+        print(f"  probe {json.dumps(x)}")
+    want = ["device", "launch_trivial", "download_8MB", "upload_8MB",
+            "download_8MB", "upload_8MB", "k1_B128", "k1_B1024",
+            "k1_plain_B1024", "k1_plain_B8192", "launches"]
+    if [x["probe"] for x in lines] != want:
+        raise AssertionError(f"probe_device: {[x['probe'] for x in lines]}")
+    if lines[-1].get("sw_extend", 0) < 2 * 4:
+        raise AssertionError(f"probe_device: K1 launches {lines[-1]}")
+    fn, args = entry()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launches = _build.launches()
+    entries = _build.entry_launches()
+    cfn, cargs = entry("cpu")
+    want = cfn(*cargs)
+    for field in got._fields:
+        a = getattr(got, field).cpu()
+        b = getattr(want, field)
+        if not torch.equal(a, b):
+            raise AssertionError(f"entry(): {field} differs from the twins")
+    idle = [k for k in ("smem_exhaustive", "sa_walk", "sw_extend")
+            if launches.get(k, 0) <= 0]
+    if idle:
+        raise AssertionError(f"entry(): no launch of {idle}")
+    print(f"  entry(): align_step_smem on 64 x 100 of a 20 kb index, every "
+          f"field equal to the twins on the CPU ({int(got.mapped.sum())} "
+          f"mapped); launches {json.dumps({k: v for k, v in launches.items() if v})}, "
+          f"entries {json.dumps({k: v for k, v in entries.items() if v})}")
 
 
 def main(argv=None) -> int:
@@ -2170,6 +2320,12 @@ def main(argv=None) -> int:
         if runs["out_port"][4]["walks"]:
             raise AssertionError("the host-seeded run walked the SA on the "
                                  "card")
+    with Phase("whole BAM"):
+        phase_whole_bam(runs)
+    with Phase("bench"):
+        phase_bench(env, args.logs)
+    with Phase("probe and entry"):
+        phase_probe_entry(env, args.logs)
     desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
     extra = {"sw_extend": {"desc_launches": desc,
                            "desc_wave": kres.pop("sw_extend_desc"),
@@ -2184,6 +2340,11 @@ def main(argv=None) -> int:
                         "bound_ms": bms, "bound_by": by,
                         "library_ms": None, **(more[0] if more else {}),
                         **extra.get(name, {})})
+    # what each kernel loses to its bound over its path's launches
+    loss = {k["name"]: round(k["launches"] * (k["ms"] - k["bound_ms"]), 4)
+            for k in kernels}
+    print(f"  kernel loss, launches x (ms - bound_ms), ms: "
+          f"{json.dumps(dict(sorted(loss.items(), key=lambda kv: -kv[1])))}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

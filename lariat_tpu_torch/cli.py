@@ -50,6 +50,7 @@ from .parallel.device_server import DeviceServerClient
 from .parallel.host_pipeline import ParallelRunner, write_packed
 from .rfa.pipeline import (RFAStats, load_centromeres, process_barcode,
                            worth_running_rfa)
+from .rfa.tensor_rfa import rows_jit
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -470,7 +471,7 @@ def run(argv=None):
               f"({stats.tie_picks / stats.picks:.4f})")
     if stats.rfa_wall:
         print(f"rfa wall: {stats.rfa_wall:.2f}s across workers "
-              f"(rows: numpy)")
+              f"(rows: {'jit' if rows_jit() else 'numpy'})")
     if args.simulated and stats.total:
         print(f"simulated: total={stats.total} correct={stats.correct} "
               f"mapq10 total={stats.total_mapq10} "

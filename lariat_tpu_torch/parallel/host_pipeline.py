@@ -22,6 +22,7 @@ from ..config import RFAConfig
 from ..io.bamwriter import build_record
 from ..io.fastq import FastQRecord
 from ..rfa.pipeline import RFAStats, process_barcode
+from ..rfa.tensor_rfa import rows_jit
 from ..rfa.types import Region
 
 # worker globals installed by the pool initializer (fork inherits the index)
@@ -64,6 +65,13 @@ def _init_worker() -> None:
         _os.nice(5)
     except OSError:
         pass
+    # the torch RFA rows (LARIAT_RFA_JIT=1) run torch ops in a forked
+    # worker: one intra-op thread, so no worker enters a thread pool the
+    # parent may have started before the fork (the reference pins its
+    # workers' jax to the CPU at this point instead)
+    if rows_jit():
+        import torch
+        torch.set_num_threads(1)
 
 
 def _run_one(work) -> PackedBarcode:

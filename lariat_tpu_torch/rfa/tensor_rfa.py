@@ -20,12 +20,19 @@ serialize-accept (the winning move is re-derived with the scalar fast_score,
 which also re-checks the mismatch-locus invariants, then accepted on host) —
 SURVEY.md section 7 step 4's "propose-then-serialize-accept".
 
-A copy of lariat_tpu/rfa/tensor_rfa.py without its jax.jit twin of the row
-kernel (``LARIAT_RFA_JIT``): the workers run these numpy rows.
+A copy of lariat_tpu/rfa/tensor_rfa.py. Its jax.jit twin of the row kernel
+(``_row_jit`` / ``_row_kernel_jnp``, selected by ``LARIAT_RFA_JIT``) is here
+``_row_torch``: the same masked updates as a sequential loop of float64
+``torch.where`` over the source's alignments, on the CPU (the workers never
+touch CUDA), unpadded (the reference pads to power-of-two buckets only to
+bound JAX retracing), and bit-identical to the numpy rows (no reduction).
+The numpy rows stay the default; ``LARIAT_RFA_JIT=1`` selects the torch
+rows and the CLI's summary then says ``rows: jit``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -79,6 +86,9 @@ class RFATensors:
 
         K must not contain src_idx (the scalar loop's source==sink special
         cases all hinge on source.id != sink.id being true)."""
+        if rows_jit():
+            return self._row_torch(source, src_idx, K,
+                                   log_unpaired_probability)
         return self._row_numpy(source, src_idx, K, log_unpaired_probability)
 
     def _row_numpy(self, source, src_idx, K, lup):
@@ -134,6 +144,43 @@ class RFATensors:
         change = np.where(filled, change + (-3.0), change)
         change = change + ac
         return change, num
+
+
+    def _row_torch(self, source, src_idx, K, lup):
+        """The torch twin of ``_row_numpy`` (the reference's ``_row_jit``):
+        per source alignment, in the map's order, ``ac + (LAPK[:, r] -
+        sl)`` under its mask, then the ``+ lup / 2.0`` or ``- lup / 2.0``
+        select, in float64 on the CPU; birth/death terms on the host."""
+        import torch
+
+        EXK = torch.from_numpy(self.EX[K])
+        LAPK = torch.from_numpy(self.LAP[K])
+        PBK = torch.from_numpy(self.PB[K])
+        nK = len(K)
+        ac = torch.zeros(nK, dtype=torch.float64)
+        num = torch.zeros(nK, dtype=torch.int64)
+        half = lup / 2.0
+        act = source.active_alignments
+        for a in act.values():
+            r = a.read_id
+            sm = act.get(a.mate_id)
+            shmp = sm is not None and is_pair(a, sm)
+            mask = EXK[:, r]
+            ac = torch.where(mask, ac + (LAPK[:, r]
+                                         - a.log_alignment_probability), ac)
+            if sm is not None:
+                sink_hmp = EXK[:, a.mate_id] & PBK[:, r]
+                if shmp:
+                    ac = torch.where(mask & ~sink_hmp, ac + half, ac)
+                else:
+                    ac = torch.where(mask & sink_hmp, ac - half, ac)
+            num = num + mask
+        return self._finish_row(source, K, ac.numpy(), num.numpy())
+
+
+def rows_jit() -> bool:
+    """``LARIAT_RFA_JIT`` set (not empty, not 0): the torch rows."""
+    return os.environ.get("LARIAT_RFA_JIT") not in (None, "", "0")
 
 
 def _is_active(n_act: int, delta: int, n_best: int) -> bool:

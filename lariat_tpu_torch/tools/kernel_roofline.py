@@ -62,7 +62,9 @@ share of a peak. ``fm_rank`` is the JAX tool's section of that name on the
 same genome: 65,536 random single-code ranks (``occ1_batch``) through K7's
 ``occ1`` entry (``fm_batch.occ1_rank``), checked against the twin, with
 its share of the memory peak counting one 48-byte fused row a lookup (the
-JAX tool counted 64 bytes) plus the rows, codes and ranks in and out.
+JAX tool counted 64 bytes) plus the rows, codes and ranks in and out, and
+its bound in ms counting 48 bytes a distinct fused row instead, as the
+seeding kernels' bounds do.
 """
 
 from __future__ import annotations
@@ -246,7 +248,7 @@ def measure(dev: torch.device, iters: int = 7) -> dict:
         "int32_sol_pct": share(cells, OPS_PER_CELL["local"], ms, int_peak)}
     fm = random_index(rng)
     res["smem_seed"] = smem_seed(dev, rng, fm=fm)
-    res["fm_rank"] = fm_rank(dev, rng, fm, mem_peak, iters)
+    res["fm_rank"] = fm_rank(dev, rng, fm, mem_peak, iters, with_bound=True)
     res["peaks"] = pk
     return res
 
@@ -263,9 +265,10 @@ def random_index(rng, n: int = 1 << 20):
 
 
 def fm_rank(dev: torch.device, rng, fm, mem_peak: float, iters: int = 7,
-            n: int = 1 << 16) -> dict:
+            n: int = 1 << 16, with_bound: bool = False) -> dict:
     """n random occ1 lookups through K7's occ1 entry: ms, lookups/s and the
-    share of the memory peak."""
+    share of the memory peak; ``with_bound`` adds the distinct fused rows
+    and the bound in ms."""
     fmd = fm_batch.DeviceFMIndex.from_host(fm, dev)
     k = torch.from_numpy(rng.integers(0, fm.seq_len, n)).to(dev,
                                                             fmd.idx_dtype)
@@ -279,9 +282,19 @@ def fm_rank(dev: torch.device, rng, fm, mem_peak: float, iters: int = 7,
         raise AssertionError("K7's occ1 entry differs from occ1_batch")
     ms = median_ms(run, dev, iters)
     nb = 48 * n + nbytes(k, c, out)
-    return {"lookups": n, "genome_bp": int(fm.l_pac), "ms": ms,
-            "lookups_per_s": n / (ms * 1e-3), "bytes": nb,
-            "mem_sol_pct": share(nb, 1, ms, mem_peak)}
+    res = {"lookups": n, "genome_bp": int(fm.l_pac), "ms": ms,
+           "lookups_per_s": n / (ms * 1e-3), "bytes": nb,
+           "mem_sol_pct": share(nb, 1, ms, mem_peak)}
+    if with_bound:
+        # as the seeding kernels count theirs: 48 bytes a distinct fused
+        # row the lookups read (occ1_batch's row), plus what goes in and out
+        kk = k.long().cpu()
+        kk = torch.clamp(torch.where(kk >= fmd.primary, kk - 1, kk), 0,
+                         fmd.seq_len - 1)
+        rows = int(torch.unique((kk + 1) // fmindex.OCC_INTERVAL).numel())
+        res.update(rows_distinct=rows, bound_ms=(
+            48 * rows + nbytes(k, c, out)) / mem_peak * 1e3)
+    return res
 
 
 def smem_seed(dev: torch.device, rng, n_reads: int = 2048,
