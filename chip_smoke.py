@@ -129,6 +129,25 @@ Phases (one line each with its seconds, failures end the run nonzero):
      align_step_smem on the card (64 x 100, a 20 kb index), its launches
      counted (K4b, K5's lookup entry, K1's step entry), every field equal
      to the same step on the CPU.
+ 14. dryrun multichip: tools/entry.py's dryrun_multichip(4) -- the priming
+     path over a 1.2 Mb toy genome and 64 barcodes x 32 pairs, once on one
+     device and once with every wave split over four (four distinct cards
+     when there are four, else cuda:0 four times) -- the packed records
+     bit-identical, at least 16 split waves, no device with more than
+     twice another's real tasks; the cards used, each device's real tasks
+     and the launches of K1, K2, K2b and K3 in each run (counted from 0
+     just before it) printed, K1, K2 and K2b required in the split run;
+ 15. multihost: phase 4's reads cut into 4 barcode-complete shards, 4
+     `python -m lariat_tpu_torch.parallel.multihost` processes on the card
+     (file:// rendezvous, -use_device on, -simulated, -threads 2 each, the
+     all-primed router knobs, LARIAT_WAVE_TRACE=1): every process primes
+     all its pairs, the global stats agree across processes and equal the
+     sum of the locals (every read counted), the [wtrace] lines number
+     the CLI's waves, and the merged position-bucketed records (the
+     port's cat_bams --auto) equal host-native's as a sorted list, the
+     barcode-sorted ones in order; each process's pairs/s and kernel
+     launches and the [wtrace] lines' build, dispatch and download ms
+     summed by site (with the longest line) printed.
 Then each kernel's loss on its path (launches x (ms - bound ms)), a
 kernels JSON line (each kernel's launches on its path, max abs
 error, ms, plain ms, bound ms and what sets it, and library_ms: null where
@@ -247,6 +266,12 @@ def phase_environment():
     nv = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                         text=True, check=True, timeout=60).stdout
     print(nv.strip().splitlines()[-1])
+    with open("/proc/meminfo") as f:
+        mem = dict(line.split(":", 1) for line in f)
+    kib = {k: int(mem[k].split()[0]) for k in ("MemTotal", "MemAvailable")}
+    print(f"host RAM: {kib['MemTotal'] / 2**20:.1f} GiB total, "
+          f"{kib['MemAvailable'] / 2**20:.1f} GiB available; "
+          f"{os.cpu_count()} CPUs")
     return smi
 
 
@@ -2091,8 +2116,10 @@ def phase_whole_bam(runs):
 def phase_bench(env, logs):
     """python -m lariat_tpu_torch.tools.bench in a subprocess: its JSON
     line, held to the port's bench contract; returns it."""
+    # data_big/ is never generated here (hours at hg38 scale)
     out = _run([sys.executable, "-m", "lariat_tpu_torch.tools.bench"],
-               timeout=700, log=os.path.join(logs, "bench.log"), env=env)
+               timeout=700, log=os.path.join(logs, "bench.log"),
+               env={**env, "LARIAT_BENCH_NO_GEN": "1"})
     res = _last_json(out, ("metric", "value", "unit", "vs_baseline",
                            "detail"), "bench")
     print(f"  bench result: {json.dumps(res)}")
@@ -2186,6 +2213,198 @@ def phase_probe_entry(env, logs):
           f"field equal to the twins on the CPU ({int(got.mapped.sum())} "
           f"mapped); launches {json.dumps({k: v for k, v in launches.items() if v})}, "
           f"entries {json.dumps({k: v for k, v in entries.items() if v})}")
+
+
+def phase_dryrun():
+    """tools/entry.py's dryrun_multichip(4) on four distinct cards when
+    there are four, else four shards on cuda:0: what it measured, its
+    launches in each run checked."""
+    import torch
+    from lariat_tpu_torch.tools.entry import dryrun_multichip
+    n = 4
+    devices = (None if torch.cuda.device_count() >= n
+               else ["cuda:0"] * n)
+    res = dryrun_multichip(n, devices)
+    single, split = res["launches_single"], res["launches_split"]
+    print(f"  dryrun: {len(res['distinct'])} distinct cards "
+          f"({', '.join(res['distinct'])}) for {n} shards; "
+          f"{res['shard_waves']} split waves; {res['records']} records of "
+          f"{res['barcodes']} barcodes bit-identical; real tasks a device "
+          f"{res['per_dev_tasks']}; wall {res['wall_single_s']:.2f}s single, "
+          f"{res['wall_split_s']:.2f}s split")
+    print(f"  dryrun launches, single -> split: " + ", ".join(
+        f"{k} {single.get(k, 0)} -> {split.get(k, 0)}" for k in CLI_KERNELS))
+    idle = [k for k in ("sw_extend", "sw_global", "traceback")
+            if split.get(k, 0) <= 0]
+    if idle:
+        raise AssertionError(f"the split dry run launched no {idle}")
+    # each card of the split held its blocks' tensors: the peak of the
+    # split run alone, above what the card held when it began
+    peak = res["peak_split"]
+    print(f"  dryrun split run's peak device memory by card, bytes above "
+          f"its start: {json.dumps(peak)}")
+    if set(peak) != set(res["distinct"]) or not all(
+            v > 0 for v in peak.values()):
+        raise AssertionError(f"a card of the split held nothing: {peak}")
+    return res
+
+
+def _fastq_shards(reads, n, out_dir):
+    """``reads`` cut into ``n`` barcode-complete gzip shards of whole
+    barcodes in input order (9-line records, the barcode on line 6):
+    [(path, pairs)]."""
+    import gzip
+    with gzip.open(reads, "rt") as f:
+        lines = f.read().splitlines(keepends=True)
+    recs = [lines[i:i + 9] for i in range(0, len(lines), 9)]
+    groups = []
+    for rec in recs:
+        bc = rec[5].split(",")[0]
+        if not groups or groups[-1][0] != bc:
+            groups.append((bc, []))
+        groups[-1][1].append("".join(rec))
+    per = -(-len(groups) // n)
+    out = []
+    for h in range(n):
+        part = groups[h * per:(h + 1) * per]
+        path = os.path.join(out_dir, f"shard{h}.fastq.gz")
+        with gzip.open(path, "wt", compresslevel=1) as f:
+            for _, rs in part:
+                f.writelines(rs)
+        out.append((path, sum(len(rs) for _, rs in part)))
+    return out
+
+
+# a [wtrace] line is one write, so another thread's print may end up on
+# either side of it but never inside it
+_WTRACE = re.compile(r"\[wtrace\] (\S+)\s+\([^)]*\)\s+build\s+(\d+)ms disp\s+"
+                     r"(\d+)ms dl\s+(\d+)ms up\s+([\d.]+)MB dn\s+([\d.]+)MB\n")
+
+
+def phase_multihost(fasta, reads, env, logs):
+    """Four multihost processes on the card over barcode-complete shards of
+    phase 4's reads, file:// rendezvous: each primes all its pairs, the
+    global stats agree, and the merged records equal host-native's; each
+    process's pairs/s and launches and the [wtrace] sums by site
+    printed."""
+    n = 4
+    base = os.path.join(SMOKE, "multihost")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    shards = _fastq_shards(reads, n, base)
+    knobs = {"LARIAT_PRIME_THREADS": "20", "LARIAT_PRIME_TAIL_GRACE": "600",
+             "LARIAT_PRIME_MIN_FRAC": "0", "LARIAT_WAVE_TRACE": "1"}
+    init = "file://" + os.path.join(base, "rendezvous")
+    procs, paths = [], []
+    try:
+        for h, (shard, _) in enumerate(shards):
+            paths.append(os.path.join(logs, f"multihost_{h}.log"))
+            with open(paths[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m",
+                     "lariat_tpu_torch.parallel.multihost", "-coordinator",
+                     init, "-num_processes", str(n), "-process_id", str(h),
+                     "-reads", shard, "-genome", fasta, "-output_base",
+                     os.path.join(base, "out"), "-threads", "2",
+                     "-use_device", "on", "-simulated"], cwd=REPO,
+                    env={**env, **knobs},
+                    stdout=log, stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for h, path in enumerate(paths):
+        with open(path) as f:
+            outs.append(f.read())
+        if rcs[h] != 0:
+            raise AssertionError(f"multihost process {h} exited {rcs[h]}:\n"
+                                 f"{outs[-1][-3000:]}")
+    results, sums = [], {}
+    for h, (out, (_, want)) in enumerate(zip(outs, shards)):
+        res = _last_json(out, ("host", "rc", "output_dir", "local_stats",
+                               "global_stats"), f"multihost {h}")
+        n_pairs, rate = _summary(out)
+        m = re.search(r"primed pairs (\d+)\s+host pairs (\d+)", out)
+        lm = re.search(r"kernel launches: (\{.*\})", out)
+        if not (m and lm):
+            raise AssertionError(f"multihost {h}: no device summary")
+        primed, host_pairs = int(m.group(1)), int(m.group(2))
+        if not (n_pairs == primed == want and host_pairs == 0):
+            raise AssertionError(f"multihost {h}: {n_pairs} pairs, {primed} "
+                                 f"primed, {host_pairs} host-routed; want "
+                                 f"{want} all primed")
+        lines = list(_WTRACE.finditer(out))
+        sites = [mt.group(1) for mt in lines]
+        wm = re.search(r"device waves: (\d+)", out)
+        # every wave the engine counts has its line (a reg2aln wave two)
+        if not (lines and len(lines) == out.count("[wtrace]") and wm
+                and sites.count("r2a.d") == sites.count("r2a.f")
+                and len(lines) - sites.count("r2a.f") == int(wm.group(1))):
+            raise AssertionError(f"multihost {h}: {len(lines)} [wtrace] "
+                                 f"lines by site {sorted(set(sites))} for "
+                                 f"{wm.group(1) if wm else '?'} waves")
+        for mt in lines:
+            site = sums.setdefault(mt.group(1), [0, 0, 0, 0, 0.0, 0.0, 0])
+            ms = [int(mt.group(2 + k)) for k in range(3)]
+            site[0] += 1
+            for k in range(3):
+                site[1 + k] += ms[k]
+            site[4] += float(mt.group(5))
+            site[5] += float(mt.group(6))
+            site[6] = max(site[6], sum(ms))
+        launches = json.loads(lm.group(1))
+        print(f"  multihost process {h}: {n_pairs} pairs, {rate} pairs/s, "
+              f"all primed; local stats {res['local_stats']}, global "
+              f"{res['global_stats']}; launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        results.append((res, rate, launches))
+    glob_stats = [r[0]["global_stats"] for r in results]
+    want = [sum(c) for c in zip(*(r[0]["local_stats"] for r in results))]
+    pairs = sum(k for _, k in shards)
+    if any(g != want for g in glob_stats) or want[0] != 2 * pairs:
+        raise AssertionError(f"multihost global stats {glob_stats}, locals "
+                             f"sum to {want}; want {2 * pairs} reads")
+    for site, (k, b, d, dl, up, dn, top) in sorted(sums.items()):
+        print(f"  [wtrace] {site}: {k} lines over the 4 processes, build "
+              f"{b} ms, dispatch {d} ms, download {dl} ms, up {up:.2f} MB, "
+              f"down {dn:.2f} MB; the longest line {top} ms (each line "
+              f"rounds to whole ms)")
+    # records: the merged position-bucketed BAMs against host-native's as
+    # sorted lists; the barcode-sorted BAMs, host by host, in order
+    merged = os.path.join(base, "merged.bam")
+    _run([sys.executable, "-m", "lariat_tpu_torch.tools.cat_bams", "-o",
+          merged, "--auto", *(r[0]["output_dir"] for r in results)],
+         timeout=300, env=env)
+    host = sorted(glob.glob(os.path.join(SMOKE, "out_host",
+                                         "*_pos_bucketed.bam")))
+
+    def records(path):
+        body, _ = _bam_records(path)
+        out, off = [], 0
+        while off < len(body):
+            k = 4 + int.from_bytes(body[off:off + 4], "little")
+            out.append(body[off:off + k])
+            off += k
+        return out
+
+    got = sorted(records(merged))
+    ref = sorted(r for path in host for r in records(path))
+    if got != ref:
+        raise AssertionError(f"multihost merged records ({len(got)}) differ "
+                             f"from host-native's ({len(ref)})")
+    bc = [r for res in results for r in records(
+        os.path.join(res[0]["output_dir"], "bc_sorted_bam.bam"))]
+    if bc != records(os.path.join(SMOKE, "out_host", "bc_sorted_bam.bam")):
+        raise AssertionError("multihost barcode-sorted records differ from "
+                             "host-native's")
+    print(f"  multihost: {len(got)} position-bucketed and {len(bc)} "
+          f"barcode-sorted records equal host-native's; global stats "
+          f"{want} in all 4 processes")
+    return {"rates": [r[1] for r in results], "wtrace": sums,
+            "launches": [r[2] for r in results]}
 
 
 def main(argv=None) -> int:
@@ -2326,11 +2545,22 @@ def main(argv=None) -> int:
         phase_bench(env, args.logs)
     with Phase("probe and entry"):
         phase_probe_entry(env, args.logs)
+    with Phase("dryrun multichip"):
+        dry = phase_dryrun()
+    with Phase("multihost"):
+        mh = phase_multihost(fasta, reads, env, args.logs)
     desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
     extra = {"sw_extend": {"desc_launches": desc,
                            "desc_wave": kres.pop("sw_extend_desc"),
                            "step_entry": step_entry},
              "sa_walk": {**walks, "lookup_entry": kres.pop("sa_lookup")}}
+    # the scale-out paths' launches: the dry run's single and split runs,
+    # the multihost processes' sum
+    for k in CLI_KERNELS:
+        extra.setdefault(k, {}).update(
+            dryrun_launches={"single": dry["launches_single"].get(k, 0),
+                             "split": dry["launches_split"].get(k, 0)},
+            multihost_launches=sum(x.get(k, 0) for x in mh["launches"]))
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         err, ms, pms, _, bms, by, *more = kres[name]

@@ -3,7 +3,7 @@ runs through the port's kernels.
 
 ``TorchBatchAlignmentEngine`` is the host control flow of lariat_tpu's
 ``BatchAlignmentEngine`` (``align_batch``, ``prime_regions`` and the
-reg2aln session driver), copied without its JAX, Pallas and mesh branches.
+reg2aln session driver), copied without its JAX and Pallas branches.
 The C++ sessions (native/align1.cpp ``a1s_*`` / ``r2s_*``) replay BWA-MEM's
 sequential control flow between waves exactly as in the reference:
 
@@ -20,6 +20,24 @@ wave boundary (the seeding call, each seed-extension wave, the rescue wave,
 each reg2aln wave); its sessions close without finishing. The CLI's router
 sets it at the end of its input, after a grace, and host-routes the
 batches whose passes it abandons.
+
+The wave split (the reference's ``mesh`` and ``_shard_wave``): given
+``devices``, a list with one entry a shard (the same card may appear more
+than once), each wave's rows are dealt round-robin over them, block d
+holding the tasks o with o % n == d; every block is dispatched on its own
+device before any is downloaded, and the results are put back in task
+order. The genome's pac words and a group's reads are replicated, one copy
+a distinct device; seeding stays on ``devices[0]``. With one device (the
+default) a wave is one block, as before.
+
+The wave trace, read once at import as the reference reads it:
+``LARIAT_WAVE_TRACE=1`` prints the reference's ``[wtrace]`` line, in its
+format, for each wave at its four sites (``ext`` a seed-extension wave,
+``loc`` a rescue wave, ``r2a.d`` a reg2aln dispatch, ``r2a.f`` its
+download): build, dispatch and download ms and the MB sent each way. A
+launch is asynchronous, as a JAX dispatch is, so the download time holds
+the kernels' time. ``LARIAT_WAVE_DEBUG=1`` prints the reference's
+``[wave]`` line after each seed-extension wave.
 
 Seeding follows the reference's policy: ``LARIAT_DEVICE_SEED=1`` runs the
 3-round SMEM seeding and its SA walks on the device (``_device_seed``,
@@ -49,6 +67,22 @@ from . import ksw, native_engine
 from .engine import AlignmentEngine, SingleReadAlignment, encode_read
 from .extension import AlnReg
 
+WAVE_TRACE = os.environ.get("LARIAT_WAVE_TRACE") == "1"
+WAVE_DEBUG = os.environ.get("LARIAT_WAVE_DEBUG") == "1"
+
+
+def _line(text: str) -> None:
+    """One line in one write: priming threads print these concurrently,
+    and print's separate newline would let their lines run together."""
+    print(text + "\n", end="", flush=True)
+
+
+def _wtrace(kind: str, shape, t_build: float, t_disp: float, t_dl: float,
+            up_b: int, dn_b: int) -> None:
+    _line(f"[wtrace] {kind:5s} {str(shape):18s} build {t_build*1e3:6.0f}ms "
+          f"disp {t_disp*1e3:6.0f}ms dl {t_dl*1e3:6.0f}ms "
+          f"up {up_b/1e6:7.2f}MB dn {dn_b/1e6:6.2f}MB")
+
 
 class PrimeAborted(Exception):
     """A priming pass stopped between waves because ``abort_prime`` was
@@ -58,7 +92,8 @@ class PrimeAborted(Exception):
 
 class TorchBatchAlignmentEngine(AlignmentEngine):
     """Engine whose DP waves run as the port's kernels on ``device``
-    (``lariat_tpu_torch.device.get_device`` picks it)."""
+    (``lariat_tpu_torch.device.get_device`` picks it), or split over
+    ``devices``, one entry a shard."""
 
     # genome scale above which device seeding is on by default: host C++
     # seeding is FM-cache-miss-bound at gigabase scale; small genomes keep
@@ -69,8 +104,11 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
     # is downloaded
     R2ALN_CHUNK = 2048
 
-    def __init__(self, fm, opt=None, pair=None, device=None):
+    def __init__(self, fm, opt=None, pair=None, device=None, devices=None):
         super().__init__(fm, opt, pair)
+        if devices is not None and (device is not None or not devices):
+            raise ValueError("pass one device or a nonempty list of "
+                             "devices")
         if not (native_engine.Align1Session.available()
                 and native_engine.Reg2AlnSession.available()):
             raise RuntimeError(
@@ -81,15 +119,18 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
                     "ksw_cigar_from_ops_packed_batch"):
             if not hasattr(lib, sym):
                 raise RuntimeError(f"native library lacks {sym}; rebuild it")
-        self.device = get_device(device)
-        if self.device.type == "cuda":
+        self.devices = [get_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
+        if any(d.type == "cuda" for d in self.devices):
             _build.load()           # build the kernels now, not mid-wave
+        self.shard_waves = 0        # waves split over more than one device
+        self.shard_log: list = []   # per split wave: {"Bp", "n_dev", "real"}
         # wall time with a wave dispatched or downloading, summed across
         # priming threads: the CLI reports wall / elapsed as the busy proxy
         self.wave_stats = {"wall": 0.0, "n": 0}
         self._stats_lock = threading.Lock()
         self._pac_lock = threading.Lock()
-        self._pac_res = None
+        self._pac_res: dict = {}    # device -> pac words on it
         self._seed_lock = threading.Lock()
         self._seed_state = None     # (DeviceFMIndex, DeviceGenome)
         # set by the CLI's router (or a server's abort request) to make the
@@ -105,15 +146,41 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
             self.wave_stats["wall"] += seconds
             self.wave_stats["n"] += n
 
-    def _pac_resident(self):
-        """(pac_words tensor on the device, l_pac), uploaded once and shared
-        by every resident-fed wave."""
+    def _pac_resident(self, dev=None):
+        """(pac_words tensor on ``dev``, default ``self.device``, l_pac),
+        uploaded once a device and shared by every resident-fed wave."""
+        dev = self.device if dev is None else dev
         with self._pac_lock:
-            if self._pac_res is None:
-                self._pac_res = (
-                    resident.pac_words_from_fm(self.fm, self.device),
-                    int(self.fm.l_pac))
-            return self._pac_res
+            if dev not in self._pac_res:
+                self._pac_res[dev] = resident.pac_words_from_fm(self.fm, dev)
+            return self._pac_res[dev], int(self.fm.l_pac)
+
+    def _replicas(self, t: torch.Tensor) -> dict:
+        """``t`` copied to each distinct device of the engine."""
+        return {dev: t.to(dev) for dev in dict.fromkeys(self.devices)}
+
+    def _split_wave(self, n_rows: int, real: int):
+        """The rows of a wave dealt over ``self.devices`` (the reference's
+        ``_shard_wave``): ([(device, rows)], inv).
+
+        Block d holds the tasks o with o % n == d, in task order: a wave's
+        real tasks fill its first rows, so every device gets an even share
+        of them. Blocks may differ by one row and are empty when n_rows <
+        n (the caller skips their launch). ``inv`` maps each task to its
+        row in the blocks' concatenation, so indexing the concatenated
+        results with it restores task order. With one device: one block of
+        every row and ``inv`` None, and nothing is logged."""
+        n = len(self.devices)
+        if n == 1:
+            return [(self.device, np.arange(n_rows))], None
+        rows = [np.arange(d, n_rows, n) for d in range(n)]
+        inv = np.empty(n_rows, np.int64)
+        inv[np.concatenate(rows)] = np.arange(n_rows)
+        with self._stats_lock:
+            self.shard_waves += 1
+            self.shard_log.append({"Bp": n_rows, "n_dev": n,
+                                   "real": int(real)})
+        return list(zip(self.devices, rows)), inv
 
     def _seed_index(self):
         """The device index for seeding, uploaded once, at first use, by
@@ -196,39 +263,58 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         sess = native_engine.Align1Session(self.fm, opt, qs, mems_list,
                                            rbegs_list)
         try:
-            reads = resident.put_reads(qs, self.device).codes
-            pac_words, l_pac = self._pac_resident()
+            reads = self._replicas(resident.put_reads(qs, "cpu").codes)
+            l_pac = int(self.fm.l_pac)
             while sess.pending():
                 self._check_abort()
+                t_wave = time.time()
                 bonus = opt.pen_clip5 if sess.phase() == 0 else opt.pen_clip3
                 (rid, qstart, qdir, qlen, tstart, tdir, tlen, h0, w,
                  Lq, Lt) = sess.wave_descs()
                 desc = resident.pack_desc(rid, qstart, qdir, qlen, tstart,
                                           tdir, tlen, h0, w, l_pac)
+                blocks, inv = self._split_wave(len(desc),
+                                               np.count_nonzero(qlen))
                 t_dev = time.time()
-                res = resident.extend_wave_resident(
-                    reads, pac_words, l_pac,
-                    torch.from_numpy(desc).to(self.device), Lq=Lq, Lt=Lt,
-                    opt_key=self._opt_key(bonus))
-                rows = res.cpu().numpy()     # one download per wave: (8, B)
+                outs = [resident.extend_wave_resident(
+                    reads[dev], self._pac_resident(dev)[0], l_pac,
+                    torch.from_numpy(desc if inv is None else desc[idx]).to(
+                        dev), Lq=Lq, Lt=Lt, opt_key=self._opt_key(bonus))
+                    for dev, idx in blocks if len(idx)]
+                t_disp = time.time()
+                rows = ksw.download_blocks(outs, inv, 1)   # (8, B)
                 self._wave_done(time.time() - t_dev)
+                if WAVE_TRACE:
+                    _wtrace("ext", (len(qlen), Lq, Lt), t_dev - t_wave,
+                            t_disp - t_dev, time.time() - t_disp,
+                            desc.nbytes, rows.nbytes)
                 sess.feed(rows[0], rows[1], rows[2], rows[3], rows[4],
                           rows[5])
+                if WAVE_DEBUG:
+                    _line(f"[wave] phase={sess.phase()} B={len(qlen)} "
+                          f"q={Lq} t={Lt} {time.time() - t_wave:.2f}s")
             return sess.finish()
         finally:
             sess.close()
 
     def local_align_device(self, tasks):
-        """Mate-rescue local SW for a whole batch as one two-pass K3 wave;
-        bit-identical to per-task ksw.local_align."""
+        """Mate-rescue local SW for a whole batch as one two-pass K3 wave
+        (a K3 call a block of the wave's split); bit-identical to per-task
+        ksw.local_align."""
         self._check_abort()
         opt = self.opt
         t_dev = time.time()
+        trace = {} if WAVE_TRACE else None
         out = ksw.local_align_batch(
             tasks, self.mat, opt.gap_open_del, opt.gap_extend_del,
             opt.gap_open_ins, opt.gap_extend_ins,
-            opt.min_seed_len * opt.match_score, device=self.device)
+            opt.min_seed_len * opt.match_score, device=self.device,
+            split_fn=self._split_wave, trace=trace)
         self._wave_done(time.time() - t_dev)
+        if WAVE_TRACE:     # no DP task: a line of zeros, as the reference
+            _wtrace("loc", (len(tasks),),
+                    *(trace.get(k, 0) for k in ("build", "disp", "dl",
+                                                "up", "dn")))
         return out
 
     def _pairs_regions(self, recs):
@@ -382,37 +468,59 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         return st
 
     def _r2s_dispatch(self, st):
-        """Launch one reg2aln wave (K2 + K2b) for a session; returns the
-        blob, still on the device, and its op count S."""
+        """Launch one reg2aln wave (K2 + K2b a block of its split) for a
+        session; returns the blocks' blobs, still on their devices, the
+        split's ``inv`` and the op count S."""
         opt = self.opt
         sess = st["sess"]
+        t_fill = time.time()
         if st["reads_res"] is None:
-            st["reads_res"] = resident.put_reads(st["reads"], self.device)
-        pac_words, l_pac = self._pac_resident()
+            st["reads_res"] = self._replicas(
+                resident.put_reads(st["reads"], "cpu").codes)
+        l_pac = int(self.fm.l_pac)
         (rid, qstart, qdir, qlen, tstart, tdir, tlen, wv,
          Lq, Lt) = sess.wave_descs()
         desc = resident.pack_desc(rid, qstart, qdir, qlen, tstart, tdir,
                                   tlen, np.zeros_like(wv), wv, l_pac)
-        desc_d = torch.from_numpy(desc).to(self.device)
-        q, t = resident.build_qt(st["reads_res"].codes, pac_words, l_pac,
-                                 desc_d, Lq=Lq, Lt=Lt)
-        qlen_d, tlen_d, w_d = (desc_d[:, k].to(torch.int32).contiguous()
-                               for k in (resident.D_QL, resident.D_TL,
-                                         resident.D_W))
-        score, z = sw_global.global_batch(
-            q, qlen_d, t, tlen_d, w_d, o_del=opt.gap_open_del,
-            e_del=opt.gap_extend_del, o_ins=opt.gap_open_ins,
-            e_ins=opt.gap_extend_ins, match_sc=opt.match_score,
-            mismatch_sc=-opt.mismatch_penalty)
+        blocks, inv = self._split_wave(len(desc), sess.pending())
         S = Lq + Lt
-        blob = sw_global.traceback_ops_fused(z, qlen_d, tlen_d, w_d, score,
-                                             S=S)
-        return blob, S
+        t_build, t_disp = time.time() - t_fill, 0.0
+        blobs = []
+        for dev, idx in blocks:
+            if not len(idx):
+                continue
+            t0 = time.time()
+            desc_d = torch.from_numpy(
+                desc if inv is None else desc[idx]).to(dev)
+            q, t = resident.build_qt(st["reads_res"][dev],
+                                     self._pac_resident(dev)[0], l_pac,
+                                     desc_d, Lq=Lq, Lt=Lt)
+            qlen_d, tlen_d, w_d = (desc_d[:, k].to(torch.int32).contiguous()
+                                   for k in (resident.D_QL, resident.D_TL,
+                                             resident.D_W))
+            t1 = time.time()
+            score, z = sw_global.global_batch(
+                q, qlen_d, t, tlen_d, w_d, o_del=opt.gap_open_del,
+                e_del=opt.gap_extend_del, o_ins=opt.gap_open_ins,
+                e_ins=opt.gap_extend_ins, match_sc=opt.match_score,
+                mismatch_sc=-opt.mismatch_penalty)
+            blobs.append(sw_global.traceback_ops_fused(
+                z, qlen_d, tlen_d, w_d, score, S=S))
+            t_build += t1 - t0
+            t_disp += time.time() - t1
+        if WAVE_TRACE:
+            _wtrace("r2a.d", (len(desc), Lq, Lt), t_build, t_disp, 0.0,
+                    desc.nbytes, 0)
+        return blobs, inv, S
 
     def _r2s_feed(self, st, handle) -> None:
-        """Download a dispatched wave's blob and feed the session."""
-        blob_d, S = handle
-        blob = blob_d.cpu().numpy()
+        """Download a dispatched wave's blobs and feed the session."""
+        blobs, inv, S = handle
+        t_dl = time.time()
+        blob = ksw.download_blocks(blobs, inv, 0)
+        if WAVE_TRACE:
+            _wtrace("r2a.f", (len(blob),), 0.0, 0.0, time.time() - t_dl, 0,
+                    blob.nbytes)
         packed, score, i_fin, k_fin = sw_global.split_traceback_blob(blob, S)
         cig_mat, nops = sw_global.cigars_from_ops_packed(packed, i_fin,
                                                          k_fin, S)

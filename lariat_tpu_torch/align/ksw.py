@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -471,18 +472,37 @@ def local_align_batch_native(tasks, mat: np.ndarray, o_del: int, e_del: int,
     return [LocalResult(*row) for row in out.tolist()]
 
 
+def download_blocks(outs, inv, axis: int) -> np.ndarray:
+    """The blocks' results of a split wave on the host, one download a
+    block, concatenated along ``axis`` in block order and put back in task
+    order by ``inv`` (None: one block, already in order)."""
+    host = [o.cpu().numpy() for o in outs]
+    got = host[0] if len(host) == 1 else np.concatenate(host, axis=axis)
+    return got if inv is None else np.take(got, inv, axis=axis)
+
+
 def local_align_batch(tasks: List[Tuple[np.ndarray, np.ndarray]],
                       mat: np.ndarray, o_del: int, e_del: int, o_ins: int,
-                      e_ins: int, minsc: int, device) -> List[LocalResult]:
+                      e_ins: int, minsc: int, device, split_fn=None,
+                      trace: Optional[dict] = None) -> List[LocalResult]:
     """ksw_align2 (XSTART|XSUBO) for many (query, target) tasks on
     ``device``: one two-pass K3 wave (forward local SW, then the reversed
     prefixes for the start coordinates) and one (8, B) download.
     Bit-identical per task to ``local_align``. Lengths pad to multiples of
     64 and the batch to a power of two >= 128, as the reference pads its
-    waves."""
+    waves.
+
+    ``split_fn(n_rows, real)`` (the reference's ``shard_fn``; the engine's
+    ``_split_wave``) deals the padded rows over devices as ([(device,
+    rows)], inv): each nonempty block runs the whole two-pass call on its
+    device (the second pass reverses prefixes at the first pass's ends),
+    every block is dispatched before any is downloaded, and ``inv`` puts
+    the rows back in task order. ``trace``, a dict, gets the wave's build,
+    dispatch and download seconds and the bytes sent each way."""
     B = len(tasks)
     if B == 0:
         return []
+    t0 = time.time()
     params = _mat_params(np.asarray(mat))
     if params is None:
         raise ValueError("the local kernel needs bwa's uniform score matrix")
@@ -511,12 +531,22 @@ def local_align_batch(tasks: List[Tuple[np.ndarray, np.ndarray]],
         ta[i, :len(ti)] = ti
         qlen[i] = len(qi)
         tlen[i] = len(ti)
-    dev = torch.device(device)
-    out = sw_local.local_two_pass(
-        *(torch.from_numpy(a).to(dev) for a in (qa, qlen, ta, tlen, minscs)),
+    arrays = (qa, qlen, ta, tlen, minscs)
+    blocks, inv = (split_fn(Bp, n) if split_fn is not None
+                   else ([(torch.device(device), None)], None))
+    t_build = time.time()
+    outs = [sw_local.local_two_pass(
+        *(torch.from_numpy(a if inv is None else a[idx]).to(dev)
+          for a in arrays),
         o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
         match_sc=params[0], mismatch_sc=params[1], n_sc=params[2])
-    rows = out.cpu().numpy()       # one download: (8, Bp)
+        for dev, idx in blocks if inv is None or len(idx)]
+    t_disp = time.time()
+    rows = download_blocks(outs, inv, 1)      # (8, Bp) in task order
+    if trace is not None:
+        trace.update(build=t_build - t0, disp=t_disp - t_build,
+                     dl=time.time() - t_disp,
+                     up=sum(a.nbytes for a in arrays), dn=rows.nbytes)
     score, te, qe, score2, te2, qe_r, te_r, scored = (
         rows[k].tolist() for k in range(8))
     for k, i in enumerate(fwd_idx):

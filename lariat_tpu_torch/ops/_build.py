@@ -8,8 +8,9 @@ repository root, named by a hash of the sources and flags, and is built at
 first use: importing this module compiles nothing.
 
 Each C entry launches one kernel on the stream it is given (PyTorch's
-current stream) and returns ``cudaGetLastError()``; ``launch`` raises when
-that is not 0, and otherwise adds one to the kernel's launch count.
+current stream of the device its tensors lie on) and returns
+``cudaGetLastError()``; ``launch`` raises when that is not 0, and otherwise
+adds one to the kernel's launch count.
 """
 
 from __future__ import annotations
@@ -233,11 +234,23 @@ def check_byte_scores(**scores) -> None:
 
 
 def launch(name: str, *args, entry: Optional[str] = None) -> None:
-    """Launch kernel ``name`` on the current CUDA stream, through its C
-    entry or through ``entry`` (one of ``ENTRIES``, counted under ``name``).
+    """Launch kernel ``name`` through its C entry or through ``entry`` (one
+    of ``ENTRIES``, counted under ``name``) on the device its tensors lie
+    on: on that device's current stream, under ``torch.cuda.device(dev)``
+    when it is not the current device, so the entry's
+    ``cudaFuncSetAttribute`` and launch target that card.
 
     ``args`` are tensors (passed by data pointer; the caller keeps them
-    alive) and ints, in the C entry's order without the trailing stream."""
+    alive) and ints, in the C entry's order without the trailing stream.
+    Raises when the tensors span devices or lie on the CPU (or there is
+    none). Launch counts are summed over devices."""
+    # device indices, -1 for the CPU: cheaper than a torch.device a tensor
+    devs = {a.get_device() for a in args if isinstance(a, torch.Tensor)}
+    if len(devs) != 1 or -1 in devs:
+        got = sorted("cpu" if d < 0 else f"cuda:{d}" for d in devs)
+        raise ValueError(f"{name}: a launch takes tensors on one CUDA "
+                         f"device, got {got or 'none'}")
+    (dev,) = devs
     lib = load()
     if entry is None:
         entry = KERNELS[name][0]
@@ -245,7 +258,12 @@ def launch(name: str, *args, entry: Optional[str] = None) -> None:
         raise ValueError(f"{entry} is not an entry of kernel {name}")
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
              for a in args]
-    rc = getattr(lib, entry)(*cargs, torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev == torch.cuda.current_device():
+        rc = getattr(lib, entry)(*cargs, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = getattr(lib, entry)(*cargs, stream)
     if rc != 0:
         msg = lib.lariat_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "

@@ -22,8 +22,10 @@ Each is one warm-up run and the median of 3; every run records its
 ``primed_pairs`` and ``host_pairs`` where the CLI prints them. ``detail``
 also holds the RFA row probe (one host-native run with the torch rows,
 ``LARIAT_RFA_JIT=1``), the record diff rate of the last host and device
-runs, the ``data_big/`` hg38 and chr20 1M runs when those inputs exist
-(else ``hg38_skipped``: the port has no data generator yet), the kernel
+runs, the ``data_big/`` hg38 and chr20 1M runs (``data_big/`` regenerated
+by ``python -m lariat_tpu_torch.tools.gen_data_big`` when it is missing,
+unless ``LARIAT_BENCH_NO_GEN`` is set, which records ``hg38_skipped``), the
+kernel
 roofline (``python -m lariat_tpu_torch.tools.kernel_roofline``), the device
 align step (``python -m lariat_tpu_torch.tools.device_step``) and the
 card's name and power limit as nvidia-smi gives them. The roofline and the
@@ -44,10 +46,12 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -296,21 +300,59 @@ def _mode_runs(fa, reads, workdir, mode, tag, n=4, threads=THREADS,
     return med, runs, server
 
 
-def _hg38_runs(workdir: str) -> dict:
-    """Full-genome (3.09 Gbp simulated hg38) CLI runs, host vs device, 8
-    workers, one warm-up and the median of 3 each, then chr20 scale at 1M
-    pairs (device-primed, one run) -- when ``data_big/`` holds the inputs.
-    The port has no data generator yet (tools/gen_data_big.py imports the
-    JAX package), so without them this records ``hg38_skipped``."""
+def _hg38_inputs():
+    """(FASTA, reads, centromeres) of data_big/: the largest read set
+    there is."""
     fa = os.path.join(HG38_DIR, "hg38sim.fa")
     reads = os.path.join(HG38_DIR, "sim200k.fastq.gz")
     for fall in ("sim50k.fastq.gz", "sim10k.fastq.gz"):
         if not os.path.exists(reads):
             reads = os.path.join(HG38_DIR, fall)
-    cents = os.path.join(HG38_DIR, "hg38sim.centromeres.tsv")
+    return fa, reads, os.path.join(HG38_DIR, "hg38sim.centromeres.tsv")
+
+
+def _generate_data_big() -> Optional[str]:
+    """Regenerate data_big/ with the port's generator (one at a time: it
+    takes data_big/.gen.lock); None when it succeeded, else why not. The
+    generator runs in a session of its own, so a timeout
+    (``LARIAT_BENCH_GEN_TIMEOUT``, default 10,800 s) stops it and its
+    children."""
+    timeout = float(os.environ.get("LARIAT_BENCH_GEN_TIMEOUT", "10800"))
+    print("data_big/ missing; regenerating it (python -m "
+          "lariat_tpu_torch.tools.gen_data_big; hours at hg38 scale)",
+          file=sys.stderr, flush=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lariat_tpu_torch.tools.gen_data_big",
+         HG38_DIR], cwd=REPO, env=_env(), stdout=sys.stderr,
+        start_new_session=True)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        return f"data_big regeneration timed out after {timeout:.0f}s"
+    return None if rc == 0 else f"data_big regeneration failed (rc {rc})"
+
+
+def _hg38_runs(workdir: str) -> dict:
+    """Full-genome (3.09 Gbp simulated hg38) CLI runs, host vs device, 8
+    workers, one warm-up and the median of 3 each, then chr20 scale at 1M
+    pairs (device-primed, one run). When ``data_big/`` lacks the inputs it
+    is regenerated first, as the reference bench does; with
+    ``LARIAT_BENCH_NO_GEN`` set, or when the generator fails, this records
+    ``hg38_skipped``."""
+    fa, reads, cents = _hg38_inputs()
     if not os.path.isdir(fa + ".lariat.d") or not os.path.exists(reads):
-        return {"hg38_skipped": "data_big/ missing; the port has no data "
-                                "generator yet"}
+        if os.environ.get("LARIAT_BENCH_NO_GEN"):
+            return {"hg38_skipped": "data_big/ missing and "
+                                    "LARIAT_BENCH_NO_GEN=1"}
+        why = _generate_data_big()
+        if why:
+            return {"hg38_skipped": why}
+        fa, reads, cents = _hg38_inputs()
+        if not os.path.isdir(fa + ".lariat.d") or not os.path.exists(reads):
+            return {"hg38_skipped": "regeneration completed but inputs "
+                                    "still absent"}
     out = {}
     extra = ("-centromeres", cents) if os.path.exists(cents) else ()
     for mode, key in (("off", "hg38_host_8w"), ("on", "hg38_device_8w")):

@@ -1,0 +1,113 @@
+"""Regenerate data_big/ (the bench's chr20- and hg38-scale inputs) with the
+port's index builder: the port of tools/gen_data_big.py.
+
+    python -m lariat_tpu_torch.tools.gen_data_big [DIR]    # default data_big/
+
+The same steps and sizes as the reference: chr20 scale first (a 64 Mbp
+genome, ``tools/synth_genome.py --scale 0.0208 --seed 7``, and 10,000
+barcodes x 100 pairs), then hg38 scale (``--scale 1.0`` with its
+centromeres; the 200k, 50k and 10k read sets). The genomes and reads come
+from ``tools/synth_genome.py`` and ``tools/sim_reads.py`` run as
+subprocesses; each index is built by the port's ``index/fmindex.py`` and
+written as the mmap-able ``.lariat.d`` directory. The hg38-scale build
+peaks near 124 GB of RAM in the reference: run nothing RAM-heavy beside it.
+
+Every output is written under a ``.part`` name and renamed into place when
+complete, so an output that exists is whole; each step runs only when its
+output is missing. One generator at a time: ``DIR/.gen.lock`` is held with
+``fcntl.flock`` for the whole run, so a second generator blocks until the
+first is done (or dies: the kernel drops its lock) and then finds every
+output present and builds nothing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import fcntl
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+DEFAULT_DIR = os.path.join(REPO, "data_big")
+
+
+def run(args: list) -> None:
+    """One of the repository's generator scripts, as a subprocess."""
+    print("+", " ".join(args), flush=True)
+    subprocess.run([sys.executable] + args, check=True, cwd=REPO)
+
+
+def build(fa: str, sa_intv: int = 32) -> None:
+    """The index of ``fa`` (port ``fmindex``) written to
+    ``fa.lariat.d``, through a ``.part`` directory renamed when done."""
+    from ..index import fmindex
+    t0 = time.time()
+    fm = fmindex.build_index(fa, sa_intv=sa_intv)
+    print(f"build {fa}: {time.time() - t0:.0f}s, l_pac={fm.l_pac:,}",
+          flush=True)
+    t0 = time.time()
+    part = fa + ".part"
+    shutil.rmtree(part + ".lariat.d", ignore_errors=True)
+    fm.save_dir(part)
+    shutil.rmtree(fa + ".lariat.d", ignore_errors=True)
+    os.replace(part + ".lariat.d", fa + ".lariat.d")
+    print(f"save_dir: {time.time() - t0:.0f}s", flush=True)
+
+
+def _reads(fa: str, out: str, barcodes: int, pairs_per_bc: int) -> None:
+    if os.path.exists(out):
+        return
+    part = out[:-len(".fastq.gz")] + ".part.fastq.gz"
+    run(["tools/sim_reads.py", fa, part, "--barcodes", str(barcodes),
+         "--pairs-per-bc", str(pairs_per_bc)])
+    os.replace(part, out)
+
+
+def generate(db: str) -> None:
+    """Every missing output of ``db``, in the reference's order."""
+    os.makedirs(db, exist_ok=True)
+    # --- chr20 scale (~64 Mbp) + 1M pairs ---
+    c20 = os.path.join(db, "chr20sim.fa")
+    if not os.path.isdir(c20 + ".lariat.d"):
+        run(["tools/synth_genome.py", c20, "--scale", "0.0208",
+             "--seed", "7"])
+        build(c20)
+    _reads(c20, os.path.join(db, "sim1m_chr20.fastq.gz"), 10000, 100)
+    # --- hg38 scale (3.09 Gbp) + 200k/50k/10k pairs ---
+    hg = os.path.join(db, "hg38sim.fa")
+    if not os.path.isdir(hg + ".lariat.d"):
+        run(["tools/synth_genome.py", hg, "--scale", "1.0", "--seed", "7",
+             "--centromeres", os.path.join(db, "hg38sim.centromeres.tsv")])
+        build(hg)
+    for name, bcs, ppb in (("sim200k.fastq.gz", 4000, 50),
+                           ("sim50k.fastq.gz", 1000, 50),
+                           ("sim10k.fastq.gz", 200, 50)):
+        _reads(hg, os.path.join(db, name), bcs, ppb)
+    print("data_big complete", flush=True)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="lariat_tpu_torch.tools.gen_data_big")
+    p.add_argument("dir", nargs="?", default=DEFAULT_DIR,
+                   help="output directory (default: data_big/ at the "
+                        "repository root)")
+    args = p.parse_args(argv)
+    db = os.path.abspath(args.dir)
+    os.makedirs(db, exist_ok=True)
+    with open(os.path.join(db, ".gen.lock"), "a") as lock:
+        try:
+            fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except BlockingIOError:
+            print(f"another generator holds {db}/.gen.lock; waiting",
+                  flush=True)
+            fcntl.flock(lock, fcntl.LOCK_EX)
+        generate(db)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,12 +1,12 @@
-"""K1, K2b, K4a, K4b, K4c, K9, the SA lookup (K5), K7 and the align
-step's extension timed on the card, to compare two trees of the port in
+"""K1, K2, K2b, K3, K4a, K4b, K4c, K9, the SA lookup (K5), K7 and the
+align step's extension timed on the card, to compare two trees of the port in
 one call, in turns (parent, new, new, parent):
 
     git archive <parent> lariat_tpu_torch | tar -x -C build/parent
     for t in build/parent . . build/parent; do
       PYTHONPATH=$t python3 lariat_tpu_torch/tools/kernel_turns.py \\
           <genome.fa> <reads.fastq.gz> \\
-          [k1,k2b,k4a,k4b,k4c,k9,lookup,k7,step]
+          [k1,k2,k2b,k3,launch,k4a,k4b,k4c,k9,lookup,k7,step]
     done
 
 The third argument picks the sections (all by default). A tuning variant
@@ -21,6 +21,15 @@ puts first, through entry points that every tree of the port has had since
 device seeding came in:
 - K1, ``sw_extend.extend_batch``, on chip_smoke.py phase 3's inputs
   (``k1_inputs``: 8192 x 192 x 576, seed 1), checked against its twin;
+- K2, ``sw_global.global_batch``, on ``k2_inputs`` (2,048 x 192 x 384),
+  checked against its twin;
+- K3, ``sw_local.local_batch``, at chip_smoke.py phase 3's rescue-wave shape
+  (``k3_inputs``: 4,096 x 192 x 704, qlen 151, tlen 686, minsc 19),
+  checked against its twin;
+- the launch path's host cost: ``sw_local.local_batch`` on 32 tasks of 64
+  x 128 (a kernel of a few us, so the host's work leads), in us a call
+  from one thread and from 20 threads at once, as the CLI's priming
+  threads call it (``launch_us``; the GIL held by the others included);
 - K4a, ``smem_device.min_starts_twoptr``, at round 1's phase-A budget (3L)
   on the first 4,096 reads of the FASTQ (``seed_batch``), checked against
   its twin, with the transitions of its longest lane (flags bits 2+);
@@ -67,6 +76,8 @@ from __future__ import annotations
 import json
 import os
 import sys
+import threading
+import time
 
 import numpy as np
 
@@ -112,6 +123,39 @@ def k2_inputs(rng, B=2048, Lq=192, Lt=384):
     w = np.maximum(np.abs(qlen - tlen),
                    rng.integers(1, 60, B)).astype(np.int32)
     return q, qlen, t, tlen, w
+
+
+def k3_inputs(rng, B=4096, Lq=192, Lt=704, ql=151, tl=686):
+    """K3 at a rescue wave: reads of 151 (Lq 192) in the pestat window
+    high - low + 151 = 686 (Lt 704), planted, minsc 19 -> (q, qlen, t,
+    tlen, minsc) numpy arrays."""
+    qlen = np.full(B, ql, np.int32)
+    tlen = np.full(B, tl, np.int32)
+    q, t = planted(rng, qlen, tlen, Lq, Lt)
+    return q, qlen, t, tlen, np.full(B, 19, np.int32)
+
+
+def launch_us(fn, threads: int, n: int, sync=lambda: None) -> float:
+    """Wall us a call of ``fn`` when ``threads`` threads each call it ``n``
+    times at once (after one warm call), ``sync`` closing the run."""
+    fn()
+    sync()
+    ready = threading.Barrier(threads + 1)
+
+    def work():
+        ready.wait()
+        for _ in range(n):
+            fn()
+
+    ts = [threading.Thread(target=work) for _ in range(threads)]
+    for t in ts:
+        t.start()
+    ready.wait()
+    t0 = time.perf_counter()
+    for t in ts:
+        t.join()
+    sync()
+    return (time.perf_counter() - t0) * 1e6 / (threads * n)
 
 
 def seed_batch(reads_path, n):
@@ -224,7 +268,7 @@ def device_split(fn, n=20):
     return {k: [c / n, us / c] for k, (c, us) in sorted(acc.items())}
 
 
-SECTIONS = ("k1", "k2b", "k4a", "k4b", "k4c", "k9", "lookup", "k7", "step")
+SECTIONS = ("k1", "k2", "k2b", "k3", "launch", "k4a", "k4b", "k4c", "k9", "lookup", "k7", "step")
 
 
 def make_variant(dest, rel, old, new) -> str:
@@ -250,7 +294,7 @@ def main(argv=None) -> int:
     import torch
     from lariat_tpu_torch.cli import load_reference
     from lariat_tpu_torch.ops import fm_batch, smem_device as sd
-    from lariat_tpu_torch.ops import sw_batch, sw_extend, sw_global
+    from lariat_tpu_torch.ops import sw_batch, sw_extend, sw_global, sw_local
     from lariat_tpu_torch.parallel import align_step
     from lariat_tpu_torch.tools import card, median_ms
     import lariat_tpu_torch
@@ -260,8 +304,8 @@ def main(argv=None) -> int:
         return 0
     if len(argv) not in (2, 3):
         raise SystemExit("usage: kernel_turns.py <genome.fa> "
-                         "<reads.fastq.gz> [k1,k2b,k4a,k4b,k4c,k9,lookup,"
-                         "k7,step]")
+                         "<reads.fastq.gz> [k1,k2,k2b,k3,launch,k4a,k4b,"
+                         "k4c,k9,lookup,k7,step]")
     want_s = set(argv[2].split(",")) if len(argv) == 3 else set(SECTIONS)
     if not want_s <= set(SECTIONS):
         raise SystemExit(f"sections: {sorted(want_s - set(SECTIONS))}?")
@@ -299,10 +343,18 @@ def main(argv=None) -> int:
                                     .max())
         out["k1_ms"] = medians(k1)
 
-    if "k2b" in want_s:
+    if want_s & {"k2", "k2b"}:
         q2, ql2, t2, tl2, w2 = (put(a) for a in k2_inputs(rng))
         S = q2.shape[1] + t2.shape[1]
         score, z = sw_global.global_batch(q2, ql2, t2, tl2, w2)
+
+    if "k2" in want_s:
+        out["k2_max_abs_err"] = err(
+            [score, z], sw_global.global_batch_plain(q2, ql2, t2, tl2, w2))
+        out["k2_ms"] = medians(
+            lambda: sw_global.global_batch(q2, ql2, t2, tl2, w2))
+
+    if "k2b" in want_s:
 
         def k2b():
             return sw_global.traceback_ops_fused(z, ql2, tl2, w2, score, S)
@@ -322,6 +374,27 @@ def main(argv=None) -> int:
         tl0 = torch.zeros_like(tl2)
         out["k2b_nowalk_dev_ms"] = events_ms(
             lambda: sw_global.traceback_ops_fused(z, ql2, tl0, w2, score, S))
+
+    if "k3" in want_s:
+        q3, ql3, t3, tl3, m3 = (put(a) for a in k3_inputs(
+            np.random.default_rng(3)))
+        out["k3_max_abs_err"] = err(
+            [sw_local.local_batch(q3, ql3, t3, tl3, m3)],
+            [sw_local.local_batch_plain(q3, ql3, t3, tl3, m3)])
+        out["k3_ms"] = medians(
+            lambda: sw_local.local_batch(q3, ql3, t3, tl3, m3))
+
+    if "launch" in want_s:
+        small = [put(a) for a in k3_inputs(np.random.default_rng(4), B=32,
+                                           Lq=64, Lt=128, ql=60, tl=120)]
+
+        def one():
+            return sw_local.local_batch(*small)
+
+        out["launch_us"] = {
+            str(k): [launch_us(one, k, 2000 // k,
+                               lambda: torch.cuda.synchronize(dev))
+                     for _ in range(3)] for k in (1, 20)}
 
     if not want_s & {"k4a", "k4b", "k4c", "k9", "lookup", "k7", "step"}:
         return _finish(out)

@@ -334,8 +334,11 @@ def test_bench_without_a_card_exits_nonzero(tmp_path, monkeypatch):
     with pytest.raises(bench.BenchError, match="CUDA"):
         bench.run(str(tmp_path))
     assert not os.listdir(tmp_path)
-    # without data_big/ the hg38 runs are skipped, never generated
+    # without data_big/ and with LARIAT_BENCH_NO_GEN the hg38 runs are
+    # skipped, never generated (tests/test_torch_data_tools.py holds the
+    # regeneration)
     monkeypatch.setattr(bench, "HG38_DIR", str(tmp_path / "data_big"))
+    monkeypatch.setenv("LARIAT_BENCH_NO_GEN", "1")
     assert bench._hg38_runs(str(tmp_path)) == {
-        "hg38_skipped": "data_big/ missing; the port has no data generator "
-                        "yet"}
+        "hg38_skipped": "data_big/ missing and LARIAT_BENCH_NO_GEN=1"}
+    assert not os.path.exists(tmp_path / "data_big")

@@ -1,0 +1,210 @@
+"""The port's hg38 data tools on the CPU against the JAX package's:
+build_big_index, npz_to_dir and the generator's index build write the
+same files on a tiny FASTA; the generator's lock makes a second generator
+wait and then build nothing; align_repl prints the reference REPL's
+candidates; the bench regenerates data_big/ unless told not to."""
+
+import filecmp
+import importlib.util
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+from lariat_tpu_torch.tools import bench
+from lariat_tpu_torch.tools import build_big_index as t_bbi
+from lariat_tpu_torch.tools import gen_data_big as t_gen
+from lariat_tpu_torch.tools import npz_to_dir as t_n2d
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GEN_OUTPUTS = ("chr20sim.fa.lariat.d", "sim1m_chr20.fastq.gz",
+               "hg38sim.fa.lariat.d", "sim200k.fastq.gz", "sim50k.fastq.gz",
+               "sim10k.fastq.gz")
+
+
+def _reference_tool(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_ref_{name}", os.path.join(REPO, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fasta(path, seed=4):
+    """Two contigs, one with a run of N (an ambiguity region)."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    a = bases[rng.integers(0, 4, 9000)].tobytes()
+    b = bases[rng.integers(0, 4, 7000)].tobytes()
+    b = b[:3000] + b"N" * 40 + b[3040:]
+    with open(path, "w") as f:
+        for name, s in (("chrA", a), ("chrB", b)):
+            f.write(f">{name}\n")
+            for i in range(0, len(s), 60):
+                f.write(s[i:i + 60].decode() + "\n")
+    return str(path)
+
+
+def _two_fastas(tmp_path):
+    """The same FASTA in two directories: one for each package."""
+    out = []
+    for d in ("port", "ref"):
+        (tmp_path / d).mkdir()
+        out.append(_fasta(tmp_path / d / "g.fa"))
+    return out
+
+
+def _same_npz(a, b):
+    za, zb = np.load(a), np.load(b)
+    assert sorted(za.files) == sorted(zb.files)
+    for k in za.files:
+        assert za[k].dtype == zb[k].dtype, k
+        np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+
+
+def _same_dir(a, b):
+    """Two .lariat.d directories: the same files, the .npy byte for byte,
+    meta.npz member by member (zip entries carry their write time)."""
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b)) and "meta.npz" in names
+    for n in names:
+        if n.endswith(".npz"):
+            _same_npz(os.path.join(a, n), os.path.join(b, n))
+        else:
+            assert filecmp.cmp(os.path.join(a, n), os.path.join(b, n),
+                               shallow=False), n
+
+
+def test_build_big_index_and_npz_to_dir_match_reference(tmp_path):
+    port_fa, ref_fa = _two_fastas(tmp_path)
+    assert t_bbi.main([port_fa, "--sa-intv", "16"]) == 0
+    assert _reference_tool("build_big_index").main(
+        [ref_fa, "--sa-intv", "16"]) == 0
+    _same_npz(port_fa + ".lariat.npz", ref_fa + ".lariat.npz")
+    assert t_n2d.main([port_fa]) == 0
+    assert _reference_tool("npz_to_dir").main([ref_fa]) == 0
+    _same_dir(port_fa + ".lariat.d", ref_fa + ".lariat.d")
+
+
+def test_generator_build_matches_reference(tmp_path):
+    port_fa, ref_fa = _two_fastas(tmp_path)
+    t_gen.build(port_fa)
+    _reference_tool("gen_data_big").build(ref_fa)
+    _same_dir(port_fa + ".lariat.d", ref_fa + ".lariat.d")
+    assert not os.path.exists(port_fa + ".part.lariat.d")
+
+
+def test_second_generator_waits_then_builds_nothing(tmp_path):
+    """While one generator holds DIR/.gen.lock a second one blocks; once
+    the lock is free it finds every output present and runs no step."""
+    import fcntl
+    db = tmp_path / "data_big"
+    db.mkdir()
+    for name in GEN_OUTPUTS:
+        if name.endswith(".lariat.d"):
+            (db / name).mkdir()
+        else:
+            (db / name).write_bytes(b"present")
+    before = {n: os.stat(db / n).st_mtime_ns for n in GEN_OUTPUTS}
+    with open(db / ".gen.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lariat_tpu_torch.tools.gen_data_big",
+             str(db)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
+        try:
+            first = proc.stdout.readline()
+            time.sleep(0.5)
+            assert "waiting" in first and proc.poll() is None
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    rest, _ = proc.communicate(timeout=120)
+    assert proc.returncode == 0, rest
+    assert "data_big complete" in rest
+    assert "+ " not in first + rest          # no generator step ran
+    assert {n: os.stat(db / n).st_mtime_ns for n in GEN_OUTPUTS} == before
+
+
+def test_align_repl_prints_the_reference_candidates(tmp_path):
+    port_fa, ref_fa = _two_fastas(tmp_path)
+    g = open(port_fa).read().split(">chrB\n")[0].split("\n", 1)[1]
+    g = g.replace("\n", "")
+    comp = str.maketrans("ACGT", "TGCA")
+    r1 = g[1000:1100]
+    r2 = g[1250:1350].translate(comp)[::-1]
+    r3 = g[5000:5100]
+    stdin = f"{r1}\n{r2}\n{r3.lower()}\n{r1[:60]}\n\n"
+    outs = []
+    for cmd, fa in (([sys.executable, "-m",
+                      "lariat_tpu_torch.tools.align_repl"], port_fa),
+                    ([sys.executable, "tools/align_repl.py"], ref_fa)):
+        r = subprocess.run(cmd + [fa], input=stdin, capture_output=True,
+                           text=True, cwd=REPO, timeout=300,
+                           env={**os.environ, "PYTHONPATH": REPO,
+                                "JAX_PLATFORMS": "cpu"})
+        assert r.returncode == 0, r.stderr[-2000:]
+        outs.append(r.stdout.split("Ready.", 1)[1])
+    assert outs[0] == outs[1]
+    assert outs[0].count("candidates") == 4
+    assert "chrA:1000+" in outs[0] and "chrA:1349-" in outs[0]
+
+
+def test_bench_skips_hg38_with_no_gen(tmp_path, monkeypatch):
+    monkeypatch.setattr(bench, "HG38_DIR", str(tmp_path / "data_big"))
+    monkeypatch.setenv("LARIAT_BENCH_NO_GEN", "1")
+    called = []
+    monkeypatch.setattr(bench, "_generate_data_big",
+                        lambda: called.append(1))
+    assert bench._hg38_runs(str(tmp_path)) == {
+        "hg38_skipped": "data_big/ missing and LARIAT_BENCH_NO_GEN=1"}
+    assert not called
+
+
+def test_bench_regenerates_missing_data_big(tmp_path, monkeypatch):
+    """Without data_big/'s inputs the bench runs the generator, then its
+    hg38 runs on what the generator wrote."""
+    db = tmp_path / "data_big"
+    monkeypatch.setattr(bench, "HG38_DIR", str(db))
+    monkeypatch.delenv("LARIAT_BENCH_NO_GEN", raising=False)
+
+    def generate():
+        db.mkdir()
+        (db / "hg38sim.fa.lariat.d").mkdir()
+        (db / "sim10k.fastq.gz").write_bytes(b"reads")
+
+    runs = []
+    monkeypatch.setattr(bench, "_generate_data_big", generate)
+    monkeypatch.setattr(
+        bench, "_mode_runs",
+        lambda fa, reads, *a, **kw: (runs.append((fa, reads, a[1]))
+                                     or ({"pairs_s": 1.0}, [], None)))
+    got = bench._hg38_runs(str(tmp_path))
+    assert got == {"hg38_host_8w": {"pairs_s": 1.0},
+                   "hg38_device_8w": {"pairs_s": 1.0}}
+    assert runs == [(str(db / "hg38sim.fa"), str(db / "sim10k.fastq.gz"),
+                     m) for m in ("off", "on")]
+
+
+def test_bench_generator_failure_and_timeout(tmp_path, monkeypatch):
+    """The real generator as the bench starts it: a failure and a timeout
+    each become an hg38_skipped reason, and a timeout leaves no process
+    of the generator's session running."""
+    import fcntl
+    monkeypatch.setattr(bench, "HG38_DIR", str(tmp_path / "not_a_dir"))
+    (tmp_path / "not_a_dir").write_text("a file where the directory goes")
+    why = bench._generate_data_big()
+    assert why.startswith("data_big regeneration failed (rc ")
+    db = tmp_path / "data_big"
+    db.mkdir()
+    monkeypatch.setattr(bench, "HG38_DIR", str(db))
+    monkeypatch.setenv("LARIAT_BENCH_GEN_TIMEOUT", "3")
+    with open(db / ".gen.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # the generator waits on it
+        assert bench._generate_data_big() == (
+            "data_big regeneration timed out after 3s")
+    r = subprocess.run(["pgrep", "-f", f"gen_data_big {db}"],
+                       capture_output=True, text=True)
+    assert not r.stdout.strip()
+    assert not [n for n in os.listdir(db) if n != ".gen.lock"]

@@ -168,6 +168,30 @@ def test_kernel_turns_k2_inputs_and_sections():
         kernel_turns.main(["g.fa", "r.fq", "k2b,k10"])
 
 
+def test_kernel_turns_k3_inputs():
+    """The turns tool's K3 inputs (a rescue wave at chip_smoke.py phase 3's
+    shape): the reads planted in their windows (2% substitutions), where
+    the K3 twin finds each one (a score of 100 or more of 151)."""
+    from lariat_tpu_torch.ops import sw_local
+    from lariat_tpu_torch.tools import kernel_turns
+    q, qlen, t, tlen, minsc = kernel_turns.k3_inputs(
+        np.random.default_rng(3), B=8)
+    assert q.shape == (8, 192) and t.shape == (8, 704)
+    assert (qlen == 151).all() and (tlen == 686).all() and (minsc == 19).all()
+    got = sw_local.local_batch_plain(*(torch.from_numpy(a) for a in
+                                       (q, qlen, t, tlen, minsc)))
+    assert got.shape[0] == 8 and (got[0] >= 100).all()
+
+
+def test_kernel_turns_launch_us_runs_every_call():
+    """The launch section's timer: every thread makes each of its calls,
+    and the cost a call is the wall over all of them."""
+    from lariat_tpu_torch.tools import kernel_turns
+    calls = []
+    us = kernel_turns.launch_us(lambda: calls.append(1), 4, 25)
+    assert len(calls) == 1 + 4 * 25 and us > 0
+
+
 def test_kernel_turns_variant(tmp_path):
     """A tuning variant: the package copied with one string of one file
     replaced, refused unless the string occurs exactly once."""
@@ -299,3 +323,19 @@ def test_device_step_refuses_without_cuda(tmp_path, monkeypatch):
     fasta, _ = _inputs(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA"):
         device_step.main([str(fasta), "--B", "8"])
+
+
+def test_cli_turns_counts_pairs_and_wants_a_tree(tmp_path):
+    """The CLI turns tool counts a FASTQ's pairs (9 lines a pair) and
+    refuses to run without a tree."""
+    import gzip
+    from lariat_tpu_torch.tools import cli_turns
+    fq = tmp_path / "r.fastq.gz"
+    with gzip.open(fq, "wt") as f:
+        f.write("".join(f"@p{i} rg\nA\nI\nC\nI\nBC-1,BC\nJ\nA\nI\n"
+                        for i in range(7)))
+    assert cli_turns.count_pairs(str(fq)) == 7
+    with pytest.raises(SystemExit, match="usage"):
+        cli_turns.main(["g.fa", str(fq)])
+    with pytest.raises(SystemExit, match="configs"):
+        cli_turns.main(["--configs", "primed,fast", "g.fa", str(fq), "."])
