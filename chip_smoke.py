@@ -76,7 +76,8 @@ Phases (one line each with its seconds, failures end the run nonzero):
      the step entry, no K8 launch), every field equal to the same steps on
      the twins on the card (int32 and int64); then tools/device_step.py to
      a complete JSON line;
-  6. host-native lariat_tpu (-use_device off -threads 8), a subprocess;
+  6. host-native: the port's own host path (lariat_tpu_torch.cli
+     -use_device off -threads 8), a subprocess;
   7. the port (-use_device on -threads 8), a subprocess whose CLI resets
      the kernel launch counts before its main loop and prints them after,
      with the router's knobs set so that it has no reason to host-route
@@ -148,6 +149,24 @@ Phases (one line each with its seconds, failures end the run nonzero):
      barcode-sorted ones in order; each process's pairs/s and kernel
      launches and the [wtrace] lines' build, dispatch and download ms
      summed by site (with the longest line) printed.
+ 16. port run, Python replay: the port's CLI with LARIAT_NO_NATIVE_ALIGN1=1
+     (the Python replay of chain2aln and the Python reg2aln ladder, no
+     native session) on a smaller read set -- 2,000 pairs, 40 barcodes x
+     50 from tools/sim_reads.py on phase 4's genome, cut from 10,000
+     because the replay runs in the priming threads' interpreter -- with
+     the all-primed knobs, after a host-native run on the same reads:
+     every pair primed, BAM records (and whole files, CL normalised) equal
+     host-native's, K1 launched through its tile entry only, K2 and K2b
+     launched; its pairs/s beside host-native's;
+ 17. auto seeding, background upload: in this process, LARIAT_DEVICE_SEED
+     unset, an engine on the card with DEVICE_SEED_AUTO_MIN_LPAC at 0 on
+     the instance primes batches of phase 16's reads one after another
+     until one seeds on the device (K4a launched), every batch's regions
+     equal to a host-seeded engine's. The batches before it are
+     host-seeded by construction (auto mode's first seeding call starts
+     the upload and returns None); the phase prints the upload's seconds,
+     each batch's seconds and how many batches finished while the upload
+     was in flight.
 Then each kernel's loss on its path (launches x (ms - bound ms)), a
 kernels JSON line (each kernel's launches on its path, max abs
 error, ms, plain ms, bound ms and what sets it, and library_ms: null where
@@ -213,6 +232,10 @@ OFF_PATH = ("fetch_window", "smem_planes", "compact")
 # the device align step's batch (bench.py's device step detail)
 STEP_B, STEP_L = 8192, 151
 PROFILE_PAIRS = 2000
+# phases 16-17: 40 barcodes x PAIRS_PER_BC = 2,000 pairs
+REPLAY_BARCODES = 40
+# phase 17: reads a batch, and the most seconds it waits for the upload
+AUTO_BATCH, AUTO_WAIT_S = 512, 120
 SEED_READS = 4096
 FALLBACK_READS = 250
 # reads whose two-pointer lanes outrun K4a's step cap on a genome of this
@@ -2092,17 +2115,40 @@ def _cli_walks(walks, n_launches):
     return out
 
 
-def phase_whole_bam(runs):
-    """Every BAM of each port run against host-native lariat_tpu's as a
-    whole file, CL normalised (io/bamcompare.py): the decompressed streams
-    in full, every BGZF block past the header at the same stream range,
-    the EOF block; each file's counts printed."""
+def _same_records(out, host="out_host") -> int:
+    """The run ``out``'s BAMs hold the records of ``host``'s, file for
+    file, byte for byte past the header; returns the record count."""
+    names = sorted(os.path.basename(f) for f in glob.glob(
+        os.path.join(SMOKE, host, "*.bam")))
+    got_names = sorted(os.path.basename(f) for f in glob.glob(
+        os.path.join(SMOKE, out, "*.bam")))
+    if not names or names != got_names:
+        raise AssertionError(f"BAM sets differ: {names} vs {got_names} "
+                             f"({out})")
+    n_rec = 0
+    for name in names:
+        a, n = _bam_records(os.path.join(SMOKE, host, name))
+        b, _ = _bam_records(os.path.join(SMOKE, out, name))
+        if a != b:
+            raise AssertionError(f"{out}/{name}: records differ from "
+                                 f"host-native")
+        n_rec += n
+    print(f"  {out}: {len(names)} BAMs, {n_rec} records byte-identical to "
+          f"host-native ({host})")
+    return n_rec
+
+
+def phase_whole_bam(runs, host="out_host"):
+    """Every BAM of each port run against host-native's (the run ``host``)
+    as a whole file, CL normalised (io/bamcompare.py): the decompressed
+    streams in full, every BGZF block past the header at the same stream
+    range, the EOF block; each file's counts printed."""
     from lariat_tpu_torch.io.bamcompare import compare_bams
     names = sorted(os.path.basename(f) for f in glob.glob(
-        os.path.join(SMOKE, "out_host", "*.bam")))
+        os.path.join(SMOKE, host, "*.bam")))
     for run in runs:
         for name in names:
-            rep = compare_bams(os.path.join(SMOKE, "out_host", name),
+            rep = compare_bams(os.path.join(SMOKE, host, name),
                                os.path.join(SMOKE, run, name))
             print(f"  {run}/{name}: {rep['records']} records, "
                   f"{rep['stream_bytes']} stream bytes equal (CL "
@@ -2407,6 +2453,115 @@ def phase_multihost(fasta, reads, env, logs):
             "launches": [r[2] for r in results]}
 
 
+def _tile_launches(launches) -> int:
+    """K1's launches through its tile entry: those of none of its other
+    entries."""
+    ent = launches["entries"]
+    return launches["sw_extend"] - ent["lariat_sw_extend_desc"] - ent[
+        "lariat_sw_extend_step"]
+
+
+def phase_new_path(fasta, reads, out, flag, env, logs, rate_host):
+    """A port CLI run on phase 16's reads with ``flag`` set and the
+    all-primed knobs: every pair primed, records and whole files equal to
+    host-native's on those reads, K1 only through its tile entry, K2 and
+    K2b launched. Returns its launches by kernel and K1's tile entry's."""
+    want = REPLAY_BARCODES * PAIRS_PER_BC
+    knobs = {"LARIAT_PRIME_THREADS": str(-(-want // 512)),
+             "LARIAT_PRIME_TAIL_GRACE": "600", "LARIAT_PRIME_MIN_FRAC": "0"}
+    n, rate, primed, host_pairs, launches = _port_run(
+        fasta, reads, out, os.path.join(logs, f"{out}.log"),
+        {**env, **knobs, **flag})
+    if not (n == primed == want and host_pairs == 0):
+        raise AssertionError(f"{out}: {n} pairs, {primed} primed, "
+                             f"{host_pairs} host-routed; want {want} all "
+                             f"primed")
+    _same_records(out, "out_host_replay")
+    phase_whole_bam([out], "out_host_replay")
+    tile = _tile_launches(launches)
+    desc = launches["entries"]["lariat_sw_extend_desc"]
+    if not (tile > 0 and desc == 0 and launches["sw_global"] > 0
+            and launches["traceback"] > 0):
+        raise AssertionError(f"{out}: K1 tile entry {tile}, descriptor "
+                             f"entry {desc}, K2 {launches['sw_global']}, "
+                             f"K2b {launches['traceback']}")
+    print(f"  {out} ({json.dumps(flag)}): {rate} pairs/s beside host-native "
+          f"{rate_host} on the same reads ({rate / rate_host:.3f}x); K1 "
+          f"{tile} launches, all through its tile entry; K2 "
+          f"{launches['sw_global']}, K2b {launches['traceback']}, K3 "
+          f"{launches['sw_local']}")
+    return {k: launches.get(k, 0) for k in CLI_KERNELS} | {"tile": tile}
+
+
+def phase_auto_upload(fasta, reads):
+    """Auto seeding's background upload on the card, in this process: an
+    engine with DEVICE_SEED_AUTO_MIN_LPAC at 0 primes batches of
+    AUTO_BATCH reads one after another until one seeds on the device (K4a
+    launched in it), each batch's regions equal to a host-seeded engine's.
+    The batches before it are host-seeded by construction: the call that
+    starts the upload returns None. Each batch's seconds are printed, and
+    how many batches finished before the index was published. Returns the
+    phase's launches of K4a, K4c and K5."""
+    from lariat_tpu_torch.align.batch_engine import TorchBatchAlignmentEngine
+    from lariat_tpu_torch.cli import load_reference
+    from lariat_tpu_torch.io.fastq import FastQReader
+    from lariat_tpu_torch.ops import _build
+    flag = os.environ.pop("LARIAT_DEVICE_SEED", None)
+    try:
+        fm = load_reference(fasta)
+        reader = FastQReader(reads)
+        seqs = []
+        while True:
+            recs, _ = reader.read_barcode_set(0)
+            if recs is None:
+                break
+            seqs.extend(s for rec in recs for s in (rec.read1, rec.read2))
+        batches = [seqs[i:i + AUTO_BATCH]
+                   for i in range(0, len(seqs), AUTO_BATCH)]
+        host = TorchBatchAlignmentEngine(fm, device="cuda")
+        eng = TorchBatchAlignmentEngine(fm, device="cuda")
+        eng.DEVICE_SEED_AUTO_MIN_LPAC = 0
+        if host.device_seeding() or not eng.device_seeding():
+            raise AssertionError("auto seeding: the policy did not pick "
+                                 "host for one engine and device for the "
+                                 "other")
+        _build.reset_launches()
+        seeded, secs, in_flight, t0 = [], [], 0, time.time()
+        while not any(seeded):
+            if time.time() - t0 > AUTO_WAIT_S:
+                raise AssertionError(f"auto seeding: {len(seeded)} batches "
+                                     f"in {AUTO_WAIT_S} s, none on the "
+                                     f"device")
+            batch = batches[len(seeded) % len(batches)]
+            k4a = _build.launches()["smem_twoptr"]
+            tb = time.time()
+            got = eng.align_batch(batch)
+            secs.append(time.time() - tb)
+            in_flight += eng._seed_state is None
+            seeded.append(_build.launches()["smem_twoptr"] > k4a)
+            if got != host.align_batch(batch):
+                raise AssertionError(f"auto seeding: batch {len(seeded)} "
+                                     f"regions differ from host seeding")
+        n = _build.launches()
+        if eng.seed_upload_s is None:
+            raise AssertionError("auto seeding: a device-seeded batch "
+                                 "without a finished upload")
+        print(f"  auto seeding: the index upload (its thread, its stream) "
+              f"took {eng.seed_upload_s:.3f} s; {len(seeded) - 1} batches "
+              f"of {AUTO_BATCH} reads host-seeded ({in_flight} of them "
+              f"finished before the index was published), then batch "
+              f"{len(seeded)} device-seeded; each batch's s: "
+              f"{[round(x, 4) for x in secs]}; regions equal to host "
+              f"seeding in all; K4a {n['smem_twoptr']}, K4c "
+              f"{n['smem_strategy1']}, K5 {n['sa_walk']} launches")
+        return {k: n[k] for k in SEED_KERNELS} | {
+            "upload_s": eng.seed_upload_s, "host_batches": len(seeded) - 1,
+            "in_flight_batches": in_flight, "batch_s": secs}
+    finally:
+        if flag is not None:
+            os.environ["LARIAT_DEVICE_SEED"] = flag
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--logs", default=SMOKE,
@@ -2436,7 +2591,7 @@ def main(argv=None) -> int:
            if k not in ("LARIAT_TORCH_DEVICE", "LARIAT_DEVICE_SEED")}
     with Phase("host-native run"):
         host_out, host_s = _cli(
-            "lariat_tpu.cli", "off", fasta, reads,
+            "lariat_tpu_torch.cli", "off", fasta, reads,
             os.path.join(SMOKE, "out_host"), THREADS,
             os.path.join(args.logs, "host.log"), env)
         n_host, rate_host = _summary(host_out)
@@ -2485,24 +2640,8 @@ def main(argv=None) -> int:
         launches["extend_ablate"] = phase_tools(fasta, reads, env, args.logs)
     with Phase("checks"):
         want_pairs = BARCODES * PAIRS_PER_BC
-        names = sorted(os.path.basename(f) for f in glob.glob(
-            os.path.join(SMOKE, "out_host", "*.bam")))
         for out, (n_port, _, primed, host_pairs, _) in runs.items():
-            got_names = sorted(os.path.basename(f) for f in glob.glob(
-                os.path.join(SMOKE, out, "*.bam")))
-            if not names or names != got_names:
-                raise AssertionError(f"BAM sets differ: {names} vs "
-                                     f"{got_names} ({out})")
-            n_rec = 0
-            for name in names:
-                a, n = _bam_records(os.path.join(SMOKE, "out_host", name))
-                b, _ = _bam_records(os.path.join(SMOKE, out, name))
-                if a != b:
-                    raise AssertionError(f"{out}/{name}: records differ from "
-                                         f"host-native")
-                n_rec += n
-            print(f"  {out}: {len(names)} BAMs, {n_rec} records "
-                  f"byte-identical to host-native")
+            _same_records(out)
             if out in ("out_port", "out_port_seed"):
                 if not (n_host == n_port == primed == want_pairs
                         and host_pairs == 0):
@@ -2549,6 +2688,24 @@ def main(argv=None) -> int:
         dry = phase_dryrun()
     with Phase("multihost"):
         mh = phase_multihost(fasta, reads, env, args.logs)
+    with Phase("host-native run, replay reads"):
+        _, replay_reads = phase_data(SCALE, REPLAY_BARCODES, PAIRS_PER_BC)
+        out, _ = _cli("lariat_tpu_torch.cli", "off", fasta, replay_reads,
+                      os.path.join(SMOKE, "out_host_replay"), THREADS,
+                      os.path.join(args.logs, "host_replay.log"), env)
+        n_replay, rate_replay = _summary(out)
+        print(f"  the replay phases' reads: {n_replay} pairs "
+              f"({REPLAY_BARCODES} barcodes x {PAIRS_PER_BC}; phase 4's "
+              f"{BARCODES * PAIRS_PER_BC} cut to this because the Python "
+              f"replay runs in the priming threads); host-native "
+              f"{rate_replay} pairs/s")
+    new_paths = {}
+    with Phase("port run, Python replay"):
+        new_paths["python_replay"] = phase_new_path(
+            fasta, replay_reads, "out_port_python",
+            {"LARIAT_NO_NATIVE_ALIGN1": "1"}, env, args.logs, rate_replay)
+    with Phase("auto seeding, background upload"):
+        auto = phase_auto_upload(fasta, replay_reads)
     desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
     extra = {"sw_extend": {"desc_launches": desc,
                            "desc_wave": kres.pop("sw_extend_desc"),
@@ -2561,6 +2718,13 @@ def main(argv=None) -> int:
             dryrun_launches={"single": dry["launches_single"].get(k, 0),
                              "split": dry["launches_split"].get(k, 0)},
             multihost_launches=sum(x.get(k, 0) for x in mh["launches"]))
+    # the new paths' launches (phases 16-17), each run counted from 0
+    extra["sw_extend"]["tile_launches"] = {
+        k: v["tile"] for k, v in new_paths.items()}
+    for k in ("sw_global", "traceback", "sw_local"):
+        extra[k]["replay_launches"] = {p: v[k] for p, v in new_paths.items()}
+    for k in SEED_KERNELS:
+        extra.setdefault(k, {})["auto_upload_launches"] = auto[k]
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         err, ms, pms, _, bms, by, *more = kres[name]

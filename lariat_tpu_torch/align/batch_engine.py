@@ -2,24 +2,37 @@
 runs through the port's kernels.
 
 ``TorchBatchAlignmentEngine`` is the host control flow of lariat_tpu's
-``BatchAlignmentEngine`` (``align_batch``, ``prime_regions`` and the
-reg2aln session driver), copied without its JAX and Pallas branches.
-The C++ sessions (native/align1.cpp ``a1s_*`` / ``r2s_*``) replay BWA-MEM's
-sequential control flow between waves exactly as in the reference:
+``BatchAlignmentEngine`` (``align_batch``, ``prime_regions``, the reg2aln
+session path and the Python replays), copied without its JAX and Pallas
+branches. Each call picks its path as the reference does:
 
-  seed extension  ``_align_batch_session``  resident gather + K1
-  mate rescue     ``local_align_device``     two-pass K3
-  reg2aln         ``_r2s_dispatch``/``_feed`` K2, then K2b's backtrack
+  seed extension  the C++ session (native/align1.cpp ``a1s_*``) when
+                  ``native_engine.Align1Session.available()``, else
+                  ``_align_batch_python``, the Python replay of chain2aln
+                  (``_prepare_chains``, ``_ExtBatcher``: four K1 waves
+                  through the tile entry, left, its band retry, right, its
+                  retry)
+  mate rescue     ``local_align_device``, two-pass K3
+  reg2aln         the C++ session (``r2s_*``) when
+                  ``Reg2AlnSession.available()``, else ``_reg2aln_python``,
+                  the w2 band ladder on the host with K2 + K2b waves, and
+                  ``_finish_reg2aln``
+
+``LARIAT_NO_NATIVE_ALIGN1=1`` (read once a process by ``native_engine``)
+takes the replays. A session's waves are fed from resident data: the
+group's reads and the pac on the device, one descriptor matrix a wave
+(K1's descriptor entry, ``build_qt`` before K2).
 
 The engine is the reference's drop-in: ``prime_regions(recs)`` without a
 score delta returns the pairs' (regs1, regs2) before rescue,
 ``prime_pairs`` fills ``_pair_cache`` for ``rfa.candidates.get_chains``,
 and ``align1`` runs one read through ``align_batch``. Setting
 ``abort_prime`` makes a priming pass raise ``PrimeAborted`` at its next
-wave boundary (the seeding call, each seed-extension wave, the rescue wave,
-each reg2aln wave); its sessions close without finishing. The CLI's router
-sets it at the end of its input, after a grace, and host-routes the
-batches whose passes it abandons.
+wave boundary (the seeding call, each session wave, the rescue wave); its
+sessions close without finishing. The Python replays check it only where
+the reference's do: at the rescue wave. The CLI's router sets it at the
+end of its input, after a grace, and host-routes the batches whose passes
+it abandons.
 
 The wave split (the reference's ``mesh`` and ``_shard_wave``): given
 ``devices``, a list with one entry a shard (the same card may appear more
@@ -27,45 +40,53 @@ than once), each wave's rows are dealt round-robin over them, block d
 holding the tasks o with o % n == d; every block is dispatched on its own
 device before any is downloaded, and the results are put back in task
 order. The genome's pac words and a group's reads are replicated, one copy
-a distinct device; seeding stays on ``devices[0]``. With one device (the
-default) a wave is one block, as before.
+a distinct device; seeding and ``_ExtBatcher``'s waves stay on
+``devices[0]``. With one device (the default) a wave is one block.
 
 The wave trace, read once at import as the reference reads it:
 ``LARIAT_WAVE_TRACE=1`` prints the reference's ``[wtrace]`` line, in its
-format, for each wave at its four sites (``ext`` a seed-extension wave,
-``loc`` a rescue wave, ``r2a.d`` a reg2aln dispatch, ``r2a.f`` its
+format, for each session wave at its four sites (``ext`` a seed-extension
+wave, ``loc`` a rescue wave, ``r2a.d`` a reg2aln dispatch, ``r2a.f`` its
 download): build, dispatch and download ms and the MB sent each way. A
 launch is asynchronous, as a JAX dispatch is, so the download time holds
 the kernels' time. ``LARIAT_WAVE_DEBUG=1`` prints the reference's
-``[wave]`` line after each seed-extension wave.
+``[wave]`` line after each seed-extension wave of a session. The Python
+replays print neither, as in the reference.
 
 Seeding follows the reference's policy: ``LARIAT_DEVICE_SEED=1`` runs the
 3-round SMEM seeding and its SA walks on the device (``_device_seed``,
-kernels K4a-K4c and K5), ``=0`` keeps the host C++ seeder, and unset turns
-device seeding on for a CUDA device at genomes of
-``DEVICE_SEED_AUTO_MIN_LPAC`` (1 Gbp) and above. The index uploads once, at
-first use; an upload or kernel error raises (no silent fallback to the host
-seeder). The engine requires the native sessions and raises without them:
-the reference's Python replay paths are not ported.
+kernels K4a-K4c and K5), ``=0`` keeps the host C++ seeder, and unset
+(auto) turns device seeding on for a CUDA device at genomes of
+``DEVICE_SEED_AUTO_MIN_LPAC`` (1 Gbp) and above. The index uploads once,
+on a thread of its own started by the first batch that seeds, on a CUDA
+stream of its own, and is published when that stream has finished. In
+auto mode the host C++ seeder serves every batch until then; a forced run
+waits for it. An upload or kernel error raises, at every seeding call
+after it (no silent fallback to the host seeder).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import get_device
 from ..index import native_ops
-from ..ops import _build, fm_batch, resident, smem_device, sw_global
+from ..ops import _build, fm_batch, resident, smem_device, sw_extend, sw_global
 from ..parallel import align_step
 from . import ksw, native_engine
-from .engine import AlignmentEngine, SingleReadAlignment, encode_read
-from .extension import AlnReg
+from .chaining import Chain, chain_seeds, enumerate_occurrences, filter_chains
+from .engine import (AlignmentEngine, OP_M, SingleReadAlignment, cigar_nm,
+                     encode_read)
+from .extension import (MAX_BAND_TRY, AlnReg, cal_max_gap,
+                        sort_dedup_patch)
+from .seeding import Intv
 
 WAVE_TRACE = os.environ.get("LARIAT_WAVE_TRACE") == "1"
 WAVE_DEBUG = os.environ.get("LARIAT_WAVE_DEBUG") == "1"
@@ -82,6 +103,78 @@ def _wtrace(kind: str, shape, t_build: float, t_disp: float, t_dl: float,
     _line(f"[wtrace] {kind:5s} {str(shape):18s} build {t_build*1e3:6.0f}ms "
           f"disp {t_disp*1e3:6.0f}ms dl {t_dl*1e3:6.0f}ms "
           f"up {up_b/1e6:7.2f}MB dn {dn_b/1e6:6.2f}MB")
+
+
+@dataclasses.dataclass
+class _ExtTask:
+    key: tuple
+    query: np.ndarray
+    target: np.ndarray
+    h0: int
+    w: int
+
+
+class _ExtBatcher:
+    """Extension tasks collected and run as one wave of K1's tile entry
+    (``sw_extend.extend_batch``) on one device, padded by
+    ``ksw.pad_tiles``, one (8, B) download. Results land in ``results`` by
+    task key."""
+
+    def __init__(self, device: torch.device):
+        self.tasks: List[_ExtTask] = []
+        self.results: Dict[tuple, ksw.ExtendResult] = {}
+        self.device = device
+
+    def add(self, key, query, target, h0, w):
+        self.tasks.append(_ExtTask(key, query, target, int(h0), int(w)))
+
+    def run(self, scores: dict) -> int:
+        """Run the collected tasks with ``scores`` (``extend_batch``'s
+        scoring keywords); returns how many ran."""
+        if not self.tasks:
+            return 0
+        B = len(self.tasks)
+        qa, qlen, ta, tlen = ksw.pad_tiles([t.query for t in self.tasks],
+                                           [t.target for t in self.tasks])
+        h0 = np.zeros(len(qlen), np.int32)
+        w = np.zeros(len(qlen), np.int32)
+        h0[:B] = [t.h0 for t in self.tasks]
+        w[:B] = [t.w for t in self.tasks]
+        rows = sw_extend.extend_batch(
+            *(torch.from_numpy(a).to(self.device)
+              for a in (qa, qlen, ta, tlen, w, h0)),
+            **scores).cpu().numpy()          # ONE download: (8, Bp)
+        score, qle, tle, gtle, gscore, moff = (rows[k].tolist()
+                                               for k in range(6))
+        for i, t in enumerate(self.tasks):
+            self.results[t.key] = ksw.ExtendResult(
+                score[i], qle[i], tle[i], gtle[i], gscore[i], moff[i])
+        self.tasks = []
+        return B
+
+
+@dataclasses.dataclass
+class _ChainCtx:
+    chain: Chain
+    rmax0: int
+    rmax1: int
+    rseq: np.ndarray
+    srt: List[int]
+
+
+@dataclasses.dataclass
+class _G:
+    """One task of the Python reg2aln ladder."""
+    idx: int
+    q: np.ndarray            # oriented query codes
+    rseq: np.ndarray         # oriented reference codes
+    truesc: int
+    w2: int
+    l_query: int
+    last_sc: int = -(1 << 30)
+    i: int = 0
+    score: int = 0
+    cigar: Optional[List[Tuple[int, int]]] = None
 
 
 class PrimeAborted(Exception):
@@ -109,16 +202,6 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         if devices is not None and (device is not None or not devices):
             raise ValueError("pass one device or a nonempty list of "
                              "devices")
-        if not (native_engine.Align1Session.available()
-                and native_engine.Reg2AlnSession.available()):
-            raise RuntimeError(
-                "lariat_tpu_torch needs the native sessions (a1s_*/r2s_*) of "
-                "native/liblariat_native.so; build it with `make -C native`")
-        lib = native_engine._lib()
-        for sym in ("a1s_fill_desc", "r2s_fill_desc",
-                    "ksw_cigar_from_ops_packed_batch"):
-            if not hasattr(lib, sym):
-                raise RuntimeError(f"native library lacks {sym}; rebuild it")
         self.devices = [get_device(d) for d in (devices or [device])]
         self.device = self.devices[0]
         if any(d.type == "cuda" for d in self.devices):
@@ -132,7 +215,10 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         self._pac_lock = threading.Lock()
         self._pac_res: dict = {}    # device -> pac words on it
         self._seed_lock = threading.Lock()
+        self._seed_thread: Optional[threading.Thread] = None
         self._seed_state = None     # (DeviceFMIndex, DeviceGenome)
+        self._seed_err: Optional[Exception] = None
+        self.seed_upload_s: Optional[float] = None   # once it has landed
         # set by the CLI's router (or a server's abort request) to make the
         # passes in flight stop at their next wave boundary
         self.abort_prime = False
@@ -148,11 +234,17 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
 
     def _pac_resident(self, dev=None):
         """(pac_words tensor on ``dev``, default ``self.device``, l_pac),
-        uploaded once a device and shared by every resident-fed wave."""
+        uploaded once a device and shared by every resident-fed wave and
+        by the seeding index. The thread that makes it waits for the copy
+        before any other can see it: the index upload makes it on a stream
+        of its own."""
         dev = self.device if dev is None else dev
         with self._pac_lock:
             if dev not in self._pac_res:
-                self._pac_res[dev] = resident.pac_words_from_fm(self.fm, dev)
+                words = resident.pac_words_from_fm(self.fm, dev)
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
+                self._pac_res[dev] = words
             return self._pac_res[dev], int(self.fm.l_pac)
 
     def _replicas(self, t: torch.Tensor) -> dict:
@@ -182,21 +274,48 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
                                    "real": int(real)})
         return list(zip(self.devices, rows)), inv
 
-    def _seed_index(self):
-        """The device index for seeding, uploaded once, at first use, by
-        the first batch that needs it; an upload error raises."""
-        with self._seed_lock:
-            if self._seed_state is None:
+    def _upload_seed_index(self) -> None:
+        """The upload thread: the seeding index and the pac on a CUDA
+        stream of its own, waited for, then published as ``_seed_state``;
+        an error is kept in ``_seed_err`` for the seeding calls."""
+        t0 = time.time()
+        try:
+            cuda = self.device.type == "cuda"
+            stream = torch.cuda.Stream(self.device) if cuda else None
+            with torch.cuda.stream(stream):
                 fmd = fm_batch.DeviceFMIndex.from_host(self.fm, self.device)
                 # the SA walk shares the seeding index and the waves' pac:
-                # one copy of each on the device (its SA samples stay on the
-                # host: sa_lookup_batch_host adds them there)
+                # one copy of each on the device (its SA samples stay on
+                # the host: sa_lookup_batch_host adds them there)
                 dg = align_step.DeviceGenome.from_host(
                     self.fm, fmd, pac_words=self._pac_resident()[0])
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                self._seed_state = (fmd, dg)
-            return self._seed_state
+                if cuda:
+                    stream.synchronize()
+            self.seed_upload_s = time.time() - t0
+            self._seed_state = (fmd, dg)
+        except Exception as e:  # noqa: BLE001 -- raised by the callers
+            self._seed_err = e
+
+    def _seed_index(self, wait: bool = True):
+        """The device index for seeding, (DeviceFMIndex, DeviceGenome).
+
+        The first call starts its upload on a thread (the reference's
+        ``lariat-dseed-upload``); ``wait`` joins it. Without ``wait`` the
+        call that started the upload, and every call until it has landed,
+        returns None. An upload error raises here, at every call after
+        it."""
+        with self._seed_lock:
+            started = self._seed_thread is None
+            if started:
+                self._seed_thread = threading.Thread(
+                    target=self._upload_seed_index, daemon=True,
+                    name="lariat-seed-upload")
+                self._seed_thread.start()
+        if wait:
+            self._seed_thread.join()
+        if self._seed_err is not None:
+            raise self._seed_err
+        return None if started and not wait else self._seed_state
 
     def sa_walks(self) -> list:
         """The SA lookups' K5 launches (``DeviceGenome.walks``); empty until
@@ -215,12 +334,18 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         """Device 3-round SMEM seeding and SA walks, bit-identical to the
         native C++; None sends the batch to the host C++ seeder.
 
-        LARIAT_DEVICE_SEED=1 forces it on, =0 off; unset, it is on for a
-        CUDA device at l_pac >= DEVICE_SEED_AUTO_MIN_LPAC."""
+        LARIAT_DEVICE_SEED=1 forces it on (the first call waits for the
+        index upload), =0 off; unset, it is on for a CUDA device at l_pac
+        >= DEVICE_SEED_AUTO_MIN_LPAC, and the host seeder serves the
+        batches until the upload has landed."""
         self._check_abort()
         if not (nonempty and self.device_seeding()):
             return None
-        fmd, dg = self._seed_index()
+        state = self._seed_index(
+            wait=bool(os.environ.get("LARIAT_DEVICE_SEED")))
+        if state is None:
+            return None          # still uploading: the host seeder
+        fmd, dg = state
         t_dev = time.time()
         out = smem_device.collect_seeds_rbegs_device(fmd, dg, self.fm,
                                                      nonempty, self.opt)
@@ -233,11 +358,29 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
                 opt.gap_extend_ins, bonus, opt.zdrop, opt.match_score,
                 -opt.mismatch_penalty)
 
+    def _ext_scores(self, bonus: int) -> dict:
+        """K1's scoring keywords (``sw_extend.extend_batch``) with end
+        bonus ``bonus``; N scores -1 (bwa)."""
+        return dict(zip(("o_del", "e_del", "o_ins", "e_ins", "end_bonus",
+                         "zdrop", "match_sc", "mismatch_sc"),
+                        self._opt_key(bonus)), n_sc=-1)
+
     def align_batch(self, seqs: List[bytes]) -> List[List[AlnReg]]:
         """Candidate regions for a batch of reads (mem_align1_core xN),
         bit-identical to ``align1`` per read: the C++ session replays
-        chain2aln while each wave of speculative extensions runs as K1 on
-        resident inputs."""
+        chain2aln while each wave of speculative extensions runs as K1;
+        without the native session, ``_align_batch_python``."""
+        if native_engine.Align1Session.available():
+            out = self._align_batch_session(seqs)
+            if out is not None:
+                return out
+        return self._align_batch_python(seqs)
+
+    def _align_batch_session(self, seqs: List[bytes]
+                             ) -> Optional[List[List[AlnReg]]]:
+        """``align_batch`` through the C++ session, each wave fed from
+        resident data (K1's descriptor entry); None when the native seeder
+        is unavailable."""
         opt = self.opt
         qs = [encode_read(s) for s in seqs]
         nonempty = [q for q in qs if len(q)]
@@ -246,7 +389,7 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
             seeded = native_ops.collect_seeds_rbegs_batch(self.fm, nonempty,
                                                           opt)
         if seeded is None:
-            raise RuntimeError("native seeding unavailable")
+            return None
         mems_ne, rbegs_ne = seeded
         empty_m = np.zeros((0, 5), np.int64)
         empty_b = np.zeros(0, np.int64)
@@ -296,6 +439,286 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
             return sess.finish()
         finally:
             sess.close()
+
+    # --------------------------------------- the Python replay of chain2aln
+
+    def _prepare_chains(self, q: np.ndarray,
+                        mems=None, rbegs=None) -> List[_ChainCtx]:
+        opt, fm = self.opt, self.fm
+        chains = filter_chains(opt, chain_seeds(fm, q, opt, mems, rbegs))
+        out = []
+        l_query = len(q)
+        for c in chains:
+            if not c.seeds:
+                continue
+            rmax0, rmax1 = fm.seq_len, 0
+            for t in c.seeds:
+                b = t.rbeg - (t.qbeg + cal_max_gap(opt, t.qbeg))
+                e = (t.rbeg + t.len + (l_query - t.qbeg - t.len)
+                     + cal_max_gap(opt, l_query - t.qbeg - t.len))
+                rmax0 = min(rmax0, b)
+                rmax1 = max(rmax1, e)
+            rmax0 = max(rmax0, 0)
+            rmax1 = min(rmax1, fm.seq_len)
+            if rmax0 < fm.l_pac < rmax1:
+                if c.seeds[0].rbeg < fm.l_pac:
+                    rmax1 = fm.l_pac
+                else:
+                    rmax0 = fm.l_pac
+            rseq = fm.fetch_fmd(rmax0, rmax1)
+            srt = sorted(range(len(c.seeds)),
+                         key=lambda i: (c.seeds[i].score, i), reverse=True)
+            out.append(_ChainCtx(c, rmax0, rmax1, rseq, srt))
+        return out
+
+    def _ext_wave(self, batcher: _ExtBatcher, bonus: int) -> None:
+        """Run ``batcher``'s tasks as one K1 wave, counted as a wave."""
+        t_dev = time.time()
+        if batcher.run(self._ext_scores(bonus)):
+            self._wave_done(time.time() - t_dev)
+
+    def _align_batch_python(self, seqs: List[bytes]) -> List[List[AlnReg]]:
+        """The Python replay of chain2aln (``align_batch`` without the
+        native session): host seeding, four K1 waves (left extensions,
+        their band retries, right extensions, theirs) on ``self.device``,
+        then mem_chain2aln's sequential control flow over the cached
+        results, and ``sort_dedup_patch``."""
+        opt = self.opt
+        qs = [encode_read(s) for s in seqs]
+        # native batched seeding + one batched SA dereference for all reads
+        nonempty = [q for q in qs if len(q)]
+        seeds_per = native_ops.collect_seeds_batch(self.fm, nonempty, opt)
+        mems_per: List[Optional[List[Intv]]] = [None] * len(qs)
+        rbegs_per: List[Optional[List[int]]] = [None] * len(qs)
+        if seeds_per is not None:
+            it = iter(seeds_per)
+            all_rows = []
+            occ_info = []
+            for i, q in enumerate(qs):
+                if not len(q):
+                    continue
+                arr = next(it)
+                mems = [Intv(int(r[0]), int(r[1]), int(r[2]), int(r[3]),
+                             int(r[4])) for r in arr]
+                mems_per[i] = mems
+                occs = enumerate_occurrences(mems, opt)
+                occ_info.append((i, len(occs)))
+                all_rows.extend(row for _, row in occs)
+            rows = np.asarray(all_rows, dtype=np.int64)
+            rb = (self.fm.sa_lookup_many(rows) if len(rows)
+                  else np.zeros(0, np.int64))
+            off = 0
+            for i, n in occ_info:
+                rbegs_per[i] = [int(v) for v in rb[off:off + n]]
+                off += n
+        ctxs: List[List[_ChainCtx]] = [
+            self._prepare_chains(q, mems_per[i], rbegs_per[i])
+            if len(q) else [] for i, q in enumerate(qs)]
+        # ---- wave L: left extensions (band try ladder, speculative) -------
+        batcher = _ExtBatcher(self.device)
+        for ri, clist in enumerate(ctxs):
+            for ci, ctx in enumerate(clist):
+                for si in ctx.srt:
+                    s = ctx.chain.seeds[si]
+                    if s.qbeg:
+                        qseg = qs[ri][:s.qbeg][::-1]
+                        tseg = ctx.rseq[:s.rbeg - ctx.rmax0][::-1]
+                        batcher.add((ri, ci, si, "L", 0), qseg, tseg,
+                                    s.len * opt.match_score,
+                                    opt.band_width)
+        self._ext_wave(batcher, opt.pen_clip5)
+        # band-doubling retries for left
+        retry = []
+        for t_key, res in list(batcher.results.items()):
+            if t_key[3] != "L" or t_key[4] != 0:
+                continue
+            if not (res.max_off
+                    < (opt.band_width >> 1) + (opt.band_width >> 2)):
+                retry.append(t_key)
+        for key in retry:
+            ri, ci, si, _, _ = key
+            ctx = ctxs[ri][ci]
+            s = ctx.chain.seeds[si]
+            qseg = qs[ri][:s.qbeg][::-1]
+            tseg = ctx.rseq[:s.rbeg - ctx.rmax0][::-1]
+            batcher.add((ri, ci, si, "L", 1), qseg, tseg,
+                        s.len * opt.match_score, opt.band_width << 1)
+        self._ext_wave(batcher, opt.pen_clip5)
+
+        def left_result(ri, ci, si) -> Tuple[ksw.ExtendResult, int]:
+            """Replay the MAX_BAND_TRY ladder for one left extension."""
+            prev = -1
+            for i in range(MAX_BAND_TRY):
+                aw = opt.band_width << i
+                res = batcher.results.get((ri, ci, si, "L", i))
+                if res is None:  # retry not run => ladder stopped earlier
+                    break
+                if res.score == prev or res.max_off < (aw >> 1) + (aw >> 2):
+                    return res, aw
+                prev = res.score
+                last, law = res, aw
+            return (res, aw) if res is not None else (last, law)
+
+        # ---- wave R: right extensions (h0 from the left outcome) ----------
+        right_specs: Dict[tuple, Tuple[int, int]] = {}
+        for ri, clist in enumerate(ctxs):
+            for ci, ctx in enumerate(clist):
+                for si in ctx.srt:
+                    s = ctx.chain.seeds[si]
+                    l_query = len(qs[ri])
+                    if s.qbeg + s.len == l_query:
+                        continue
+                    if s.qbeg:
+                        # a->score after the left step is the local-extension
+                        # max regardless of the gscore (to-end) choice
+                        lres, _ = left_result(ri, ci, si)
+                        sc0 = lres.score
+                    else:
+                        sc0 = s.len * opt.match_score
+                    qe = s.qbeg + s.len
+                    re_off = s.rbeg + s.len - ctx.rmax0
+                    qseg = qs[ri][qe:]
+                    tseg = ctx.rseq[re_off:]
+                    right_specs[(ri, ci, si)] = (sc0, re_off)
+                    batcher.add((ri, ci, si, "R", 0), qseg, tseg, sc0,
+                                opt.band_width)
+        self._ext_wave(batcher, opt.pen_clip3)
+        retry = []
+        for t_key, res in list(batcher.results.items()):
+            if t_key[3] != "R" or t_key[4] != 0:
+                continue
+            sc0 = right_specs[t_key[:3]][0]
+            if (res.score != sc0 and not (
+                    res.max_off
+                    < (opt.band_width >> 1) + (opt.band_width >> 2))):
+                retry.append(t_key)
+        for key in retry:
+            ri, ci, si, _, _ = key
+            ctx = ctxs[ri][ci]
+            s = ctx.chain.seeds[si]
+            sc0, re_off = right_specs[(ri, ci, si)]
+            qseg = qs[ri][s.qbeg + s.len:]
+            tseg = ctx.rseq[re_off:]
+            batcher.add((ri, ci, si, "R", 1), qseg, tseg, sc0,
+                        opt.band_width << 1)
+        self._ext_wave(batcher, opt.pen_clip3)
+
+        def right_result(ri, ci, si) -> Tuple[ksw.ExtendResult, int]:
+            # C's loop reads prev = a->score, which entering the right step
+            # equals sc0 (the left outcome)
+            prev = right_specs[(ri, ci, si)][0]
+            res = law = None
+            for i in range(MAX_BAND_TRY):
+                aw = opt.band_width << i
+                r = batcher.results.get((ri, ci, si, "R", i))
+                if r is None:
+                    break
+                res, law = r, aw
+                if r.score == prev or r.max_off < (aw >> 1) + (aw >> 2):
+                    return r, aw
+                prev = r.score
+            return res, law
+
+        # ---- replay mem_chain2aln's exact sequential control flow ---------
+        out: List[List[AlnReg]] = []
+        for ri, clist in enumerate(ctxs):
+            q = qs[ri]
+            l_query = len(q)
+            regs: List[AlnReg] = []
+            for ci, ctx in enumerate(clist):
+                c = ctx.chain
+                skipped = set()
+                for order, si in enumerate(ctx.srt):
+                    s = c.seeds[si]
+                    hit = None
+                    for p in regs:
+                        if (s.rbeg < p.rb or s.rbeg + s.len > p.re
+                                or s.qbeg < p.qb or s.qbeg + s.len > p.qe):
+                            continue
+                        if s.len - p.seedlen0 > 0.1 * l_query:
+                            continue
+                        qd = s.qbeg - p.qb
+                        rd = s.rbeg - p.rb
+                        ww = min(cal_max_gap(opt, min(qd, rd)), p.w)
+                        if qd - rd < ww and rd - qd < ww:
+                            hit = p
+                            break
+                        qd = p.qe - (s.qbeg + s.len)
+                        rd = p.re - (s.rbeg + s.len)
+                        ww = min(cal_max_gap(opt, min(qd, rd)), p.w)
+                        if qd - rd < ww and rd - qd < ww:
+                            hit = p
+                            break
+                    if hit is not None:
+                        conflict = False
+                        for so in range(order):
+                            j = ctx.srt[so]
+                            if j in skipped:
+                                continue
+                            t = c.seeds[j]
+                            if t.len < s.len * 0.95:
+                                continue
+                            if (s.qbeg <= t.qbeg
+                                    and s.qbeg + s.len - t.qbeg >= s.len // 4
+                                    and t.qbeg - s.qbeg != t.rbeg - s.rbeg):
+                                conflict = True
+                                break
+                            if (t.qbeg <= s.qbeg
+                                    and t.qbeg + t.len - s.qbeg >= s.len // 4
+                                    and s.qbeg - t.qbeg != s.rbeg - t.rbeg):
+                                conflict = True
+                                break
+                        if not conflict:
+                            skipped.add(si)
+                            continue
+                    a = AlnReg(w=opt.band_width, rid=c.rid,
+                               frac_rep=c.frac_rep)
+                    aw0 = aw1 = opt.band_width
+                    if s.qbeg:
+                        res, aw0 = left_result(ri, ci, si)
+                        a.score = res.score
+                        if (res.gscore <= 0
+                                or res.gscore <= a.score - opt.pen_clip5):
+                            a.qb = s.qbeg - res.qle
+                            a.rb = s.rbeg - res.tle
+                            a.truesc = a.score
+                        else:
+                            a.qb = 0
+                            a.rb = s.rbeg - res.gtle
+                            a.truesc = res.gscore
+                    else:
+                        a.score = a.truesc = s.len * opt.match_score
+                        a.qb = 0
+                        a.rb = s.rbeg
+                    if s.qbeg + s.len != l_query:
+                        sc0 = a.score
+                        res, aw1 = right_result(ri, ci, si)
+                        qe = s.qbeg + s.len
+                        re_off = s.rbeg + s.len - ctx.rmax0
+                        a.score = res.score
+                        if (res.gscore <= 0
+                                or res.gscore <= a.score - opt.pen_clip3):
+                            a.qe = qe + res.qle
+                            a.re = ctx.rmax0 + re_off + res.tle
+                            a.truesc += a.score - sc0
+                        else:
+                            a.qe = l_query
+                            a.re = ctx.rmax0 + re_off + res.gtle
+                            a.truesc += res.gscore - sc0
+                    else:
+                        a.qe = l_query
+                        a.re = s.rbeg + s.len
+                    a.seedcov = 0
+                    for t in c.seeds:
+                        if (t.qbeg >= a.qb and t.qbeg + t.len <= a.qe
+                                and t.rbeg >= a.rb and t.rbeg + t.len <= a.re):
+                            a.seedcov += t.len
+                    a.w = max(aw0, aw1)
+                    a.seedlen0 = s.len
+                    regs.append(a)
+            regs = sort_dedup_patch(self.fm, q, opt, regs, self.mat)
+            out.append(regs)
+        return out
 
     def local_align_device(self, tasks):
         """Mate-rescue local SW for a whole batch as one two-pass K3 wave
@@ -395,10 +818,17 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
 
     def reg2aln_batch(self, tasks) -> List[SingleReadAlignment]:
         """mem_reg2aln for many (read, region) tasks, bit-identical to
-        ``reg2aln`` per task: chunked sessions (native/align1.cpp r2s_*)
-        replay the w2 band ladder and the NM/clip finish while each wave
-        runs as K2 + K2b. Every live chunk's wave is dispatched before any
-        wave's results are downloaded."""
+        ``reg2aln`` per task: through the C++ sessions, or without them
+        ``_reg2aln_python``."""
+        if native_engine.Reg2AlnSession.available():
+            return self._reg2aln_session(tasks)
+        return self._reg2aln_python(tasks)
+
+    def _reg2aln_session(self, tasks) -> List[SingleReadAlignment]:
+        """Chunked sessions (native/align1.cpp r2s_*) replay the w2 band
+        ladder and the NM/clip finish while each wave runs as K2 + K2b.
+        Every live chunk's wave is dispatched before any wave's results are
+        downloaded."""
         CH = self.R2ALN_CHUNK
         states = [self._r2s_open(tasks[s:s + CH])
                   for s in range(0, len(tasks), CH)]
@@ -471,7 +901,6 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         """Launch one reg2aln wave (K2 + K2b a block of its split) for a
         session; returns the blocks' blobs, still on their devices, the
         split's ``inv`` and the op count S."""
-        opt = self.opt
         sess = st["sess"]
         t_fill = time.time()
         if st["reads_res"] is None:
@@ -499,19 +928,24 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
                                    for k in (resident.D_QL, resident.D_TL,
                                              resident.D_W))
             t1 = time.time()
-            score, z = sw_global.global_batch(
-                q, qlen_d, t, tlen_d, w_d, o_del=opt.gap_open_del,
-                e_del=opt.gap_extend_del, o_ins=opt.gap_open_ins,
-                e_ins=opt.gap_extend_ins, match_sc=opt.match_score,
-                mismatch_sc=-opt.mismatch_penalty)
-            blobs.append(sw_global.traceback_ops_fused(
-                z, qlen_d, tlen_d, w_d, score, S=S))
+            blobs.append(self._global_wave(q, qlen_d, t, tlen_d, w_d, S))
             t_build += t1 - t0
             t_disp += time.time() - t1
         if WAVE_TRACE:
             _wtrace("r2a.d", (len(desc), Lq, Lt), t_build, t_disp, 0.0,
                     desc.nbytes, 0)
         return blobs, inv, S
+
+    def _global_wave(self, q, qlen, t, tlen, w, S: int) -> torch.Tensor:
+        """K2 then K2b on one block's tensors -> its (B, S//4 + 12) blob,
+        still on the device."""
+        opt = self.opt
+        score, z = sw_global.global_batch(
+            q, qlen, t, tlen, w, o_del=opt.gap_open_del,
+            e_del=opt.gap_extend_del, o_ins=opt.gap_open_ins,
+            e_ins=opt.gap_extend_ins, match_sc=opt.match_score,
+            mismatch_sc=-opt.mismatch_penalty)
+        return sw_global.traceback_ops_fused(z, qlen, tlen, w, score, S=S)
 
     def _r2s_feed(self, st, handle) -> None:
         """Download a dispatched wave's blobs and feed the session."""
@@ -539,3 +973,106 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
                 chrom=contigs[rid].name, reversed_=bool(is_rev),
                 edit_distance=nm, cigar=cigar, score=reg.score,
                 sub=max(reg.sub, reg.csub), read_s=reg.qb, read_e=reg.qe)
+
+    # ------------------------------------------- the Python reg2aln ladder
+
+    def _reg2aln_python(self, tasks) -> List[SingleReadAlignment]:
+        """mem_reg2aln without the native session: the w2 band ladder (at
+        most 3 steps, the no-gap shortcut on the host) replayed over
+        batched K2 + K2b waves, split over ``devices``; then
+        ``_finish_reg2aln``."""
+        opt, fm = self.opt, self.fm
+        out: List[Optional[SingleReadAlignment]] = [None] * len(tasks)
+        pend: List[_G] = []
+        for idx, (seq, reg) in enumerate(tasks):
+            if reg is None or reg.rb < 0 or reg.re < 0:
+                out[idx] = SingleReadAlignment()
+                continue
+            query = encode_read(seq)
+            qb, qe, rb, re = reg.qb, reg.qe, reg.rb, reg.re
+            w2 = max(
+                self._infer_bw(qe - qb, re - rb, reg.truesc, opt.match_score,
+                               opt.gap_open_del, opt.gap_extend_del),
+                self._infer_bw(qe - qb, re - rb, reg.truesc, opt.match_score,
+                               opt.gap_open_ins, opt.gap_extend_ins))
+            if w2 > opt.band_width:
+                w2 = min(w2, reg.w)
+            qseg = query[qb:qe].astype(np.int64)
+            if len(qseg) <= 0 or rb >= re or (rb < fm.l_pac < re):
+                out[idx] = self._finish_reg2aln(reg, len(query), None)
+                continue
+            rseq = fm.fetch_fmd(rb, re).astype(np.int64)
+            if rb >= fm.l_pac:
+                qseg = qseg[::-1].copy()
+                rseq = rseq[::-1].copy()
+            pend.append(_G(idx=idx, q=qseg, rseq=rseq, truesc=reg.truesc,
+                           w2=w2, l_query=len(query)))
+
+        while pend:
+            # run one ladder step for every pending task, batched by shape
+            wave = pend
+            pend = []
+            run_idx = []
+            for g in wave:
+                g.w2 = min(g.w2, opt.band_width << 2)
+                if len(g.q) == len(g.rseq) and g.w2 == 0:
+                    # no-gap shortcut: all-M cigar, summed score
+                    g.cigar = [(OP_M, len(g.q))]
+                    g.score = int(self.mat[g.rseq, g.q].sum())
+                else:
+                    run_idx.append(g)
+            if run_idx:
+                t_dev = time.time()
+                scores, cigars = self._ladder_wave(run_idx)
+                self._wave_done(time.time() - t_dev)
+                for i, g in enumerate(run_idx):
+                    g.score = int(scores[i])
+                    g.cigar = cigars[i]
+            # replay the ladder's break conditions
+            for g in wave:
+                if g.score == g.last_sc or g.w2 == opt.band_width << 2:
+                    done = True
+                else:
+                    g.last_sc = g.score
+                    g.w2 <<= 1
+                    g.i += 1
+                    done = not (g.i < 3
+                                and g.score < g.truesc - opt.match_score)
+                if done:
+                    out[g.idx] = self._finish_reg2aln(tasks[g.idx][1],
+                                                      g.l_query, g)
+                else:
+                    pend.append(g)
+        return out
+
+    def _ladder_wave(self, run_idx: List[_G]):
+        """One ladder step of ``run_idx`` as a K2 + K2b wave (lengths
+        padded to multiples of 64, the batch to a power of two of at least
+        128), a block of its split on each device, one download a block:
+        (scores, CIGARs) in task order."""
+        B = len(run_idx)
+        qa, qlen, ta, tlen = ksw.pad_tiles([g.q for g in run_idx],
+                                           [g.rseq for g in run_idx])
+        wv = np.zeros(len(qlen), np.int32)
+        wv[:B] = [g.w2 for g in run_idx]
+        S = qa.shape[1] + ta.shape[1]
+        blocks, inv = self._split_wave(len(qlen), B)
+        blobs = [self._global_wave(
+            *(torch.from_numpy(a if inv is None else a[idx]).to(dev)
+              for a in (qa, qlen, ta, tlen, wv)), S)
+            for dev, idx in blocks if len(idx)]
+        blob = ksw.download_blocks(blobs, inv, 0)
+        packed, scores, i_fin, k_fin = sw_global.split_traceback_blob(blob,
+                                                                      S)
+        return scores, sw_global.cigars_from_ops(
+            sw_global.unpack_ops(packed, S), i_fin, k_fin)
+
+    def _finish_reg2aln(self, reg: AlnReg, l_query: int,
+                        g: Optional[_G]) -> SingleReadAlignment:
+        """mem_reg2aln's tail after the ladder: NM over the task's oriented
+        codes (-1 without a ladder), then the position and clips
+        (``_place``)."""
+        if g is None:
+            return self._place(reg, l_query, None, -1)
+        return self._place(reg, l_query, g.cigar,
+                           cigar_nm(g.cigar, g.q, g.rseq))

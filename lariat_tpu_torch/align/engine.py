@@ -88,6 +88,27 @@ class EasyAlignment:
     read_e: int
 
 
+def cigar_nm(cigar: List[Tuple[int, int]], q: np.ndarray,
+             rseq: np.ndarray) -> int:
+    """NM of a global CIGAR over the oriented query and reference codes:
+    mismatches + gap bases (a D at either CIGAR edge not counted)."""
+    n_mm = n_gap = 0
+    x = y = 0
+    for k, (op, ln) in enumerate(cigar):
+        if op == OP_M:
+            n_mm += int(np.count_nonzero(q[x:x + ln] != rseq[y:y + ln]))
+            x += ln
+            y += ln
+        elif op == OP_D:
+            if 0 < k < len(cigar) - 1:
+                n_gap += ln
+            y += ln
+        elif op == OP_I:
+            x += ln
+            n_gap += ln
+    return n_mm + n_gap
+
+
 class AlignmentEngine:
     """TPU-native replacement for the C alignment engine + Go shim."""
 
@@ -577,22 +598,7 @@ class AlignmentEngine:
             cigar = raw if raw else None
         if cigar is None:
             return None, score, -1
-        # NM: mismatches + gap bases (D at either cigar edge not counted)
-        n_mm = n_gap = 0
-        x = y = 0
-        for k, (op, ln) in enumerate(cigar):
-            if op == OP_M:
-                n_mm += int(np.count_nonzero(q[x:x + ln] != rseq[y:y + ln]))
-                x += ln
-                y += ln
-            elif op == OP_D:
-                if 0 < k < len(cigar) - 1:
-                    n_gap += ln
-                y += ln
-            elif op == OP_I:
-                x += ln
-                n_gap += ln
-        return cigar, score, n_mm + n_gap
+        return cigar, score, cigar_nm(cigar, q, rseq)
 
     def reg2aln_batch(self, tasks) -> List["SingleReadAlignment"]:
         """mem_reg2aln for many (seq, reg) tasks; native C++ when built.
@@ -607,7 +613,7 @@ class AlignmentEngine:
 
     def reg2aln(self, seq: bytes, reg: Optional[AlnReg]) -> SingleReadAlignment:
         """mem_reg2aln: final banded global alignment -> CIGAR/NM/position."""
-        opt, fm = self.opt, self.fm
+        opt = self.opt
         if reg is None or reg.rb < 0 or reg.re < 0:
             return SingleReadAlignment()
         query = encode_read(seq)
@@ -634,6 +640,15 @@ class AlignmentEngine:
             i += 1
             if not (i < 3 and score < reg.truesc - opt.match_score):
                 break
+        return self._place(reg, l_query, cigar, NM)
+
+    def _place(self, reg: AlnReg, l_query: int,
+               cigar: Optional[List[Tuple[int, int]]], NM: int
+               ) -> SingleReadAlignment:
+        """mem_reg2aln's tail after the band ladder: the forward-strand
+        position, leading/trailing deletions squeezed, soft clips added."""
+        fm = self.fm
+        qb, qe, rb, re = reg.qb, reg.qe, reg.rb, reg.re
         # position: forward-strand 5' coordinate
         dpos = rb if rb < fm.l_pac else re - 1
         is_rev = dpos >= fm.l_pac

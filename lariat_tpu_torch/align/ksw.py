@@ -481,6 +481,30 @@ def download_blocks(outs, inv, axis: int) -> np.ndarray:
     return got if inv is None else np.take(got, inv, axis=axis)
 
 
+def pad_tiles(qs, ts) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray]:
+    """One wave's code tiles for the (qs[i], ts[i]) tasks: (q, qlen, t,
+    tlen), lengths padded to multiples of 64 and the batch to a power of
+    two of at least 128, as the reference pads its waves; the rows past the
+    tasks are zero."""
+    n = len(qs)
+    Lq = -(-max(1, max(len(x) for x in qs)) // 64) * 64
+    Lt = -(-max(1, max(len(x) for x in ts)) // 64) * 64
+    Bp = 128
+    while Bp < n:
+        Bp <<= 1
+    qa = np.zeros((Bp, Lq), np.uint8)
+    ta = np.zeros((Bp, Lt), np.uint8)
+    qlen = np.zeros(Bp, np.int32)
+    tlen = np.zeros(Bp, np.int32)
+    for i, (qi, ti) in enumerate(zip(qs, ts)):
+        qa[i, :len(qi)] = qi
+        ta[i, :len(ti)] = ti
+        qlen[i] = len(qi)
+        tlen[i] = len(ti)
+    return qa, qlen, ta, tlen
+
+
 def local_align_batch(tasks: List[Tuple[np.ndarray, np.ndarray]],
                       mat: np.ndarray, o_del: int, e_del: int, o_ins: int,
                       e_ins: int, minsc: int, device, split_fn=None,
@@ -513,24 +537,12 @@ def local_align_batch(tasks: List[Tuple[np.ndarray, np.ndarray]],
             results[i] = LocalResult(0, -1, -1, -1, -1, -1, -1)
     if not fwd_idx:
         return results
-    wave = [tasks[i] for i in fwd_idx]
-    Lq = -(-max(len(q) for q, _ in wave) // 64) * 64
-    Lt = -(-max(len(t) for _, t in wave) // 64) * 64
-    n = len(wave)
-    Bp = 128
-    while Bp < n:
-        Bp <<= 1
-    qa = np.zeros((Bp, Lq), np.uint8)
-    ta = np.zeros((Bp, Lt), np.uint8)
-    qlen = np.zeros(Bp, np.int32)
-    tlen = np.zeros(Bp, np.int32)
+    n = len(fwd_idx)
+    qa, qlen, ta, tlen = pad_tiles([tasks[i][0] for i in fwd_idx],
+                                   [tasks[i][1] for i in fwd_idx])
+    Bp = len(qlen)
     minscs = np.full(Bp, 1 << 30, np.int32)
     minscs[:n] = minsc
-    for i, (qi, ti) in enumerate(wave):
-        qa[i, :len(qi)] = qi
-        ta[i, :len(ti)] = ti
-        qlen[i] = len(qi)
-        tlen[i] = len(ti)
     arrays = (qa, qlen, ta, tlen, minscs)
     blocks, inv = (split_fn(Bp, n) if split_fn is not None
                    else ([(torch.device(device), None)], None))

@@ -6,8 +6,10 @@ turn the backtrack's blob into CIGARs.
 Ports lariat_tpu/ops/sw_global_pallas.py: ``global_batch_pallas`` (K2)
 and ``traceback_ops_fused`` over ``traceback_ops_device`` (K2b, an XLA
 walk in the JAX package). ``split_traceback_blob``,
-``cigars_from_ops_packed`` and ``cigars_from_ops_raw`` are copied from
-there (that module imports jax).
+``cigars_from_ops_packed``, ``cigars_from_ops_raw`` and ``cigars_from_ops``
+are copied from there (that module imports jax). ``unpack_ops`` turns K2b's
+packed ops into the unpacked stream that the reference's
+``traceback_ops_device`` returns, which the host finishers take.
 
 z is the (B, Lt, Lq) uint8 direction matrix at absolute query columns:
 bits 0-1 pick H's source (0 diagonal, 1 E, 2 F), bit 2 marks E extended,
@@ -18,7 +20,7 @@ The kernel writes every byte of z, task-major.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -263,3 +265,53 @@ def cigars_from_ops_packed(packed: np.ndarray, i_fin: np.ndarray,
         ctypes.c_void_p(cig.ctypes.data), i64(cap),
         ctypes.c_void_p(nops.ctypes.data))
     return cig, nops
+
+
+def unpack_ops(packed: np.ndarray, S: int) -> np.ndarray:
+    """K2b's (B, S//4) packed ops (four to a byte, first op in the low
+    bits) -> the (B, S) uint8 op stream of an unpacked walk: 0 M, 1 I, 2 D,
+    and 255 from the walk's end on (the packed 3)."""
+    p = np.asarray(packed, dtype=np.uint8)
+    ops = ((p[:, :, None] >> np.array([0, 2, 4, 6], np.uint8)) & 3).reshape(
+        p.shape[0], S)
+    ops[ops == 3] = 255
+    return ops
+
+
+def cigars_from_ops(ops: np.ndarray, i_fin: np.ndarray, k_fin: np.ndarray
+                    ) -> List[List[Tuple[int, int]]]:
+    """Host finish of the walk: each task's ops RLE-merged with the
+    cursors' tails, reversed into a CIGAR of (op, len) pairs. Through the
+    native helper when it is built, else in Python."""
+    B, S = ops.shape
+    raw = cigars_from_ops_raw(ops, i_fin, k_fin)
+    if raw is not None:
+        cig, nops = raw
+        out = []
+        for b in range(B):
+            n = int(nops[b])
+            flat = cig[b, :2 * n].tolist()
+            out.append(list(zip(flat[0::2], flat[1::2])))
+        return out
+    out = []
+    for b in range(B):
+        cigar: List[Tuple[int, int]] = []
+
+        def push(op, ln):
+            if cigar and cigar[-1][0] == op:
+                cigar[-1] = (op, cigar[-1][1] + ln)
+            else:
+                cigar.append((op, ln))
+
+        for s in range(S):
+            v = int(ops[b, s])
+            if v == 255:
+                break
+            push(v, 1)
+        if int(i_fin[b]) >= 0:
+            push(2, int(i_fin[b]) + 1)
+        if int(k_fin[b]) >= 0:
+            push(1, int(k_fin[b]) + 1)
+        cigar.reverse()
+        out.append([tuple(c) for c in cigar])
+    return out

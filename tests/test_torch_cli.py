@@ -67,6 +67,8 @@ def _env(**extra):
 def test_port_cli_cpu_matches_host_native(tmp_path):
     fasta, fq = _inputs(tmp_path)
     runs = {"host": ("lariat_tpu.cli", "off", {}),
+            # the port's host path: chip_smoke.py's host-native reference
+            "port_off": ("lariat_tpu_torch.cli", "off", {}),
             "port": ("lariat_tpu_torch.cli", "on",
                      {"LARIAT_TORCH_DEVICE": "cpu"}),
             "port_seed": ("lariat_tpu_torch.cli", "on",
@@ -88,7 +90,8 @@ def test_port_cli_cpu_matches_host_native(tmp_path):
         assert '"smem_twoptr": 0' in logs[port]       # twins on the CPU
     bams = sorted(p.split("/")[-1]
                   for p in glob.glob(str(tmp_path / "host" / "*.bam")))
-    for port in ("port", "port_seed"):
+    assert "primed pairs" not in logs["port_off"]
+    for port in ("port_off", "port", "port_seed"):
         assert bams and bams == sorted(
             p.split("/")[-1]
             for p in glob.glob(str(tmp_path / port / "*.bam")))

@@ -3,8 +3,9 @@ explicit CPU device (every wave through the kernels' plain twins) against
 lariat_tpu's BatchAlignmentEngine -- with its three Pallas entries in
 interpret mode, and on its XLA path -- compared field by field. Also
 device seeding (LARIAT_DEVICE_SEED) against host seeding and the JAX
-engine's, and the engine's refusals: CUDA asked for and absent, an upload
-or kernel error under device seeding."""
+engine's, the engine's refusals: CUDA asked for and absent, an upload
+or kernel error under device seeding, and its Python replays when the
+native sessions are missing."""
 
 import dataclasses
 
@@ -190,10 +191,28 @@ def test_forced_device_seeding_raises(dup_genome, monkeypatch):  # noqa: F811
     assert port._seed_state is None
 
 
-def test_missing_native_sessions_raise(dup_genome, monkeypatch):  # noqa: F811
-    from lariat_tpu_torch.align import native_engine
-    fm, _ = dup_genome
-    monkeypatch.setattr(native_engine.Reg2AlnSession, "available",
-                        staticmethod(lambda: False))
-    with pytest.raises(RuntimeError, match="native"):
-        TorchBatchAlignmentEngine(fm, device="cpu")
+def test_missing_native_sessions_take_python_replays(dup_genome,  # noqa: F811
+                                                     monkeypatch):
+    """Without the native sessions the engine builds: align_batch takes the Python replay of chain2aln and
+    reg2aln_batch the Python ladder, with the sessions' regions and
+    alignments."""
+    from lariat_tpu_torch.align import batch_engine, native_engine
+    fm, genome = dup_genome
+    seqs = _seed_seqs(genome)
+    want = TorchBatchAlignmentEngine(fm, device="cpu")
+    want_regs = want.align_batch(seqs)
+    tasks = [(s, r) for s, regs in zip(seqs, want_regs) for r in regs]
+    want_sras = want.reg2aln_batch(tasks)
+    for cls in (native_engine.Align1Session, native_engine.Reg2AlnSession):
+        monkeypatch.setattr(cls, "available", staticmethod(lambda: False))
+    taken = []
+    for name in ("_align_batch_python", "_reg2aln_python"):
+        orig = getattr(batch_engine.TorchBatchAlignmentEngine, name)
+        monkeypatch.setattr(
+            batch_engine.TorchBatchAlignmentEngine, name,
+            lambda self, *a, _f=orig, _n=name: taken.append(_n) or
+            _f(self, *a))
+    port = TorchBatchAlignmentEngine(fm, device="cpu")
+    assert port.align_batch(seqs) == want_regs
+    assert port.reg2aln_batch(tasks) == want_sras
+    assert taken == ["_align_batch_python", "_reg2aln_python"]
