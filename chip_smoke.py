@@ -22,7 +22,10 @@ Phases (one line each with its seconds, failures end the run nonzero):
      multiple of C, N codes, minsc 0; w 0, w >= qlen, rows past qlen + w;
      K1 also at zdrop 5, 0 and -1, z-drops at rows 0-3, h0 <= o_ins +
      e_ins), and T1 in all six variants at 8192 x 192 x 576 on planted
-     inputs and on the ablation tool's random ones;
+     inputs and on the ablation tool's random ones, and at 4096 x 300 x
+     576 (two column tiles) on both kinds, each variant's ms and ns a warp
+     step (ms x SMs / the kernel's step count) beside K1's tile entry on
+     the same planted tasks;
   4. data: a chr20-scale synthetic genome (tools/synth_genome.py --scale
      0.0208 --seed 7, ~64 Mbp), 10,000 read pairs of 151 bp
      (tools/sim_reads.py) and the index, under build/smoke/ (reused);
@@ -41,7 +44,10 @@ Phases (one line each with its seconds, failures end the run nonzero):
      device collect (collect_seeds_rbegs_device) on 250 reads of the
      FASTQ and six low-complexity ones, which blow K4a's step cap, so it
      runs K4b: seeds and rbegs equal to the native C++ seeder's, with no
-     SA sample uploaded; then, off every path, K4a's planes entry (round 1
+     SA sample uploaded; one warm collect of the 4,096 reads with the
+     seeding trace on (smem_device.SEED_TRACE, LARIAT_SEED_TRACE's
+     [seedtrace] lines), equal to the native seeder's, its ms summed by
+     tag beside the call's wall; then, off every path, K4a's planes entry (round 1
      at an 8L budget, round 2 with bwd_init at 32L, int32 and int64) and K9
      on its planes (both layouts, round 1's mid L + 2 and round 2's mids,
      the collect's caps, caps that overflow and then L, whose flags must
@@ -659,31 +665,57 @@ def _edges(cuda, D, S3):
 
 
 def _t1_vs_plain(rng, cuda, pk):
-    """T1 against its twin in all six variants at 8192 x 192 x 576, on
-    planted inputs (timed, kernel and twin) and on the ablation tool's
-    random inputs (timed, kernel only: most lanes die within a few
-    rows). The bound is the baseline's on the planted inputs."""
+    """T1 against its twin in all six variants at 8192 x 192 x 576 and at
+    4096 x 300 x 576 (two column tiles), each on planted inputs and on
+    random ones (the ablation tool's codes; at Lq 300 with qlen 1-300),
+    exact. Timed: every variant's kernel, and at Lq 192 on the planted
+    inputs its twin, its warp steps (the kernel's count) and ns a warp
+    step (ms x SMs / steps), beside K1's tile entry on the same planted
+    tasks (qlen, tlen, w, h0 of the params). The bound is the baseline's
+    on the planted inputs."""
     import numpy as np
     import torch
-    from lariat_tpu_torch.ops import extend_ablate
+    from lariat_tpu_torch.ops import extend_ablate, sw_extend
     from lariat_tpu_torch.tools.kernel_roofline import OPS_PER_CELL
-    from lariat_tpu_torch.tools.extend_ablate import inputs
-    from lariat_tpu_torch.tools.kernel_turns import planted
-    B, Lq, Lt = 8192, 192, 576
-    qlen = rng.integers(0, 152, B).astype(np.int32)
-    tlen = np.minimum(qlen + rng.integers(0, 450, B), Lt).astype(np.int32)
-    qlen[:64], tlen[64:128] = 0, 0
-    q, t = planted(rng, qlen, tlen, Lq, Lt)
-    params = np.zeros((B, 8), np.int32)
-    params[:, 0], params[:, 1], params[:, 2] = qlen, tlen, 100
-    params[:, 3] = rng.integers(19, 152, B)
-    sets = {"planted": cuda(q, t, params),
-            "random": inputs(B, Lq, Lt, torch.device("cuda"))}
+    from lariat_tpu_torch.tools.extend_ablate import (inputs,
+                                                      ns_per_warp_step,
+                                                      warp_steps)
+    from lariat_tpu_torch.tools.kernel_turns import t1_inputs
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B, Lq, Lt, B2, Lq2 = 8192, 192, 576, 4096, 300
+    sets, p192 = {}, None
+    for lq, b, qmax in ((Lq, B, 151), (Lq2, B2, Lq2)):
+        q, t, params = t1_inputs(rng, b, lq, Lt, qmax=qmax)
+        if lq == Lq:
+            p192 = params
+        sets[(lq, "planted")] = cuda(q, t, params)
+        qr, tr, pr = inputs(b, lq, Lt, dev)
+        if lq == Lq2:   # the tool's qlen 151 stays inside one tile
+            pr[:, 0] = torch.from_numpy(rng.integers(
+                1, lq + 1, b).astype(np.int32)).to(dev)
+        sets[(lq, "random")] = (qr, tr, pr)
+    qd, td, pd = sets[(Lq, "planted")]
+    k1_args = (qd, pd[:, 0].contiguous(), td, pd[:, 1].contiguous(),
+               pd[:, 2].contiguous(), pd[:, 3].contiguous())
+
+    def k1(steps=None):
+        return sw_extend.extend_batch(*k1_args, steps=steps)
+
+    k1_steps = _k1_steps(k1, k1(), B)
+    k1_ms = _median_ms(k1)
+    k1_ns = ns_per_warp_step(k1_ms, k1_steps, sms)
+    print(f"  K1 tile entry on T1's planted tasks ({B}, {Lq}, {Lt}): "
+          f"{k1_ms:.3f} ms, {k1_steps} warp steps, {k1_ns:.1f} ns a warp "
+          f"step ({sms} SMs)")
+    out = {"k1_tile_same_tasks": {"ms": k1_ms, "warp_steps": k1_steps,
+                                  "ns_per_warp_step": k1_ns},
+           "variants": {}}
     err, base = 0, None
     for name, (half, kw) in extend_ablate.VARIANTS.items():
         Lv = Lt // 2 if half else Lt
         times = {}
-        for kind, (qd, td, pd) in sets.items():
+        for (lq, kind), (qd, td, pd) in sets.items():
             def k():
                 return extend_ablate.run_variant(qd, td, pd, Lv, **kw)
 
@@ -694,27 +726,36 @@ def _t1_vs_plain(rng, cuda, pk):
             torch.cuda.synchronize()
             e = _max_abs_err(got, want)
             if e:
-                raise AssertionError(f"T1 extend_ablate {name} ({kind}) "
-                                     f"differs from its plain version "
-                                     f"(max abs err {e})")
+                raise AssertionError(f"T1 extend_ablate {name} (Lq {lq}, "
+                                     f"{kind}) differs from its plain "
+                                     f"version (max abs err {e})")
             err = max(err, e)
-            times[kind] = _median_ms(k)
-            if kind == "planted":
-                times["plain"] = _median_ms(p, n=3)
-                if base is None:
-                    # the band cells up to the rows the baseline's outputs
-                    # prove visited (its best row max_i, its best
-                    # to-the-end row max_ie)
-                    o = got.cpu().numpy()
-                    ops = OPS_PER_CELL["extend"] * _band_cells(
-                        qlen, np.maximum(o[2], o[4]) + 1, params[:, 2])
-                    base = (times[kind], times["plain"],
-                            *_bound(pk, ops, _nbytes(qd, td, pd, got)))
-        print(f"  extend_ablate {name} ({B}, {Lq}, {Lv}): exact; planted "
-              f"kernel {times['planted']:.3f} ms, plain "
-              f"{times['plain']:.3f} ms; random kernel "
-              f"{times['random']:.3f} ms")
-    return (err, base[0], base[1], (B, Lq, Lt), base[2], base[3])
+            times[f"{kind}_{lq}"] = _median_ms(k)
+            if (lq, kind) != (Lq, "planted"):
+                continue
+            times["plain"] = _median_ms(p, n=3)
+            steps = warp_steps(qd, td, pd, Lv, **kw)
+            if base is None:
+                # the band cells up to the rows the baseline's outputs
+                # prove visited (its best row max_i, its best to-the-end
+                # row max_ie)
+                o = got.cpu().numpy()
+                ops = OPS_PER_CELL["extend"] * _band_cells(
+                    p192[:, 0], np.maximum(o[2], o[4]) + 1, p192[:, 2])
+                base = (times[f"{kind}_{lq}"], times["plain"],
+                        *_bound(pk, ops, _nbytes(qd, td, pd, got)))
+        ms = times[f"planted_{Lq}"]
+        ns = ns_per_warp_step(ms, steps, sms)
+        out["variants"][name] = {**times, "warp_steps": steps,
+                                 "ns_per_warp_step": ns}
+        print(f"  extend_ablate {name} (Lt {Lv}): exact at Lq {Lq} and "
+              f"{Lq2}, planted and random; Lq {Lq} planted kernel "
+              f"{ms:.3f} ms, {steps} warp steps, {ns:.1f} ns a warp step "
+              f"(K1's tile entry {k1_ns:.1f}), plain {times['plain']:.3f} "
+              f"ms; random {times[f'random_{Lq}']:.3f} ms; Lq {Lq2} "
+              f"planted {times[f'planted_{Lq2}']:.3f} ms, random "
+              f"{times[f'random_{Lq2}']:.3f} ms")
+    return (err, base[0], base[1], (B, Lq, Lt), base[2], base[3], out)
 
 
 def phase_data(scale: float, barcodes: int, pairs_per_bc: int):
@@ -960,8 +1001,52 @@ def phase_seeding(fasta, reads_path, pk):
           f"longest lane ({r1['transitions_max']} transitions in "
           f"{r1['ms']:.3f} ms) beside its bound")
     res["sw_extend_desc"] = _k1_desc_wave(fm, pk)
+    res["seed_trace"] = _traced_collect(fm, fmd, g, qs, opt)
     return (res, _fallback_collect(fm, fmd, g, qs[:FALLBACK_READS], opt),
             planes_launches)
+
+
+def _traced_collect(fm, fmd, g, qs, opt):
+    """One warm collect_seeds_rbegs_device of the batch's reads with the
+    seeding trace on (``smem_device.SEED_TRACE``, what LARIAT_SEED_TRACE=1
+    sets at import): its seeds and rbegs equal to the native C++ seeder's,
+    the [seedtrace] ms summed by tag printed beside the call's wall."""
+    import contextlib
+    import io
+    import numpy as np
+    from lariat_tpu_torch.index import native_ops
+    from lariat_tpu_torch.ops import smem_device as sd
+    want = native_ops.collect_seeds_rbegs_batch(fm, qs, opt)
+    if want is None:
+        raise RuntimeError("native seeding unavailable")
+    sd.collect_seeds_rbegs_device(fmd, g, fm, qs, opt)   # warm
+    buf, prev = io.StringIO(), sd.SEED_TRACE
+    sd.SEED_TRACE = True
+    try:
+        with contextlib.redirect_stdout(buf):
+            t0 = time.time()
+            got = sd.collect_seeds_rbegs_device(fmd, g, fm, qs, opt)
+            wall = (time.time() - t0) * 1e3
+    finally:
+        sd.SEED_TRACE = prev
+    for i, (gm, gr, wm, wr) in enumerate(zip(*got, *want)):
+        if not (np.array_equal(gm, np.asarray(wm).reshape(-1, 5))
+                and np.array_equal(gr, np.asarray(wr))):
+            raise AssertionError(f"traced collect: read {i} differs from "
+                                 f"the native seeder")
+    sums, notes = {}, []
+    for line in buf.getvalue().splitlines():
+        m = re.fullmatch(r"\[seedtrace\] (.+?) +(-?[0-9.]+)ms", line)
+        if m:
+            sums[m.group(1)] = sums.get(m.group(1), 0.0) + float(m.group(2))
+        elif line.startswith("[seedtrace] "):
+            notes.append(line[len("[seedtrace] "):])
+    if "merge+sort" not in sums or "sa walk" not in sums:
+        raise AssertionError(f"seeding trace: {buf.getvalue()!r}")
+    print(f"  seeding trace, one warm device collect of {len(qs)} reads, "
+          f"ms by tag: {json.dumps(sums)} (sum {sum(sums.values()):.1f} of "
+          f"{wall:.1f} ms wall; {'; '.join(notes)})")
+    return {"ms_by_tag": sums, "wall_ms": wall, "notes": notes}
 
 
 def _k5_lookup(fm, fmd, fmd64, g, pk, no_rows, err):
@@ -1974,11 +2059,14 @@ def phase_tools(fasta, reads, env, logs):
     if names != list(extend_ablate.VARIANTS):
         raise AssertionError(f"extend_ablate: variants {names}")
     for x in lines[:-1]:
-        if not (x.get("ms", 0) > 0 and x.get("padded_cells_per_s", 0) > 0):
+        if not (x.get("ms", 0) > 0 and x.get("padded_cells_per_s", 0) > 0
+                and x.get("warp_steps", 0) > 0
+                and x.get("ns_per_warp_step", 0) > 0):
             raise AssertionError(f"extend_ablate: bad line {x}")
         print(f"  extend_ablate {x['variant']} (Lt {x['Lt']}): "
               f"{x['ms']:.3f} ms, {x['padded_cells_per_s']:.4g} padded "
-              f"cells/s")
+              f"cells/s, {x['warp_steps']} warp steps, "
+              f"{x['ns_per_warp_step']:.1f} ns a warp step")
     fin = _last_json(out, ("device", "card", "B", "Lq", "Lt", "timing",
                            "launches"), "extend_ablate")
     t1_launches = int(fin["launches"].get("extend_ablate", 0))
@@ -2707,7 +2795,8 @@ def main(argv=None) -> int:
     with Phase("auto seeding, background upload"):
         auto = phase_auto_upload(fasta, replay_reads)
     desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
-    extra = {"sw_extend": {"desc_launches": desc,
+    extra = {"smem_twoptr": {"seed_trace": kres.pop("seed_trace")},
+             "sw_extend": {"desc_launches": desc,
                            "desc_wave": kres.pop("sw_extend_desc"),
                            "step_entry": step_entry},
              "sa_walk": {**walks, "lookup_entry": kres.pop("sa_lookup")}}

@@ -206,7 +206,8 @@ struct RowBest {
 // The rows [0, n_rows) of one task (n_rows >= 1), C columns a lane.
 // Returns whether the last lane stopped the task (warp-uniform); lane 31's
 // `best` holds the outputs, and `steps` gains the warp steps run (every
-// tile's).
+// tile's). T1 (csrc/extend_ablate.cu) runs a line-for-line copy of this
+// body: change both.
 template <int C, class Feed>
 __device__ __forceinline__ bool extend_dp(const Feed& fd, int b,
                                           const Scoring& a, int qlen, int w,

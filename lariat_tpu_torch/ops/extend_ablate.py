@@ -5,27 +5,36 @@ and its plain PyTorch twin, the port of tools/extend_ablate.py
 Timing only: each variant switches off one of K1's cost centres and, except
 the baseline, computes a deliberately wrong result. ``cummax=False`` drops
 F's running max (gap opening only), ``trow=False`` scores every row against
-target row 0, ``writeback=False`` stores the whole DP row each row instead
+target row 0, ``writeback=False`` updates every DP column every row instead
 of the masked band. The result is the (8, B) int32 block of the Pallas
 entry: rows alive, max_score, max_i, max_j, max_ie, gscore, then two zero
 rows. It is not K1's: there is no _adjust_w, no qlen == 0 shortcut, no end
 bonus, and the indices are raw (not +1).
 
-A CUDA tensor launches the kernel; a CPU tensor runs the twin. Any B is
-taken (the Pallas entry runs 128-lane chunks).
+The kernel runs K1's body (a warp a task; a line-for-line copy of
+``csrc/sw_extend.cu``'s), so its variants time K1's costs; ``steps``, a
+(B,) int32 CUDA tensor, gets each task's warp steps, as K1's ``steps``
+does. A CUDA tensor launches the kernel; a CPU tensor runs the twin. Any B is taken (the Pallas entry runs
+128-lane chunks); Lq stays below 1024, the Pallas kernel's limit (its
+argmax packs h * 1024 + j).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
+from .sw_extend import boundary_scratch
 
 NEG = -0x40000000
 # make_kernel's fixed scoring (bwa-mem defaults)
 SCORING = dict(o_del=6, e_del=1, o_ins=6, e_ins=1, zdrop=100, match_sc=1,
                mismatch_sc=-4, n_sc=-1)
 
+# the widest query: make_kernel's argmax packs h * 1024 + j
+MAX_LQ = 1023
 # tools/extend_ablate.py's variants: name -> (Lt halved, switches);
 # rows_288 is the baseline over 288 of its 576 rows
 VARIANTS = {
@@ -131,18 +140,25 @@ def run_variant_plain(q: torch.Tensor, t: torch.Tensor, params: torch.Tensor,
 
 def run_variant(q: torch.Tensor, t: torch.Tensor, params: torch.Tensor,
                 Lt: int, *, cummax: bool = True, trow: bool = True,
-                writeback: bool = True) -> torch.Tensor:
+                writeback: bool = True,
+                steps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """T1 over a task batch -> (8, B) int32.
 
     q (B, Lq) and t (B, >= Lt) integer codes 0..4 (only t's first Lt
-    columns are read); params (B, 8) int32 rows qlen, tlen, w, h0 (the rest
-    unused), with qlen <= Lq."""
+    columns are read), 1 <= Lq <= MAX_LQ; params (B, 8) int32 rows qlen,
+    tlen, w, h0 (the rest unused), with qlen <= Lq."""
     B, Lq = q.shape
+    if not 1 <= Lq <= MAX_LQ:
+        raise ValueError(f"Lq={Lq}: T1 takes 1..{MAX_LQ} query columns "
+                         f"(make_kernel packs its argmax as h * 1024 + j)")
     if Lt < 1 or t.shape[0] != B or t.shape[1] < Lt:
         raise ValueError(f"t {tuple(t.shape)} does not cover Lt={Lt} for "
                          f"B={B}")
     kw = dict(cummax=cummax, trow=trow, writeback=writeback)
     if not _build.on_cuda(q):
+        if steps is not None:
+            raise ValueError("steps are counted by the kernel, on a CUDA "
+                             "tensor")
         return run_variant_plain(q, t, params, Lt, **kw)
     dev = q.device
     _build.check("q", q, dev, (B, Lq), _build.CODE_DTYPES)
@@ -150,14 +166,15 @@ def run_variant(q: torch.Tensor, t: torch.Tensor, params: torch.Tensor,
     if t.device != dev or t.dtype not in _build.CODE_DTYPES:
         raise ValueError(f"t: {t.dtype} on {t.device}, expected integer "
                          f"codes on {dev}")
-    qT = q.to(torch.uint8).t().contiguous()
-    tT = t[:, :Lt].to(torch.uint8).t().contiguous()
-    eh_h = torch.empty((Lq + 1, B), dtype=torch.int32, device=dev)
-    eh_e = torch.empty((Lq + 1, B), dtype=torch.int32, device=dev)
+    if steps is not None:
+        _build.check("steps", steps, dev, (B,))
+    q8 = q.to(torch.uint8).contiguous()
+    t8 = t[:, :Lt].to(torch.uint8).contiguous()
     out = torch.empty((8, B), dtype=torch.int32, device=dev)
     s = SCORING
-    _build.launch("extend_ablate", qT, tT, params, B, Lq, Lt, s["o_del"],
+    _build.launch("extend_ablate", q8, t8, params, B, Lq, Lt, s["o_del"],
                   s["e_del"], s["o_ins"], s["e_ins"], s["zdrop"],
                   s["match_sc"], s["mismatch_sc"], s["n_sc"], int(cummax),
-                  int(trow), int(writeback), eh_h, eh_e, out)
+                  int(trow), int(writeback), boundary_scratch(B, Lq, Lt, dev),
+                  out, 0 if steps is None else steps)
     return out

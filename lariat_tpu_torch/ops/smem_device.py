@@ -9,6 +9,15 @@ takes bwt_seed_strategy1's forward-greedy seeds; then one stable (qb, qe)
 sort per read. The drivers are the reference's numpy, line for line, so
 the (n, 5) int64 rows ``[x0, x1, s, qb, qe]`` come out in the same order.
 
+``LARIAT_SEED_TRACE=1`` (read once, at import) prints the reference's
+``[seedtrace]`` lines: each phase of a collect in host wall ms (round 1
+and 3's launches, round 1's download with the straggler rerun, its
+assembly, round 2, round 3's assembly, the merge; then the rbeg schedule
+and the SA walk), the straggler count of each two-pointer round, and round
+2's lanes and flags. A launch returns before the card is done, as a JAX
+dispatch does, so the kernels' time falls in the phase that first waits
+on them (round 1's download); the trace adds no synchronisation.
+
   K4a ``min_starts_twoptr``  two-pointer minimal-start machine, one lane per
                              read (or reseed request); plateau-end seeds go
                              straight into per-lane slots
@@ -38,6 +47,8 @@ gives each lane exactly that.
 
 from __future__ import annotations
 
+import os
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -46,9 +57,19 @@ import torch
 from . import _build
 from .fm_batch import DeviceFMIndex, bwt_extend_dir_batch, rank_rows
 
+SEED_TRACE = os.environ.get("LARIAT_SEED_TRACE") == "1"
 # transitions per step-cap check in the reference's while loop
 UNROLL = 2
 CAP1, CAP2 = 32, 16
+
+
+def _strace(tag: str, t0: float) -> float:
+    """Print the ms since ``t0`` under ``tag`` when the trace is on; returns
+    the time now (the next phase's start)."""
+    if SEED_TRACE:
+        print(f"[seedtrace] {tag:14s} {(time.time() - t0) * 1e3:7.1f}ms",
+              flush=True)
+    return time.time()
 
 
 def _budget(max_steps: int) -> int:
@@ -697,6 +718,9 @@ def collect_seeds_arrays_device(fmd: DeviceFMIndex, fm,
         if (fl & 2) or (fl & 1):
             return (meta, big), fl & 3
         idx = np.nonzero(meta[:, cap + 1] == 0)[0]
+        if SEED_TRACE:
+            print(f"[seedtrace] stragglers {len(idx)}/{meta.shape[0]}",
+                  flush=True)
         Rs = _pad_pow2(len(idx))
         sub = {k: np.zeros(Rs, np.int64) for k in ("se", "ee", "mi", "md")}
         sub["mi"] += 1
@@ -719,6 +743,7 @@ def collect_seeds_arrays_device(fmd: DeviceFMIndex, fm,
         big[idx] = pk2[1].cpu().numpy()[:len(idx)]
         return (meta, big), 1
 
+    _t = time.time()
     # ---- round 1 (phase A at 3L transitions) and round 3 -----------------
     pk1 = min_starts_twoptr(fmd, rd, put(np.zeros(R), np.int32),
                             put(lens, np.int32), put(np.ones(R), np.int64),
@@ -729,9 +754,11 @@ def collect_seeds_arrays_device(fmd: DeviceFMIndex, fm,
         cap3 = max(2, L // max(min_seed, 1) + 2)
         pk3 = strategy1(fmd, rd, put(lens, np.int32), int(opt.max_mem_intv),
                         L, min_seed, cap3)
+    _t = _strace("r1+r3 dispatch", _t)
     (meta1, big1), flags1 = twophase_finish(
         pk1, CAP1, np.zeros(R, np.int64), lens.astype(np.int64),
         np.ones(R, np.int64), np.full(R, L + 2, np.int64), False, 8 * L, rd)
+    _t = _strace("r1 pack dl", _t)
     if flags1 != 1:
         # step cap blown or slot overflow: the exhaustive per-(read, e)
         # kernel and host emission from its full planes (the same function)
@@ -747,6 +774,7 @@ def collect_seeds_arrays_device(fmd: DeviceFMIndex, fm,
     else:
         ri1, m1 = _slots(meta1, big1, CAP1, R)
     qb1, qe1 = m1[:, 3], m1[:, 4]
+    _t = _strace("r1 assembly", _t)
 
     # ---- round 2: one two-pointer lane per reseed request ----------------
     re_mask = (qe1 - qb1 >= split_len) & (m1[:, 2] <= opt.split_width)
@@ -772,6 +800,8 @@ def collect_seeds_arrays_device(fmd: DeviceFMIndex, fm,
         (meta2, big2), flags2 = twophase_finish(
             pk2, CAP2, r2_start.astype(np.int64), r2_end.astype(np.int64),
             r2_m, r2_start.astype(np.int64), True, 32 * L, rd2)
+        if SEED_TRACE:
+            print(f"[seedtrace] r2 lanes={n_r2} flags={flags2}", flush=True)
         if flags2 != 1:
             # step cap / slot overflow: the exhaustive kernel over every
             # (request, e > mid) lane, host emission from the full planes
@@ -799,6 +829,7 @@ def collect_seeds_arrays_device(fmd: DeviceFMIndex, fm,
     else:
         m2 = np.zeros((0, 5), np.int64)
         ri2 = np.zeros(0, np.int64)
+    _t = _strace("r2", _t)
 
     # ---- round 3: forward-greedy seeds of positive size --------------------
     if pk3 is not None:
@@ -815,6 +846,7 @@ def collect_seeds_arrays_device(fmd: DeviceFMIndex, fm,
     else:
         m3 = np.zeros((0, 5), np.int64)
         ri3 = np.zeros(0, np.int64)
+    _t = _strace("r3 assembly", _t)
 
     # ---- merge + the final stable (qb, qe) sort per read -------------------
     rid = np.concatenate([ri1.astype(np.int64), ri2, ri3.astype(np.int64)])
@@ -824,7 +856,9 @@ def collect_seeds_arrays_device(fmd: DeviceFMIndex, fm,
     rid = rid[order]
     mall = mall[order]
     counts = np.bincount(rid, minlength=R)[:n_reads]
-    return [a.reshape(-1, 5) for a in np.split(mall, np.cumsum(counts)[:-1])]
+    out = [a.reshape(-1, 5) for a in np.split(mall, np.cumsum(counts)[:-1])]
+    _strace("merge+sort", _t)
+    return out
 
 
 def collect_seeds_device(fmd: DeviceFMIndex, fm, reads: List[np.ndarray],
@@ -845,6 +879,7 @@ def collect_seeds_rbegs_device(dfm: DeviceFMIndex, dg, fm,
     from ..parallel.align_step import sa_lookup_batch_host
 
     mems = collect_seeds_arrays_device(dfm, fm, reads, opt)
+    _t = time.time()
     max_occ = int(opt.max_occ)
     flat = (np.concatenate(mems, axis=0) if mems
             else np.zeros((0, 5), np.int64))
@@ -855,8 +890,12 @@ def collect_seeds_rbegs_device(dfm: DeviceFMIndex, dg, fm,
     starts = np.concatenate([[0], np.cumsum(cnt)[:-1]]).astype(np.int64)
     within = np.arange(total, dtype=np.int64) - np.repeat(starts, cnt)
     rows_arr = np.repeat(flat[:, 0], cnt) + within * np.repeat(step, cnt)
-    out = (sa_lookup_batch_host(dg, fm, rows_arr) if total
-           else np.zeros(0, np.int64))
+    if total:
+        _t = _strace("rbeg schedule", _t)
+        out = sa_lookup_batch_host(dg, fm, rows_arr)
+        _t = _strace("sa walk", _t)
+    else:
+        out = np.zeros(0, np.int64)
     per_seed = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int64)
     rbegs = []
     seed_off = 0

@@ -14,9 +14,17 @@ With these random inputs most lanes die under the z-drop test within a
 few rows, so the times mostly measure how fast dead lanes exit;
 ``chip_smoke.py`` also times the variants on planted inputs.
 
-Prints one JSON line per variant (ms and padded cells/s), then a final
-JSON line with the device, its nvidia-smi name and power limit, and the
-T1 launch count of the timed calls.
+T1 runs K1's wavefront body (a warp a task), so each variant also
+reports its warp steps, summed over the tasks from the kernel's own count
+(one more call with ``steps=``), and ns a warp step: ms x SMs / warp
+steps, what one warp step costs an SM -- the figure to set beside K1's
+(``chip_smoke.py`` phase 3). On the CPU (the twin, no schedule) both are
+null.
+
+Prints one JSON line per variant (ms, padded cells/s, warp steps, ns a
+warp step), then a final JSON line with the device, its nvidia-smi name
+and power limit, its SM count, and the T1 launches of the run (the step
+counts' included).
 """
 
 from __future__ import annotations
@@ -50,6 +58,22 @@ def inputs(B: int, Lq: int, Lt: int, device: torch.device):
     return [torch.from_numpy(a).to(device) for a in (q, t, params)]
 
 
+def warp_steps(q, t, params, Lt: int, **kw) -> int:
+    """The warp steps one call of T1 runs, summed over its tasks (the
+    kernel's count; a CUDA device)."""
+    st = torch.full((q.shape[0],), -1, dtype=torch.int32, device=q.device)
+    extend_ablate.run_variant(q, t, params, Lt, steps=st, **kw)
+    n = st.long()
+    if int(n.min()) < 0:
+        raise RuntimeError("T1 left a task's warp steps uncounted")
+    return int(n.sum())
+
+
+def ns_per_warp_step(ms: float, steps: int, sm_count: int) -> float:
+    """ms x SMs / warp steps, in ns: what one warp step costs an SM."""
+    return ms * 1e6 * sm_count / steps
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default=None,
@@ -60,19 +84,26 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     dev = get_device(args.device)
     q, t, params = inputs(args.B, args.Lq, args.Lt, dev)
+    cuda = dev.type == "cuda"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if cuda else None
     _build.reset_launches()
     for name, (half, kw) in extend_ablate.VARIANTS.items():
         Lt = args.Lt // 2 if half else args.Lt
+        steps = warp_steps(q, t, params, Lt, **kw) if cuda else None
         ms = median_ms(lambda: extend_ablate.run_variant(q, t, params, Lt,
                                                          **kw),
                        dev, ITERS)
         print(json.dumps({"variant": name, "Lt": Lt, "ms": ms,
                           "padded_cells_per_s":
-                              args.B * args.Lq * Lt / (ms * 1e-3)}),
+                              args.B * args.Lq * Lt / (ms * 1e-3),
+                          "warp_steps": steps,
+                          "ns_per_warp_step": ns_per_warp_step(ms, steps, sms)
+                          if cuda else None}),
               flush=True)
     print(json.dumps({
-        "device": device_name(dev), "card": card(dev), "B": args.B,
-        "Lq": args.Lq, "Lt": args.Lt, "seed": SEED,
+        "device": device_name(dev), "card": card(dev), "sm_count": sms,
+        "B": args.B, "Lq": args.Lq, "Lt": args.Lt, "seed": SEED,
         "timing": f"median of {ITERS} after one warm call",
         "launches": {"extend_ablate": _build.launches()["extend_ablate"]}}),
         flush=True)

@@ -1,4 +1,4 @@
-"""K1, K2, K2b, K3, K4a, K4b, K4c, K9, the SA lookup (K5), K7 and the
+"""K1, K2, K2b, K3, T1, K4a, K4b, K4c, K9, the SA lookup (K5), K7 and the
 align step's extension timed on the card, to compare two trees of the port in
 one call, in turns (parent, new, new, parent):
 
@@ -6,7 +6,7 @@ one call, in turns (parent, new, new, parent):
     for t in build/parent . . build/parent; do
       PYTHONPATH=$t python3 lariat_tpu_torch/tools/kernel_turns.py \\
           <genome.fa> <reads.fastq.gz> \\
-          [k1,k2,k2b,k3,launch,k4a,k4b,k4c,k9,lookup,k7,step]
+          [k1,k2,k2b,k3,t1,launch,k4a,k4b,k4c,k9,lookup,k7,step]
     done
 
 The third argument picks the sections (all by default). A tuning variant
@@ -26,6 +26,11 @@ device seeding came in:
 - K3, ``sw_local.local_batch``, at chip_smoke.py phase 3's rescue-wave shape
   (``k3_inputs``: 4,096 x 192 x 704, qlen 151, tlen 686, minsc 19),
   checked against its twin;
+- T1, ``extend_ablate.run_variant``, its baseline and its three single
+  ablations (no_cummax, no_trow, no_writeback) on planted tasks of
+  chip_smoke.py phase 3's T1 shape (``t1_inputs``: 8192 x 192 x 576, seed
+  2), each checked against its twin, in device time alone
+  (``events_ms``);
 - the launch path's host cost: ``sw_local.local_batch`` on 32 tasks of 64
   x 128 (a kernel of a few us, so the host's work leads), in us a call
   from one thread and from 20 threads at once, as the CLI's priming
@@ -110,6 +115,20 @@ def k1_inputs(rng, B=8192, Lq=192, Lt=576):
     w = np.full(B, 100, np.int32)
     h0 = rng.integers(19, 152, B).astype(np.int32)
     return q, qlen, t, tlen, w, h0
+
+
+def t1_inputs(rng, B=8192, Lq=192, Lt=576, qmax=151):
+    """T1 at K1's production tier, planted: qlen 0-qmax (64 tasks 0), tlen
+    up to qlen + 449 (64 tasks 0), w 100, h0 19-151 -> (q, t, params)
+    numpy arrays, params' rows qlen, tlen, w, h0."""
+    qlen = rng.integers(0, qmax + 1, B).astype(np.int32)
+    tlen = np.minimum(qlen + rng.integers(0, 450, B), Lt).astype(np.int32)
+    qlen[:64], tlen[64:128] = 0, 0
+    q, t = planted(rng, qlen, tlen, Lq, Lt)
+    params = np.zeros((B, 8), np.int32)
+    params[:, 0], params[:, 1], params[:, 2] = qlen, tlen, 100
+    params[:, 3] = rng.integers(19, 152, B)
+    return q, t, params
 
 
 def k2_inputs(rng, B=2048, Lq=192, Lt=384):
@@ -268,7 +287,7 @@ def device_split(fn, n=20):
     return {k: [c / n, us / c] for k, (c, us) in sorted(acc.items())}
 
 
-SECTIONS = ("k1", "k2", "k2b", "k3", "launch", "k4a", "k4b", "k4c", "k9", "lookup", "k7", "step")
+SECTIONS = ("k1", "k2", "k2b", "k3", "t1", "launch", "k4a", "k4b", "k4c", "k9", "lookup", "k7", "step")
 
 
 def make_variant(dest, rel, old, new) -> str:
@@ -304,7 +323,7 @@ def main(argv=None) -> int:
         return 0
     if len(argv) not in (2, 3):
         raise SystemExit("usage: kernel_turns.py <genome.fa> "
-                         "<reads.fastq.gz> [k1,k2,k2b,k3,launch,k4a,k4b,"
+                         "<reads.fastq.gz> [k1,k2,k2b,k3,t1,launch,k4a,k4b,"
                          "k4c,k9,lookup,k7,step]")
     want_s = set(argv[2].split(",")) if len(argv) == 3 else set(SECTIONS)
     if not want_s <= set(SECTIONS):
@@ -383,6 +402,22 @@ def main(argv=None) -> int:
             [sw_local.local_batch_plain(q3, ql3, t3, tl3, m3)])
         out["k3_ms"] = medians(
             lambda: sw_local.local_batch(q3, ql3, t3, tl3, m3))
+
+    if "t1" in want_s:
+        from lariat_tpu_torch.ops import extend_ablate
+        tq, tt, tp = (put(a) for a in t1_inputs(np.random.default_rng(2)))
+        Lt1 = tt.shape[1]
+        out["t1_max_abs_err"] = 0
+        for name in ("baseline", "no_cummax", "no_trow", "no_writeback"):
+            kw = extend_ablate.VARIANTS[name][1]
+
+            def t1():
+                return extend_ablate.run_variant(tq, tt, tp, Lt1, **kw)
+
+            out["t1_max_abs_err"] = max(out["t1_max_abs_err"], err(
+                [t1()], [extend_ablate.run_variant_plain(tq, tt, tp, Lt1,
+                                                         **kw)]))
+            out[f"t1_{name}_dev_ms"] = [events_ms(t1) for _ in range(3)]
 
     if "launch" in want_s:
         small = [put(a) for a in k3_inputs(np.random.default_rng(4), B=32,

@@ -7,6 +7,8 @@ with the straggler split, the exhaustive fallback, slot overflow and int64
 indices forced. Integer outputs: tolerance 0. The ``cuda`` cases hold each
 kernel against its twin on the card."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -430,6 +432,78 @@ def test_forced_straggler_split(idx, monkeypatch):
     for f in (fmd, fmd64):
         _assert_same(_port_collect(fm, f, reads, opt), want)
     assert calls["rerun"] >= 2 and calls["n"] >= 6
+
+
+def _trace_lines(text):
+    """The [seedtrace] lines of ``text``: a timed line by its tag, the
+    straggler and round-2 lines whole."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("[seedtrace] "):
+            m = re.fullmatch(r"\[seedtrace\] (.+?) +-?[0-9.]+ms", line)
+            out.append(m.group(1) if m else line)
+    return out
+
+
+def _clamp_phase_a(monkeypatch, mod, counts):
+    """Phase A of rounds 1 and 2 at 24 transitions in ``mod``'s collect:
+    (almost) every lane goes to the straggler rerun."""
+    orig = mod.min_starts_twoptr
+
+    def clamped(*a, **kw):
+        if kw.get("max_steps", 0) in (3 * L, 4 * L):
+            kw["max_steps"] = 24
+        else:
+            counts["rerun"] += 1
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(mod, "min_starts_twoptr", clamped)
+
+
+@pytest.mark.parametrize("split", ["plain", "stragglers"])
+def test_seed_trace_matches_jax(idx, monkeypatch, capsys, split):
+    """LARIAT_SEED_TRACE: the port's collect prints the reference's
+    [seedtrace] tags in the reference's order, the straggler and round-2
+    lines equal; with the knob off neither prints a line."""
+    fm, genome, jdfm, fmd, _ = idx
+    opt = AlignerConfig()
+    reads = _messy_reads(genome, np.random.default_rng(125), n=30)
+    counts = {"rerun": 0}
+    if split == "stragglers":
+        for mod in (tsd, jsd):
+            _clamp_phase_a(monkeypatch, mod, counts)
+    jdg = jas.DeviceGenome.from_host(fm)
+    for mod in (tsd, jsd):
+        monkeypatch.setattr(mod, "SEED_TRACE", False)
+    capsys.readouterr()
+    want = jsd.collect_seeds_rbegs_device(jdfm, jdg, fm, reads, opt)
+    got = _port_collect(fm, fmd, reads, opt)
+    assert "[seedtrace]" not in capsys.readouterr().out
+    _assert_same(got, want)
+    for mod in (tsd, jsd):
+        monkeypatch.setattr(mod, "SEED_TRACE", True)
+    jsd.collect_seeds_device(jdfm, fm, reads, opt)
+    jtags = _trace_lines(capsys.readouterr().out)
+    assert tsd.collect_seeds_device(fmd, fm, reads, opt) == [
+        [tuple(int(v) for v in row) for row in np.asarray(m).reshape(-1, 5)]
+        for m in want[0]]
+    tags = _trace_lines(capsys.readouterr().out)
+    assert tags == jtags
+    assert [t for t in tags if not t.startswith("[")] == [
+        "r1+r3 dispatch", "r1 pack dl", "r1 assembly", "r2", "r3 assembly",
+        "merge+sort"]
+    lanes = [t for t in tags if t.startswith("[seedtrace] r2 lanes=")]
+    strag = [t for t in tags if t.startswith("[seedtrace] stragglers ")]
+    assert len(lanes) == 1
+    if split == "stragglers":
+        assert counts["rerun"] >= 4 and len(strag) == 2
+    else:
+        assert not strag
+    jsd.collect_seeds_rbegs_device(jdfm, jdg, fm, reads, opt)
+    jtags = _trace_lines(capsys.readouterr().out)
+    _port_collect(fm, fmd, reads, opt)
+    tags = _trace_lines(capsys.readouterr().out)
+    assert tags == jtags and tags[-2:] == ["rbeg schedule", "sa walk"]
 
 
 def test_forced_exhaustive_fallback(idx, monkeypatch):

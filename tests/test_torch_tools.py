@@ -57,13 +57,17 @@ def test_extend_ablate_tool_on_cpu(capsys):
     lines = _json_lines(capsys.readouterr().out)
     assert [x["variant"] for x in lines[:-1]] == list(t1.VARIANTS)
     for x in lines[:-1]:
-        assert set(x) == {"variant", "Lt", "ms", "padded_cells_per_s"}
+        assert set(x) == {"variant", "Lt", "ms", "padded_cells_per_s",
+                          "warp_steps", "ns_per_warp_step"}
         assert x["ms"] > 0 and x["Lt"] == (24 if x["variant"] == "rows_288"
                                            else 48)
+        # the twin has no warp schedule: no steps on the CPU
+        assert x["warp_steps"] is None and x["ns_per_warp_step"] is None
     final = lines[-1]
-    assert set(final) == {"device", "card", "B", "Lq", "Lt", "seed",
-                          "timing", "launches"}
+    assert set(final) == {"device", "card", "sm_count", "B", "Lq", "Lt",
+                          "seed", "timing", "launches"}
     assert final["device"] == "cpu" and final["card"] is None
+    assert final["sm_count"] is None
     assert final["launches"] == {"extend_ablate": 0}   # twins launch nothing
 
 
