@@ -2,6 +2,7 @@
 """Drive lariat_tpu_torch once on one NVIDIA GPU and check what comes out.
 
     python3 chip_smoke.py            # from the repository root, one GPU
+    python3 chip_smoke.py --hg38-data DIR    # phase 18's inputs elsewhere
 
 Phases (one line each with its seconds, failures end the run nonzero):
   1. environment: the card (nvidia-smi name, power limit), torch, nvcc;
@@ -173,11 +174,31 @@ Phases (one line each with its seconds, failures end the run nonzero):
      the upload and returns None); the phase prints the upload's seconds,
      each batch's seconds and how many batches finished while the upload
      was in flight.
+ 18. hg38 scale, on data_big/'s hg38sim.fa, its .lariat.d, sim10k.fastq.gz
+     (200 barcodes x 50 pairs) and hg38sim.centromeres.tsv, which
+     `python -m lariat_tpu_torch.tools.gen_data_big` builds (for about an
+     hour; never this script; --hg38-data points elsewhere): without them
+     one line says the phase was not run and why. Else the index loaded
+     as the CLI loads it (its seconds), the seeding index on the card in
+     int64 (asserted), the device collect on 4,096 reads equal to the
+     native C++ seeder's, K4a (round 1), K4c and K5 (65,536 lookup rows)
+     against their twins and timed beside phase 5's figures, K5's longest
+     walk, K1's descriptor entry on an int64 wave; host-native with
+     -centromeres, then the port with every pair primed, with auto
+     seeding (LARIAT_DEVICE_SEED unset) and with LARIAT_DEVICE_SEED=1:
+     all 10,000 pairs primed, none host-routed, K1 (every launch through
+     its descriptor entry), K2 and K2b launched, K3 wherever a mate was
+     rescued, K4a, K4c and K5 launched exactly when a batch seeded on the
+     device (every batch when forced), records and whole files equal to
+     host-native's; each run's index load s, the upload's s, the batches
+     each seeder served and the host-seeded ones before the first
+     device-seeded one, pairs/s and the busy fraction printed.
 Then each kernel's loss on its path (launches x (ms - bound ms)), a
 kernels JSON line (each kernel's launches on its path, max abs
 error, ms, plain ms, bound ms and what sets it, and library_ms: null where
 no single PyTorch call computes the function -- these recurrences -- and
-for K9 the stable argsort and gathers) and, last,
+for K9 the stable argsort and gathers; K4a, K4c, K5 and K1 with an "hg38"
+entry, phase 18's launches and ms or null) and, last,
 {"ok": true, "device": {...}}.
 """
 
@@ -244,6 +265,11 @@ REPLAY_BARCODES = 40
 AUTO_BATCH, AUTO_WAIT_S = 512, 120
 SEED_READS = 4096
 FALLBACK_READS = 250
+# phase 18: data_big/'s hg38-scale inputs (tools/gen_data_big.py's names)
+HG38_DIR = os.path.join(REPO, "data_big")
+HG38_INPUTS = ("hg38sim.fa", "hg38sim.fa.lariat.d", "sim10k.fastq.gz",
+               "hg38sim.centromeres.tsv")
+HG38_PAIRS = 10_000     # sim10k: 200 barcodes x 50 pairs
 # reads whose two-pointer lanes outrun K4a's step cap on a genome of this
 # size (no exact copy of them in the synthetic genome)
 LOW_COMPLEXITY = [b"A" * 151, b"AT" * 75, b"ACG" * 50, b"AC" * 75,
@@ -1006,6 +1032,19 @@ def phase_seeding(fasta, reads_path, pk):
             planes_launches)
 
 
+def _same_seeds(got, want, n, what):
+    """A device collect's (seeds, rbegs) equal to the native C++ seeder's,
+    read for read, over ``n`` reads."""
+    import numpy as np
+    if not len(got[0]) == len(got[1]) == len(want[0]) == n:
+        raise AssertionError(f"{what}: read count")
+    for i, (gm, gr, wm, wr) in enumerate(zip(*got, *want)):
+        if not (np.array_equal(gm, np.asarray(wm).reshape(-1, 5))
+                and np.array_equal(gr, np.asarray(wr))):
+            raise AssertionError(f"{what}: read {i} differs from the "
+                                 f"native seeder")
+
+
 def _traced_collect(fm, fmd, g, qs, opt):
     """One warm collect_seeds_rbegs_device of the batch's reads with the
     seeding trace on (``smem_device.SEED_TRACE``, what LARIAT_SEED_TRACE=1
@@ -1029,11 +1068,7 @@ def _traced_collect(fm, fmd, g, qs, opt):
             wall = (time.time() - t0) * 1e3
     finally:
         sd.SEED_TRACE = prev
-    for i, (gm, gr, wm, wr) in enumerate(zip(*got, *want)):
-        if not (np.array_equal(gm, np.asarray(wm).reshape(-1, 5))
-                and np.array_equal(gr, np.asarray(wr))):
-            raise AssertionError(f"traced collect: read {i} differs from "
-                                 f"the native seeder")
+    _same_seeds(got, want, len(qs), "traced collect")
     sums, notes = {}, []
     for line in buf.getvalue().splitlines():
         m = re.fullmatch(r"\[seedtrace\] (.+?) +(-?[0-9.]+)ms", line)
@@ -1108,16 +1143,17 @@ def _k5_lookup(fm, fmd, fmd64, g, pk, no_rows, err):
             info)
 
 
-def _k1_desc_wave(fm, pk):
+def _k1_desc_wave(fm, pk, dtypes=None):
     """K1's descriptor entry (``resident.extend_wave_resident`` on the
-    card: one launch) on a wave built from the chr20-scale genome against
+    card: one launch) on a wave built from the index's genome against
     build_qt plus the twin on the card, exact, with int32 and int64
-    descriptors: 8,192 extensions of 2,048 reads drawn from both strands
+    descriptors (``dtypes``; int64 alone where positions pass 2^31): 8,192
+    extensions of 2,048 reads drawn from both strands
     (2% substitutions, 1% N), right extensions (qdir = tdir = 1) and left
     ones (qdir = tdir = -1), reverse-strand tstart >= l_pac, and tasks that
     run off the read or off either end of the doubled text. Returns, from
-    the int32 run, the descriptor entry's ms with its bound, the tile
-    entry's on build_qt's tiles of the same wave with its bound, the ms of
+    the first dtype's run, the descriptor entry's ms with its bound, the
+    tile entry's on build_qt's tiles of the same wave with its bound, the ms of
     the path the descriptor entry replaces (build_qt, the descriptor
     columns, the tile entry), each a median of 7, and the wave's rows run
     (the twin's), band cells and warp steps (the kernel's count)."""
@@ -1158,8 +1194,9 @@ def _k1_desc_wave(fm, pk):
     pac_d = resident.pac_words_from_fm(fm, dev)
     opt_key = (6, 1, 6, 1, 5, 100, 1, -4)
     mat = sw_extend.score_matrix(1, -4, -1, dev)
-    out = {}
-    for dt in (np.int32, np.int64):
+    out = {"tstart_past_2_31": int((tstart >= 1 << 31).sum())}
+    dtypes = dtypes or (np.int32, np.int64)
+    for dt in dtypes:
         desc_d = torch.from_numpy(desc.astype(dt)).to(dev)
 
         def k1d(steps=None):
@@ -1200,7 +1237,7 @@ def _k1_desc_wave(fm, pk):
             raise AssertionError(f"K1's descriptor entry differs from "
                                  f"build_qt + the twin or the tile entry "
                                  f"({dt.__name__})")
-        if dt is np.int32:
+        if dt is dtypes[0]:
             rows = rows.cpu().numpy()
             w_eff = sw_batch._adjust_w(torch.from_numpy(qlen.astype(np.int32)),
                                        torch.from_numpy(w.astype(np.int32)),
@@ -1216,16 +1253,17 @@ def _k1_desc_wave(fm, pk):
                           + int(np.maximum(n_rows, 0).sum() + 3) // 4)
             dbms, dby = _bound(pk, ops, desc_bytes)
             tbms, tby = _bound(pk, ops, _nbytes(qlt, tlt, ql, tl, wd, hd, got))
-            out = {"desc_ms": _median_ms(k1d), "desc_bound_ms": dbms,
+            out |= {"desc_ms": _median_ms(k1d), "desc_bound_ms": dbms,
                    "desc_bound_by": dby, "tiles_ms": _median_ms(k1t),
                    "tiles_bound_ms": tbms, "tiles_bound_by": tby,
                    "build_qt_and_tiles_ms": _median_ms(tiles),
                    "rows_run": int(rows.sum()), "band_cells": cells,
                    "warp_steps": _k1_steps(k1d, got, B)}
     good = int((want[0] > torch.from_numpy(h0).to(dev)).sum())
-    print(f"  K1 descriptor entry, {B} chr20-scale extensions ({good} "
-          f"gained on h0): exact in int32 and int64, and equal to the tile "
-          f"entry on build_qt's tiles; {json.dumps(out)}")
+    print(f"  K1 descriptor entry, {B} extensions on {l_pac:,} bp ({good} "
+          f"gained on h0): exact in "
+          f"{' and '.join(np.dtype(d).name for d in dtypes)}, and equal to "
+          f"the tile entry on build_qt's tiles; {json.dumps(out)}")
     return out
 
 
@@ -1445,13 +1483,7 @@ def _fallback_collect(fm, fmd, g, qs, opt) -> int:
     n = _build.launches()["smem_exhaustive"]
     if g.sa_samples is not None:
         raise AssertionError("the seeding path uploaded the SA samples")
-    if not len(got[0]) == len(got[1]) == len(want[0]) == len(reads):
-        raise AssertionError("fallback collect: read count")
-    for i, (gm, gr, wm, wr) in enumerate(zip(*got, *want)):
-        if not (np.array_equal(gm, np.asarray(wm).reshape(-1, 5))
-                and np.array_equal(gr, np.asarray(wr))):
-            raise AssertionError(f"fallback collect: read {i} differs from "
-                                 f"the native seeder")
+    _same_seeds(got, want, len(reads), "fallback collect")
     n_mems = sum(len(m) for m in got[0])
     print(f"  fallback collect: {len(reads)} reads ({len(LOW_COMPLEXITY)} "
           f"low-complexity), {n_mems} seeds, "
@@ -1987,12 +2019,12 @@ def _bam_records(path: str):
     return body, n
 
 
-def _cli(module, mode, fasta, reads, out_dir, threads, log, env):
+def _cli(module, mode, fasta, reads, out_dir, threads, log, env, extra=()):
     shutil.rmtree(out_dir, ignore_errors=True)
     t0 = time.time()
     stdout = _run([sys.executable, "-m", module, "-reads", reads, "-genome",
                    fasta, "-output", out_dir, "-threads", str(threads),
-                   "-use_device", mode, "-first_chunk"], timeout=900,
+                   "-use_device", mode, "-first_chunk", *extra], timeout=900,
                   log=log, env=env)
     return stdout, time.time() - t0
 
@@ -2091,11 +2123,12 @@ def phase_tools(fasta, reads, env, logs):
     return t1_launches
 
 
-def _port_run(fasta, reads, out, log, env):
-    """One port CLI run: (pairs, pairs/s, primed, host pairs, waves, busy
-    fraction, the run's kernel launch counts)."""
+def _port_run(fasta, reads, out, log, env, extra=(), info=None):
+    """One port CLI run: (pairs, pairs/s, primed, host pairs, the run's
+    kernel launch counts); ``info``, when given, gets its busy fraction,
+    index load s and device path line (``path_log``)."""
     stdout, wall = _cli("lariat_tpu_torch.cli", "on", fasta, reads,
-                        os.path.join(SMOKE, out), THREADS, log, env)
+                        os.path.join(SMOKE, out), THREADS, log, env, extra)
     n, rate = _summary(stdout)
     m = re.search(r"device waves: (\d+)\s+wave wall ([\d.]+)s\s+busy "
                   r"fraction ([\d.]+)\s+primed pairs (\d+)\s+host pairs "
@@ -2121,7 +2154,21 @@ def _port_run(fasta, reads, out, log, env):
           f"{dev_line.group(1) if dev_line else '?'}")
     print(f"  kernel launches in {out}: "
           f"{json.dumps({k: v for k, v in launches.items() if k != 'walks'})}")
+    if info is not None:
+        pm = re.search(r"device path: (\{.*\})", stdout)
+        if not pm:
+            raise AssertionError(f"no device path line in {out}")
+        info.update(busy=float(m.group(3)), load_s=_index_load_s(stdout),
+                    path=json.loads(pm.group(1)))
     return n, rate, int(m.group(4)), int(m.group(5)), launches
+
+
+def _index_load_s(stdout) -> float:
+    """The CLI's index load seconds (mmap, codes cache, native hot)."""
+    m = re.search(r"index load: ([\d.]+)s", stdout)
+    if not m:
+        raise AssertionError("no 'index load' line")
+    return float(m.group(1))
 
 
 def _server_run(fasta, reads, env, logs):
@@ -2650,10 +2697,222 @@ def phase_auto_upload(fasta, reads):
             os.environ["LARIAT_DEVICE_SEED"] = flag
 
 
+def phase_hg38(db, env, logs, chr20=None):
+    """Phase 18, hg38 scale, on ``db``'s hg38sim.fa, its .lariat.d,
+    sim10k.fastq.gz and centromeres (``python -m lariat_tpu_torch.tools.
+    gen_data_big`` builds them; this script never does). Without them it
+    prints why and returns None. Else: the index loaded as the CLI loads it
+    (its seconds); the seeding index built and uploaded (int64, asserted);
+    collect_seeds_rbegs_device on SEED_READS reads equal to the native C++
+    seeder's; K4a (round 1), K4c and K5 (the lookup's 65,536 rows) against
+    their twins and timed beside phase 5's ``chr20`` figures, K5's longest
+    walk; K1's descriptor entry on an int64 wave; host-native (-use_device
+    off, -centromeres), then the port with every pair primed, once with
+    auto seeding (LARIAT_DEVICE_SEED unset) and once with
+    LARIAT_DEVICE_SEED=1. In each: all pairs primed, none host-routed,
+    records and whole files equal to host-native's, K1 (every launch
+    through its descriptor entry), K2 and K2b launched, K3 wherever a mate
+    was rescued, K4a, K4c and K5 launched exactly when a batch seeded on
+    the device (every batch when forced; auto mode host-seeds every batch
+    that starts before the upload lands), one K5 launch a lookup. Returns
+    the phase's figures."""
+    missing = [n for n in HG38_INPUTS
+               if not os.path.exists(os.path.join(db, n))]
+    if missing:
+        print(f"  hg38 phase not run: {', '.join(missing)} absent from "
+              f"{db} (python -m lariat_tpu_torch.tools.gen_data_big builds "
+              f"them, for about an hour; this script never does)")
+        return None
+    import numpy as np
+    import torch
+    from lariat_tpu_torch.cli import load_reference
+    from lariat_tpu_torch.config import AlignerConfig
+    from lariat_tpu_torch.index import fmindex, native_ops
+    from lariat_tpu_torch.ops import _build, fm_batch, smem_device as sd
+    from lariat_tpu_torch.parallel import align_step
+    from lariat_tpu_torch.tools.kernel_turns import lookup_rows, seed_batch
+    fa, reads, cen = (os.path.join(db, n) for n in (
+        "hg38sim.fa", "sim10k.fastq.gz", "hg38sim.centromeres.tsv"))
+    dev = torch.device("cuda")
+    opt = AlignerConfig()
+    t0 = time.time()
+    fm = load_reference(fa)
+    if fm.l_pac > fmindex.FMIndex.CODES_CACHE_MAX:
+        fm.ensure_codes_cache()
+    fm.ensure_native_hot()
+    load_s = time.time() - t0
+    if getattr(fm, "_dir", None) is None:
+        raise AssertionError("the hg38 index was not loaded from .lariat.d")
+    fused_cached = os.path.exists(os.path.join(fm._dir, "fused.npy"))
+    t0 = time.time()
+    fmd = fm_batch.DeviceFMIndex.from_host(fm, dev)
+    g = align_step.DeviceGenome.from_host(fm, fmd)
+    torch.cuda.synchronize()
+    index_s = time.time() - t0
+    if fmd.idx_dtype != torch.int64:
+        raise AssertionError(f"index dtype {fmd.idx_dtype}, want int64")
+    print(f"  {fa}: l_pac {fm.l_pac:,}, seq_len {fm.seq_len:,} (2^31 = "
+          f"{1 << 31:,}); index load {load_s:.2f} s in this process; fused "
+          f"table {tuple(fmd.fused.shape)} "
+          f"({fmd.fused.numel() * 4 / 1e9:.2f} GB, "
+          f"{'read from' if fused_cached else 'built into'} fused.npy) and "
+          f"pac on the card in {index_s:.2f} s; {fmd.idx_dtype}")
+    # seeding on the real index, held to the native C++ seeder
+    rmat, lens, qs = seed_batch(reads, SEED_READS)
+    want = native_ops.collect_seeds_rbegs_batch(fm, qs, opt)
+    if want is None:
+        raise RuntimeError("native seeding unavailable")
+    _build.reset_launches()
+    got = sd.collect_seeds_rbegs_device(fmd, g, fm, qs, opt)
+    n = _build.launches()
+    if g.sa_samples is not None:
+        raise AssertionError("the seeding path uploaded the SA samples")
+    _same_seeds(got, want, len(qs), "hg38 collect")
+    idle = [k for k in SEED_KERNELS if n[k] <= 0]
+    if idle:
+        raise AssertionError(f"hg38 collect launched no {idle}")
+    print(f"  collect_seeds_rbegs_device on {len(qs)} reads: "
+          f"{sum(len(m) for m in got[0])} seeds, "
+          f"{sum(len(r) for r in got[1])} rbegs, equal to native; K4a "
+          f"{n['smem_twoptr']}, K4c {n['smem_strategy1']}, K5 "
+          f"{n['sa_walk']} launches")
+    # K4a (round 1), K4c and K5 at the collect's shapes against their twins
+    R, L = rmat.shape
+
+    def put(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+    rd, lens_d = put(rmat), put(lens)
+    r1 = (rd, put(np.zeros(R), np.int32), lens_d, put(np.ones(R), np.int64))
+    mid = put(np.full(R, L + 2), np.int32)
+
+    def k4a():
+        return sd.min_starts_twoptr(fmd, *r1, L, max_steps=3 * L,
+                                    min_seed=opt.min_seed_len, cap=sd.CAP1,
+                                    mid=mid)
+
+    def p4a():
+        meta, big, aux = sd.min_starts_twoptr_plain(
+            fmd, r1[0], r1[1], r1[2], r1[3], mid, L, sd._budget(3 * L),
+            False, opt.min_seed_len, sd.CAP1)
+        sd._twoptr_flags(meta, aux, sd.CAP1)
+        return meta, big, aux
+
+    s1 = (fmd, rd, lens_d, int(opt.max_mem_intv), L, opt.min_seed_len,
+          max(2, L // opt.min_seed_len + 2))
+    rows = lookup_rows(fm.seq_len)
+    k5 = (g, torch.from_numpy(rows).to(dev), torch.zeros(
+        len(rows), dtype=torch.int64, device=dev), torch.zeros(
+        len(rows), dtype=torch.bool, device=dev), align_step.LOOKUP_STEPS)
+    out5 = align_step.sa_walk_chunk(*k5)
+    for name, a, b in (
+            ("K4a", k4a(), p4a()),
+            ("K4c", sd.strategy1(*s1), sd.pack_r3(*sd.strategy1_plain(*s1))),
+            ("K5", [out5], [align_step.sa_walk_chunk_plain(*k5)])):
+        e = max(_max_abs_err(x, y) for x, y in zip(a, b))
+        if e:
+            raise AssertionError(f"hg38: {name} differs from its plain "
+                                 f"version (max abs err {e})")
+    if not bool(out5[2].bool().all()):
+        raise AssertionError("K5: a walk outlived the lookup's budget")
+    ms = {"smem_twoptr": _median_ms(k4a),
+          "smem_strategy1": _median_ms(lambda: sd.strategy1(*s1)),
+          "sa_walk": _median_ms(lambda: align_step.sa_walk_chunk(*k5))}
+    longest = int(out5[1].max())
+    beside = ({k: round(chr20[k], 4) for k in ms} if chr20
+              else "not measured in this run")
+    print(f"  hg38 ms (CUDA events, median of 7), exact against the twins: "
+          f"{json.dumps({k: round(v, 4) for k, v in ms.items()})}; phase "
+          f"5's chr20 figures: {json.dumps(beside)}; K5's longest walk "
+          f"{longest} steps ({len(rows)} rows, {align_step.LOOKUP_STEPS} "
+          f"allowed)")
+    k1 = _k1_desc_wave(fm, _peaks(), dtypes=(np.int64,))
+    ms["sw_extend"] = k1["desc_ms"]
+    del fmd, g, rd, lens_d, r1, mid, k5, out5
+    torch.cuda.empty_cache()
+    # host-native, then the port with every pair primed: auto seeding, and
+    # device seeding forced
+    cen_arg = ("-centromeres", cen)
+    host_out, host_s = _cli("lariat_tpu_torch.cli", "off", fa, reads,
+                            os.path.join(SMOKE, "out_hg38_host"), THREADS,
+                            os.path.join(logs, "hg38_host.log"), env,
+                            cen_arg)
+    n_host, rate_host = _summary(host_out)
+    env = {k: v for k, v in env.items() if k != "LARIAT_DEVICE_SEED"}
+    knobs = {"LARIAT_PRIME_THREADS": str(-(-HG38_PAIRS // 512)),
+             "LARIAT_PRIME_TAIL_GRACE": "600", "LARIAT_PRIME_MIN_FRAC": "0"}
+    runs = {}
+    for out, flag in (("out_hg38_port", {}),
+                      ("out_hg38_port_seed", {"LARIAT_DEVICE_SEED": "1"})):
+        info = {}
+        runs[out] = (*_port_run(fa, reads, out,
+                                os.path.join(logs, f"{out[4:]}.log"),
+                                {**env, **knobs, **flag}, cen_arg, info),
+                     info)
+    res = {"l_pac": fm.l_pac, "load_s": load_s,
+           "host_native": {"pairs_s": rate_host,
+                           "load_s": _index_load_s(host_out)},
+           "ms": ms, "k5_longest_walk": longest, "k1_desc_wave": k1}
+    for out, (n_port, rate, primed, host_pairs, launches, info) in \
+            runs.items():
+        res[out] = {"pairs_s": rate, "primed": primed,
+                    "host_routed": host_pairs, "busy": info["busy"],
+                    "load_s": info["load_s"], **info["path"],
+                    "cli_k5_longest": max((w["longest"]
+                                           for w in launches["walks"]),
+                                          default=0),
+                    "launches": {k: launches.get(k, 0) for k in
+                                 SEED_KERNELS + CLI_KERNELS}}
+    print(f"  hg38 figures: {json.dumps(res)}")
+    for out, (n_port, rate, primed, host_pairs, launches, info) in \
+            runs.items():
+        _same_records(out, "out_hg38_host")
+        phase_whole_bam([out], "out_hg38_host")
+        if not (n_host == n_port == primed == HG38_PAIRS
+                and host_pairs == 0):
+            raise AssertionError(f"{out} pairs: host {n_host}, port "
+                                 f"{n_port}, primed {primed}, host-routed "
+                                 f"{host_pairs}; want {HG38_PAIRS} all "
+                                 f"primed")
+        path = info["path"]
+        # the seeding kernels ran where, and only where, a batch seeded on
+        # the device; forced, every batch does
+        seeded = path["seed_device_batches"] > 0
+        if (any((launches[k] > 0) != seeded for k in SEED_KERNELS)
+                or (out.endswith("_seed") and path["seed_host_batches"])):
+            raise AssertionError(f"{out}: seeding kernels "
+                                 f"{[launches[k] for k in SEED_KERNELS]} "
+                                 f"against {json.dumps(path)}")
+        idle = [k for k in CLI_KERNELS[:3] if launches.get(k, 0) <= 0]
+        if path["rescue_tasks"] and launches["sw_local"] <= 0:
+            idle.append("sw_local")
+        desc = launches["entries"]["lariat_sw_extend_desc"]
+        if idle or desc != launches["sw_extend"]:
+            raise AssertionError(f"{out}: no launch of {idle}; {desc} of "
+                                 f"{launches['sw_extend']} K1 launches "
+                                 f"through the descriptor entry")
+        _cli_walks(launches["walks"], launches["sa_walk"])
+    auto = res["out_hg38_port"]
+    if auto["host_batches_before_device"] is None:
+        print(f"  auto seeding: no batch seeded on the device; all "
+              f"{auto['seed_host_batches']} batches started seeding before "
+              f"the index upload landed (seed_upload_s "
+              f"{auto['seed_upload_s']})")
+    else:
+        print(f"  auto seeding: {auto['host_batches_before_device']} "
+              f"host-seeded batches before the first device-seeded one "
+              f"(seed_upload_s {auto['seed_upload_s']})")
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--logs", default=SMOKE,
                    help="directory for the CLI runs' and the tools' logs")
+    p.add_argument("--hg38-data", default=HG38_DIR,
+                   help="phase 18's inputs (default data_big/; "
+                        "tools/gen_data_big.py --cut builds a smaller "
+                        "genome under the same names)")
     args = p.parse_args(argv)
     os.makedirs(args.logs, exist_ok=True)
     with Phase("environment"):
@@ -2794,6 +3053,9 @@ def main(argv=None) -> int:
             {"LARIAT_NO_NATIVE_ALIGN1": "1"}, env, args.logs, rate_replay)
     with Phase("auto seeding, background upload"):
         auto = phase_auto_upload(fasta, replay_reads)
+    with Phase("hg38 scale"):
+        hg = phase_hg38(args.hg38_data, env, args.logs,
+                        chr20={k: kres[k][1] for k in SEED_KERNELS})
     desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
     extra = {"smem_twoptr": {"seed_trace": kres.pop("seed_trace")},
              "sw_extend": {"desc_launches": desc,
@@ -2814,6 +3076,14 @@ def main(argv=None) -> int:
         extra[k]["replay_launches"] = {p: v[k] for p, v in new_paths.items()}
     for k in SEED_KERNELS:
         extra.setdefault(k, {})["auto_upload_launches"] = auto[k]
+    # phase 18's launches (its two all-primed CLI runs: auto seeding and
+    # device seeding forced) and ms, or null
+    for k in SEED_KERNELS + ("sw_extend",):
+        extra[k]["hg38"] = hg and {
+            "launches": {"auto": hg["out_hg38_port"]["launches"][k],
+                         "device_seed": hg["out_hg38_port_seed"]["launches"][
+                             k]},
+            "ms": hg["ms"][k]}
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         err, ms, pms, _, bms, by, *more = kres[name]

@@ -219,6 +219,11 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         self._seed_state = None     # (DeviceFMIndex, DeviceGenome)
         self._seed_err: Optional[Exception] = None
         self.seed_upload_s: Optional[float] = None   # once it has landed
+        # batches seeded by each seeder, the host ones before the first
+        # device one, and the mate-rescue tasks of K3's waves
+        self.seed_batches = {"host": 0, "device": 0,
+                             "host_before_device": None}
+        self.rescue_tasks = 0
         # set by the CLI's router (or a server's abort request) to make the
         # passes in flight stop at their next wave boundary
         self.abort_prime = False
@@ -317,6 +322,24 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
             raise self._seed_err
         return None if started and not wait else self._seed_state
 
+    def _note_seeder(self, device: bool) -> None:
+        with self._stats_lock:
+            sb = self.seed_batches
+            sb["device" if device else "host"] += 1
+            if device and sb["host_before_device"] is None:
+                sb["host_before_device"] = sb["host"]
+
+    def path_log(self) -> dict:
+        """What the CLI prints of the run's device path: the batches each
+        seeder served, the host-seeded ones before the first device-seeded
+        one, the index upload's seconds and the mate-rescue tasks."""
+        sb = self.seed_batches
+        return {"seed_host_batches": sb["host"],
+                "seed_device_batches": sb["device"],
+                "host_batches_before_device": sb["host_before_device"],
+                "seed_upload_s": self.seed_upload_s,
+                "rescue_tasks": self.rescue_tasks}
+
     def sa_walks(self) -> list:
         """The SA lookups' K5 launches (``DeviceGenome.walks``); empty until
         a batch has seeded on the device."""
@@ -385,6 +408,7 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         qs = [encode_read(s) for s in seqs]
         nonempty = [q for q in qs if len(q)]
         seeded = self._device_seed(nonempty)
+        self._note_seeder(seeded is not None)
         if seeded is None:
             seeded = native_ops.collect_seeds_rbegs_batch(self.fm, nonempty,
                                                           opt)
@@ -488,6 +512,7 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         # native batched seeding + one batched SA dereference for all reads
         nonempty = [q for q in qs if len(q)]
         seeds_per = native_ops.collect_seeds_batch(self.fm, nonempty, opt)
+        self._note_seeder(False)
         mems_per: List[Optional[List[Intv]]] = [None] * len(qs)
         rbegs_per: List[Optional[List[int]]] = [None] * len(qs)
         if seeds_per is not None:
@@ -734,6 +759,8 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
             opt.min_seed_len * opt.match_score, device=self.device,
             split_fn=self._split_wave, trace=trace)
         self._wave_done(time.time() - t_dev)
+        with self._stats_lock:
+            self.rescue_tasks += len(tasks)
         if WAVE_TRACE:     # no DP task: a line of zeros, as the reference
             _wtrace("loc", (len(tasks),),
                     *(trace.get(k, 0) for k in ("build", "disp", "dl",

@@ -349,11 +349,13 @@ def run(argv=None):
         rfa_debug.DEBUG = rfa_debug.DEBUG or args.debug
     print(f"Starting lariat_tpu_torch. Version: {__version__}")
     print(f"Loading reference genome: {args.genome}")
+    t_load = time.time()
     fm = load_reference(args.genome, args.index)
     print("Reference loaded")
     if fm.l_pac > fmindex.FMIndex.CODES_CACHE_MAX:
         fm.ensure_codes_cache()
     fm.ensure_native_hot()
+    print(f"index load: {time.time() - t_load:.2f}s")
     engine = AlignmentEngine(fm)
     config = RFAConfig(improper_pair_penalty=args.improper_pair_penalty)
     centromeres = load_centromeres(args.centromeres or None)
@@ -462,6 +464,7 @@ def run(argv=None):
             print(f"kernel entry launches: "
                   f"{json.dumps(_build.entry_launches())}")
             print(f"sa walks: {json.dumps(device_engine.sa_walks())}")
+            print(f"device path: {json.dumps(device_engine.path_log())}")
         print(f"cuda initialized in the CLI process: "
               f"{torch.cuda.is_initialized()}")
     print(f"Processed {n_pairs} read pairs across {n_bcs} barcodes "

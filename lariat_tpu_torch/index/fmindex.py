@@ -29,6 +29,10 @@ from . import suffix
 
 OCC_INTERVAL = 128
 SA_INTERVAL = 32
+# rows an index build step handles at a time (the SA's BWT gather, the
+# primary search, the counts, the occ checkpoints): 2^26 rows hold the
+# step's temporaries near 0.6 GB; tests shrink it to cross chunk seams
+_BUILD_CHUNK = 1 << 26
 
 # base codes: A=0 C=1 G=2 T=3, anything else 4 (nst_nt4 semantics)
 NT4_TABLE = np.full(256, 4, dtype=np.uint8)
@@ -449,17 +453,24 @@ class FMIndex:
 
 
 def _blocked_counts(codes: np.ndarray, interval: int) -> np.ndarray:
-    """Per-code counts before each interval block (plus final total row)."""
+    """Per-code counts before each interval block (plus final total row).
+
+    Counted ``_BUILD_CHUNK`` codes (rounded to whole blocks) at a time, so
+    the temporaries stay a chunk long at hg38 scale."""
     n = len(codes)
     nblocks = (n + interval - 1) // interval
     out = np.zeros((nblocks + 1, 4), dtype=np.int64)
-    if n == 0:
-        return out
-    pad = np.full(nblocks * interval, 255, dtype=np.uint8)
-    pad[:n] = codes
-    for c in range(4):
-        blocked = (pad == c).reshape(nblocks, interval).sum(axis=1, dtype=np.int64)
-        out[1:, c] = np.cumsum(blocked)
+    step = max(1, _BUILD_CHUNK // interval) * interval
+    for i in range(0, n, step):
+        part = codes[i:i + step]
+        nb = (len(part) + interval - 1) // interval
+        pad = np.full(nb * interval, 255, dtype=np.uint8)
+        pad[:len(part)] = part
+        b0 = 1 + i // interval
+        for c in range(4):
+            out[b0:b0 + nb, c] = (pad == c).reshape(nb, interval).sum(
+                axis=1, dtype=np.int64)
+    np.cumsum(out, axis=0, out=out)
     return out
 
 
@@ -515,31 +526,78 @@ def encode_genome(path: str):
             np.zeros(0, dtype=np.uint8)), contigs, ambs
 
 
+def _text_with_sentinel(fwd: np.ndarray) -> np.ndarray:
+    """T$ with codes shifted by one: ``fwd + 1``, then the reverse
+    complement ``(3 - fwd)[::-1] + 1``, then the sentinel 0, written
+    straight into one array (no whole-length temporary)."""
+    l_pac = len(fwd)
+    with_sent = np.empty(2 * l_pac + 1, dtype=np.uint8)
+    np.add(fwd, 1, out=with_sent[:l_pac])
+    np.subtract(4, fwd[::-1], out=with_sent[l_pac:2 * l_pac])
+    with_sent[2 * l_pac] = 0
+    return with_sent
+
+
+def _bwt_from_sa(with_sent: np.ndarray, sa: np.ndarray):
+    """(``primary``, the physical BWT) from the SA over T$, a chunk of SA
+    rows at a time: row r's code is ``text[sa[r] - 1]``, the sentinel row
+    (``sa == 0``) is ``primary`` and is left out, so the rows after it are
+    written one slot lower."""
+    n = len(sa)
+    bwt = np.empty(n - 1, dtype=np.uint8)
+    primary, shift = -1, 0
+    for i in range(0, n, _BUILD_CHUNK):
+        part = sa[i:i + _BUILD_CHUNK]
+        rows = with_sent[part - 1]
+        rows -= 1
+        hit = np.flatnonzero(part == 0)
+        if len(hit):
+            k = int(hit[0])
+            primary, shift = i + k, 1
+            bwt[i:i + k] = rows[:k]
+            bwt[i + k:i + len(part) - 1] = rows[k + 1:]
+        else:
+            bwt[i - shift:i + len(part) - shift] = rows
+    return primary, bwt
+
+
+def _text_counts(fwd: np.ndarray) -> np.ndarray:
+    """Counts of each code in the text (forward and reverse complement):
+    code c of the complement is 3 - c of ``fwd``."""
+    counts = np.zeros(4, dtype=np.int64)
+    for i in range(0, len(fwd), _BUILD_CHUNK):
+        counts += np.bincount(fwd[i:i + _BUILD_CHUNK], minlength=4)[:4]
+    return counts + counts[::-1]
+
+
 def build_index(fasta_path: str, sa_intv: int = SA_INTERVAL) -> FMIndex:
-    """Build the FMD index from a FASTA (offline tool path)."""
+    """Build the FMD index from a FASTA (offline tool path).
+
+    Only the SA-IS call holds the whole-length arrays at once (``fwd``,
+    T$ and the SA); the BWT, ``primary`` and the counts are taken a
+    chunk at a time, and T$ and the SA are freed before the object counts
+    its occ checkpoints. At hg38 scale the build peaks near 70 GiB of
+    RSS."""
     fwd, contigs, ambs = encode_genome(fasta_path)
     l_pac = len(fwd)
-    text = np.concatenate([fwd, (3 - fwd)[::-1]])
-    seq_len = len(text)
     # SA over T$ with sentinel: shift codes +1, sentinel 0
-    with_sent = np.empty(seq_len + 1, dtype=np.uint8)
-    with_sent[:seq_len] = text + 1
-    with_sent[seq_len] = 0
+    with_sent = _text_with_sentinel(fwd)
     sa = suffix.suffix_array(with_sent, 5)  # length seq_len+1; sa[0]=seq_len
-    # BWT of rows: char before suffix start; sentinel row (suffix start 0)
-    primary = int(np.nonzero(sa == 0)[0][0])
-    bwt_rows = text[(sa - 1)]  # value at sa==0 row is garbage (text[-1])
-    bwt_codes = np.delete(bwt_rows, primary)
-    counts = np.bincount(text, minlength=4)
-    L2 = np.zeros(5, dtype=np.int64)
-    L2[1:] = np.cumsum(counts)
+    # BWT of rows: char before suffix start; the sentinel row is primary
+    primary, bwt_codes = _bwt_from_sa(with_sent, sa)
+    del with_sent
     # sampled SA every sa_intv rows (row indexing includes sentinel row 0);
     # sample[0] = -1 so sentinel-wrapping sa_lookup walks come out right
     sa_samples = sa[::sa_intv].astype(np.int64)
     sa_samples[0] = -1
+    del sa
+    L2 = np.zeros(5, dtype=np.int64)
+    L2[1:] = np.cumsum(_text_counts(fwd))
+    pac = pack_2bit(fwd)
+    del fwd
     return FMIndex(l_pac=l_pac, primary=primary, L2=L2, bwt_codes=bwt_codes,
                    sa_intv=sa_intv, sa_samples=sa_samples,
-                   pac=pack_2bit(fwd), contigs=contigs, ambs=ambs)
+                   pac=pac, contigs=contigs, ambs=ambs)
 
 
 # ---------------------------- BWA index compatibility ------------------------

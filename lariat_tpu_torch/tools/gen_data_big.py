@@ -9,8 +9,18 @@ barcodes x 100 pairs), then hg38 scale (``--scale 1.0`` with its
 centromeres; the 200k, 50k and 10k read sets). The genomes and reads come
 from ``tools/synth_genome.py`` and ``tools/sim_reads.py`` run as
 subprocesses; each index is built by the port's ``index/fmindex.py`` and
-written as the mmap-able ``.lariat.d`` directory. The hg38-scale build
-peaks near 124 GB of RAM in the reference: run nothing RAM-heavy beside it.
+written as the mmap-able ``.lariat.d`` directory. After each build a line
+gives its seconds and the process's peak RSS. The port's build holds only
+the text, T$, the suffix array and SA-IS's own vectors at once: the hg38
+step peaks at about 70 GiB of RSS (the reference's build near 124 GB) and
+takes about half an hour on an 8-core H100 host.
+
+    python -m lariat_tpu_torch.tools.gen_data_big DIR --cut 0.36
+
+builds only what ``chip_smoke.py``'s hg38 phase reads, with the hg38 step's
+genome at that scale (0.36: 1.11 Gbp, a doubled text past 2^31): the
+genome, its centromeres, its index and the 10k read set. Give it a
+directory of its own: its genome keeps the name ``hg38sim.fa``.
 
 Every output is written under a ``.part`` name and renamed into place when
 complete, so an output that exists is whole; each step runs only when its
@@ -25,6 +35,7 @@ from __future__ import annotations
 import argparse
 import fcntl
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -47,8 +58,9 @@ def build(fa: str, sa_intv: int = 32) -> None:
     from ..index import fmindex
     t0 = time.time()
     fm = fmindex.build_index(fa, sa_intv=sa_intv)
-    print(f"build {fa}: {time.time() - t0:.0f}s, l_pac={fm.l_pac:,}",
-          flush=True)
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"build {fa}: {time.time() - t0:.1f} s, peak RSS {peak:.2f} GiB, "
+          f"l_pac={fm.l_pac:,}", flush=True)
     t0 = time.time()
     part = fa + ".part"
     shutil.rmtree(part + ".lariat.d", ignore_errors=True)
@@ -67,26 +79,31 @@ def _reads(fa: str, out: str, barcodes: int, pairs_per_bc: int) -> None:
     os.replace(part, out)
 
 
-def generate(db: str) -> None:
-    """Every missing output of ``db``, in the reference's order."""
+def generate(db: str, cut: float = 0.0) -> None:
+    """Every missing output of ``db``, in the reference's order; with
+    ``cut``, only the hg38 step's genome (at that scale), its index and
+    the 10k read set."""
     os.makedirs(db, exist_ok=True)
     # --- chr20 scale (~64 Mbp) + 1M pairs ---
     c20 = os.path.join(db, "chr20sim.fa")
-    if not os.path.isdir(c20 + ".lariat.d"):
+    if not cut and not os.path.isdir(c20 + ".lariat.d"):
         run(["tools/synth_genome.py", c20, "--scale", "0.0208",
              "--seed", "7"])
         build(c20)
-    _reads(c20, os.path.join(db, "sim1m_chr20.fastq.gz"), 10000, 100)
+    if not cut:
+        _reads(c20, os.path.join(db, "sim1m_chr20.fastq.gz"), 10000, 100)
     # --- hg38 scale (3.09 Gbp) + 200k/50k/10k pairs ---
     hg = os.path.join(db, "hg38sim.fa")
     if not os.path.isdir(hg + ".lariat.d"):
-        run(["tools/synth_genome.py", hg, "--scale", "1.0", "--seed", "7",
-             "--centromeres", os.path.join(db, "hg38sim.centromeres.tsv")])
+        run(["tools/synth_genome.py", hg, "--scale", str(cut or 1.0),
+             "--seed", "7", "--centromeres",
+             os.path.join(db, "hg38sim.centromeres.tsv")])
         build(hg)
     for name, bcs, ppb in (("sim200k.fastq.gz", 4000, 50),
                            ("sim50k.fastq.gz", 1000, 50),
                            ("sim10k.fastq.gz", 200, 50)):
-        _reads(hg, os.path.join(db, name), bcs, ppb)
+        if not cut or name == "sim10k.fastq.gz":
+            _reads(hg, os.path.join(db, name), bcs, ppb)
     print("data_big complete", flush=True)
 
 
@@ -95,6 +112,9 @@ def main(argv=None) -> int:
     p.add_argument("dir", nargs="?", default=DEFAULT_DIR,
                    help="output directory (default: data_big/ at the "
                         "repository root)")
+    p.add_argument("--cut", type=float, default=0.0, metavar="SCALE",
+                   help="only the hg38 step's genome, at this scale, its "
+                        "index and the 10k read set")
     args = p.parse_args(argv)
     db = os.path.abspath(args.dir)
     os.makedirs(db, exist_ok=True)
@@ -105,7 +125,7 @@ def main(argv=None) -> int:
             print(f"another generator holds {db}/.gen.lock; waiting",
                   flush=True)
             fcntl.flock(lock, fcntl.LOCK_EX)
-        generate(db)
+        generate(db, args.cut)
     return 0
 
 

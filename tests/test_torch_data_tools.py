@@ -7,6 +7,7 @@ candidates; the bench regenerates data_big/ unless told not to."""
 import filecmp
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 import time
@@ -88,12 +89,33 @@ def test_build_big_index_and_npz_to_dir_match_reference(tmp_path):
     _same_dir(port_fa + ".lariat.d", ref_fa + ".lariat.d")
 
 
-def test_generator_build_matches_reference(tmp_path):
+BUILD_LINE = re.compile(r"build (\S+): [0-9.]+ s, peak RSS [0-9.]+ GiB, "
+                        r"l_pac=[0-9,]+$", re.M)
+
+
+def test_generator_build_matches_reference(tmp_path, capsys):
     port_fa, ref_fa = _two_fastas(tmp_path)
     t_gen.build(port_fa)
+    assert BUILD_LINE.findall(capsys.readouterr().out) == [port_fa]
     _reference_tool("gen_data_big").build(ref_fa)
     _same_dir(port_fa + ".lariat.d", ref_fa + ".lariat.d")
     assert not os.path.exists(port_fa + ".part.lariat.d")
+
+
+def test_generator_cut_builds_the_hg38_phase_inputs(tmp_path, capsys):
+    """``--cut``: the hg38 step's genome at that scale with its
+    centromeres, its index (its build line printed) and the 10k read set;
+    nothing of chr20 and no other read set."""
+    db = tmp_path / "cut"
+    assert t_gen.main([str(db), "--cut", "0.0005"]) == 0
+    out = capsys.readouterr().out
+    assert BUILD_LINE.findall(out) == [str(db / "hg38sim.fa")]
+    assert sorted(p.name for p in db.iterdir()) == [
+        ".gen.lock", "hg38sim.centromeres.tsv", "hg38sim.fa",
+        "hg38sim.fa.lariat.d", "sim10k.fastq.gz"]
+    from lariat_tpu_torch.index.fmindex import FMIndex
+    assert 1_400_000 < FMIndex.load_dir(str(db / "hg38sim.fa")).l_pac \
+        < 1_700_000
 
 
 def test_second_generator_waits_then_builds_nothing(tmp_path):

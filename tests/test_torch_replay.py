@@ -15,7 +15,9 @@ The ``cuda`` cases run the new paths on the card and skip here."""
 
 import dataclasses
 import glob
+import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -230,6 +232,13 @@ def test_cli_paths_match_jax_cli(tmp_path, flags):
         assert r.returncode == 0, r.stderr[-2000:]
         logs[name] = r.stdout
     assert "primed pairs 35  host pairs 0" in logs["port"], logs["port"]
+    assert re.search(r"^index load: [0-9.]+s$", logs["port"], re.M)
+    path = json.loads(re.search(r"^device path: (\{.*\})$", logs["port"],
+                                re.M).group(1))
+    # the CPU's auto policy seeds on the host; every pair's batch seeded
+    assert path["seed_host_batches"] > 0 and not path["seed_device_batches"]
+    assert path["host_batches_before_device"] is None
+    assert path["rescue_tasks"] >= 0
     bams = sorted(os.path.basename(p)
                   for p in glob.glob(str(tmp_path / "jax" / "*.bam")))
     assert bams and bams == sorted(
@@ -296,6 +305,10 @@ def test_auto_seeding_uploads_in_the_background(dup_genome, seqs,  # noqa: F811
     assert _rows(eng.align_batch(batch)) == want
     assert len(n_dev) == 1
     assert eng._seed_state[1].pac_words is eng._pac_resident()[0]
+    log = eng.path_log()
+    assert (log["seed_host_batches"], log["seed_device_batches"],
+            log["host_batches_before_device"]) == (2, 1, 2)
+    assert log["seed_upload_s"] == eng.seed_upload_s
 
 
 def test_forced_seeding_waits_for_the_upload(dup_genome, seqs,  # noqa: F811
