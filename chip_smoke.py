@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the repository root, one GPU
     python3 chip_smoke.py --hg38-data DIR    # phase 18's inputs elsewhere
+    python3 chip_smoke.py --chr20-data DIR   # phase 20's inputs elsewhere
 
 Phases (one line each with its seconds, failures end the run nonzero):
   1. environment: the card (nvidia-smi name, power limit), torch, nvcc;
@@ -13,9 +14,10 @@ Phases (one line each with its seconds, failures end the run nonzero):
   3. kernels: each kernel's wrapper on the card at main-path shapes against
      its plain PyTorch version on the same inputs, exact (tolerance 0:
      integer DP), with kernel and plain times (CUDA events, median of 7;
-     T1's plain times median of 3) and the kernel's bound (the larger of
-     its operations over the int32 peak and its bytes over the memory
-     peak, both from the card's attributes; tools/kernel_roofline.py):
+     the plain K1-K3 median of 3, T1's of 1) and the kernel's bound (the
+     larger of its operations over the int32 peak and its bytes over the
+     memory peak, both from the card's attributes;
+     tools/kernel_roofline.py):
      K1-K3 (K1's rows run, warp steps and band cells printed), K2b on
      K2's z and on random z (walk steps and windows staged printed), K1,
      K3 and K2 (with K2b on its z) again on their edge shapes (the tiled path
@@ -33,7 +35,8 @@ Phases (one line each with its seconds, failures end the run nonzero):
   5. seeding kernels: K4a-K4c and K5 on that index (fused occ table about
      1.0 M rows x 48 B) and 4,096 reads of the FASTQ against their twins,
      exact, with kernel and plain times (CUDA events, median of 7; the
-     twins' median of 3): K4a at round 1's phase-A budget, at phase B's
+     twins' median of 3, one timing of the K4a, K4b and planes twins, each
+     a second or more): K4a at round 1's phase-A budget, at phase B's
      budget and at round 2, each in int32 and int64 indices, with its
      lanes' transition counts; K4b over every (read, e) lane in int32 and
      int64, with its extensions and rows fetched beside the distinct rows;
@@ -193,12 +196,40 @@ Phases (one line each with its seconds, failures end the run nonzero):
      host-native's; each run's index load s, the upload's s, the batches
      each seeder served and the host-seeded ones before the first
      device-seeded one, pairs/s and the busy fraction printed.
+ 19. messy reads: a FASTQ of 400 barcodes x 24 pairs of the soak test's
+     reads (lariat_tpu_torch/tools/messy_reads.py: indels, N runs,
+     chimeras, homopolymers, junk, mates of 1-24 bases) drawn from phase
+     4's genome; host-native, then the port all primed with host seeding
+     and with LARIAT_DEVICE_SEED=1: every pair primed, records and whole
+     files equal to host-native's, K1, K2 and K2b launched (K3 when a mate
+     was rescued, K4a, K4c and K5 when seeded on the device), each kernel
+     that ran printed with its launches and its largest launch (tasks,
+     lanes, reads or rows: the path log's ``largest_launches``).
+ 20. chr20 x 1M pairs, the reference's chr20_1m run, on data_big/'s
+     chr20sim.fa, its .lariat.d and sim1m_chr20.fastq.gz (10,000 barcodes
+     x 100 pairs), which `python -m lariat_tpu_torch.tools.gen_data_big
+     DIR --chr20` builds (never this script; --chr20-data points
+     elsewhere): without them one line says the phase was not run. Else
+     five CLI runs of 8 workers with -simulated: host-native, the router
+     at its defaults, the router without dormancy (LARIAT_PRIME_MIN_FRAC=0,
+     its batches growing toward the 16,384-pair cap) with host and with
+     device seeding, and through the resident server; each run's pairs/s,
+     primed and host-routed pairs, dormancy (when, and the pairs primed by
+     then), largest primed batch, kernels' launches and largest launches,
+     the card's peak allocated memory in the priming process, the CLI's
+     peak RSS (the largest ru_maxrss among its processes, read by a
+     wrapper process), wall and simulated accuracy; 1,000,000 pairs a run,
+     records and whole files equal to host-native's, the no-dormancy runs
+     primed, the host-seeded one a batch of 4,096 pairs or more, K4a, K4c
+     and K5 launched in the device-seeded one.
 Then each kernel's loss on its path (launches x (ms - bound ms)), a
 kernels JSON line (each kernel's launches on its path, max abs
 error, ms, plain ms, bound ms and what sets it, and library_ms: null where
 no single PyTorch call computes the function -- these recurrences -- and
 for K9 the stable argsort and gathers; K4a, K4c, K5 and K1 with an "hg38"
-entry, phase 18's launches and ms or null) and, last,
+entry, phase 18's launches and ms or null; every kernel with "messy" and
+"chr20_1m" entries, [launches, largest launch] in each run of phases 19
+and 20, or null) and, last,
 {"ok": true, "device": {...}}.
 """
 
@@ -270,6 +301,17 @@ HG38_DIR = os.path.join(REPO, "data_big")
 HG38_INPUTS = ("hg38sim.fa", "hg38sim.fa.lariat.d", "sim10k.fastq.gz",
                "hg38sim.centromeres.tsv")
 HG38_PAIRS = 10_000     # sim10k: 200 barcodes x 50 pairs
+# the messy-read phase: the soak test's pairs (lariat_tpu_torch/tools/
+# messy_reads.py) on phase 4's genome
+MESSY_BARCODES, MESSY_PAIRS = 400, 24
+# the chr20 x 1M phase: the reference's chr20_1m run on what
+# `python -m lariat_tpu_torch.tools.gen_data_big DIR --chr20` builds
+CHR20_INPUTS = ("chr20sim.fa", "chr20sim.fa.lariat.d", "sim1m_chr20.fastq.gz")
+CHR20_PAIRS = 1_000_000     # 10,000 barcodes x 100 pairs
+CHR20_TIMEOUT = 3000        # s a CLI run may take
+# run c's largest primed batch must reach this: 2 s of priming at 2,048
+# pairs/s, under half of one thread's slowest measured rate
+CHR20_MIN_BATCH = 4096
 # reads whose two-pointer lanes outrun K4a's step cap on a genome of this
 # size (no exact copy of them in the synthetic genome)
 LOW_COMPLEXITY = [b"A" * 151, b"AT" * 75, b"ACG" * 50, b"AC" * 75,
@@ -292,17 +334,42 @@ class Phase:
         return False
 
 
-def _run(cmd, timeout, log=None, env=None):
-    r = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
-                       timeout=timeout, env=env)
+# runs a command, then writes the largest peak RSS among the processes it
+# waited for (ru_maxrss of RUSAGE_CHILDREN, KiB) on stderr's last line;
+# a small process of its own, since a child's ru_maxrss counts the RSS of
+# the process that forked it up to its exec
+_PEAK_WRAP = ("import resource, subprocess, sys; "
+              "rc = subprocess.run(sys.argv[1:]).returncode; "
+              "print('\\npeak rss KiB', resource.getrusage("
+              "resource.RUSAGE_CHILDREN).ru_maxrss, file=sys.stderr); "
+              "sys.exit(rc)")
+
+
+def _run(cmd, timeout, log=None, env=None, peak=None):
+    """Run ``cmd`` from the repository root; its stdout. ``peak``, a dict,
+    gets ``rss_gib``: the largest peak RSS among the command's processes
+    (its workers too), through ``_PEAK_WRAP``."""
+    wrap = [sys.executable, "-c", _PEAK_WRAP] if peak is not None else []
+    proc = subprocess.Popen([*wrap, *cmd], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO,
+                            env=env, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)        # the command and all it started
+        proc.communicate()
+        raise
+    if peak is not None:
+        stderr, _, last = stderr.rstrip("\n").rpartition("\n")
+        peak["rss_gib"] = int(last.split()[-1]) / 2**20
     if log:
         with open(log, "w") as f:
-            f.write(f"$ {' '.join(cmd)}\n{r.stdout}\n--- stderr ---\n"
-                    f"{r.stderr}")
-    if r.returncode != 0:
+            f.write(f"$ {' '.join(cmd)}\n{stdout}\n--- stderr ---\n"
+                    f"{stderr}")
+    if proc.returncode != 0:
         raise RuntimeError(f"{' '.join(cmd[:4])} ... failed "
-                           f"({r.returncode}):\n{r.stderr[-3000:]}")
-    return r.stdout
+                           f"({proc.returncode}):\n{stderr[-3000:]}")
+    return stdout
 
 
 def phase_environment():
@@ -476,7 +543,7 @@ def phase_kernels(pk, seed=1):
         qd, qld, td, tld, wd, h0d, **ext, **S3, steps=st), got, B)
     print(f"  K1 schedule: {int(rows.sum())} rows run (the twin's), "
           f"{steps} warp steps (the kernel's count), {cells} band cells")
-    res["sw_extend"] = (err, _median_ms(k1), _median_ms(p1), (B, Lq, Lt),
+    res["sw_extend"] = (err, _median_ms(k1), _median_ms(p1, n=3), (B, Lq, Lt),
                         *_bound(pk, OPS["extend"] * cells,
                                 _nbytes(qd, qld, td, tld, wd, h0d, got)),
                         {"rows_run": int(rows.sum()), "warp_steps": steps,
@@ -500,7 +567,7 @@ def phase_kernels(pk, seed=1):
     if err:
         raise AssertionError(f"K2 sw_global differs (max abs err {err})")
     ops = OPS["global"] * _band_cells(qlen, tlen, w)
-    res["sw_global"] = (err, _median_ms(k2), _median_ms(p2), (B, Lq, Lt),
+    res["sw_global"] = (err, _median_ms(k2), _median_ms(p2, n=3), (B, Lq, Lt),
                         *_bound(pk, ops, _nbytes(qd, qld, td, tld, wd, gs,
                                                  gz)))
     res["traceback"] = _k2b(gz, qld, tld, wd, gs, S, pk)
@@ -525,7 +592,7 @@ def phase_kernels(pk, seed=1):
     if err:
         raise AssertionError(f"K3 sw_local differs (max abs err {err})")
     ops = OPS["local"] * int((qlen.astype(np.int64) * tlen).sum())
-    res["sw_local"] = (err, _median_ms(k3), _median_ms(p3), (B, Lq, Lt),
+    res["sw_local"] = (err, _median_ms(k3), _median_ms(p3, n=3), (B, Lq, Lt),
                        *_bound(pk, ops, _nbytes(qd, qld, td, tld, md, got)))
     for name, (e, ms, pms, shape, bms, by, *_) in res.items():
         print(f"  {name} {shape}: exact (max abs err {e}); kernel "
@@ -759,7 +826,7 @@ def _t1_vs_plain(rng, cuda, pk):
             times[f"{kind}_{lq}"] = _median_ms(k)
             if (lq, kind) != (Lq, "planted"):
                 continue
-            times["plain"] = _median_ms(p, n=3)
+            times["plain"] = _median_ms(p, n=1)
             steps = warp_steps(qd, td, pd, Lv, **kw)
             if base is None:
                 # the band cells up to the rows the baseline's outputs
@@ -955,7 +1022,7 @@ def phase_seeding(fasta, reads_path, pk):
 
     r1 = stats["round1"]
     rows4a = int(t4a.sum())
-    res["smem_twoptr"] = (e4a, r1["ms"], _median_ms(p4a_r1, n=3), (R, L),
+    res["smem_twoptr"] = (e4a, r1["ms"], _median_ms(p4a_r1, n=1), (R, L),
                           *_bound(pk, 0, 48 * rows4a + _nbytes(
                               *runs["round1"][:5], *k4a_r1())),
                           {"transitions": stats, "rows_distinct": rows4a})
@@ -989,7 +1056,7 @@ def phase_seeding(fasta, reads_path, pk):
               "rows_distinct": int(t4b.sum())}
     print(f"  K4b ({R * L} lanes): exact in int32 and int64; "
           f"{json.dumps(info4b)}")
-    res["smem_exhaustive"] = (e4b, _median_ms(k4b), _median_ms(p4b, n=3),
+    res["smem_exhaustive"] = (e4b, _median_ms(k4b), _median_ms(p4b, n=1),
                               (R * L,),
                               *_bound(pk, 0, 48 * int(t4b.sum()) + _nbytes(
                                   rd, ri, ee, mi, *out4b)), info4b)
@@ -1344,7 +1411,7 @@ def _planes_k9(pk, fmd, fmd64, runs, L, no_rows, err):
     r1 = info["round1"]
     res["smem_planes"] = (e_pl, r1["ms"],
                           _median_ms(lambda: planes_plain(fmd, "round1"),
-                                     n=3),
+                                     n=1),
                           (R, L), *r1["bound"],
                           {"rows_distinct": int(touched.sum()),
                            "ms_int64": r1["ms_int64"],
@@ -2019,13 +2086,14 @@ def _bam_records(path: str):
     return body, n
 
 
-def _cli(module, mode, fasta, reads, out_dir, threads, log, env, extra=()):
+def _cli(module, mode, fasta, reads, out_dir, threads, log, env, extra=(),
+         timeout=900, peak=None):
     shutil.rmtree(out_dir, ignore_errors=True)
     t0 = time.time()
     stdout = _run([sys.executable, "-m", module, "-reads", reads, "-genome",
                    fasta, "-output", out_dir, "-threads", str(threads),
-                   "-use_device", mode, "-first_chunk", *extra], timeout=900,
-                  log=log, env=env)
+                   "-use_device", mode, "-first_chunk", *extra],
+                  timeout=timeout, log=log, env=env, peak=peak)
     return stdout, time.time() - t0
 
 
@@ -2123,12 +2191,16 @@ def phase_tools(fasta, reads, env, logs):
     return t1_launches
 
 
-def _port_run(fasta, reads, out, log, env, extra=(), info=None):
+def _port_run(fasta, reads, out, log, env, extra=(), info=None,
+              timeout=900):
     """One port CLI run: (pairs, pairs/s, primed, host pairs, the run's
     kernel launch counts); ``info``, when given, gets its busy fraction,
-    index load s and device path line (``path_log``)."""
+    index load s, device path line (``path_log``), wall s, peak RSS
+    (``rss_gib``) and stdout."""
+    peak = {} if info is not None else None
     stdout, wall = _cli("lariat_tpu_torch.cli", "on", fasta, reads,
-                        os.path.join(SMOKE, out), THREADS, log, env, extra)
+                        os.path.join(SMOKE, out), THREADS, log, env, extra,
+                        timeout, peak)
     n, rate = _summary(stdout)
     m = re.search(r"device waves: (\d+)\s+wave wall ([\d.]+)s\s+busy "
                   r"fraction ([\d.]+)\s+primed pairs (\d+)\s+host pairs "
@@ -2159,7 +2231,8 @@ def _port_run(fasta, reads, out, log, env, extra=(), info=None):
         if not pm:
             raise AssertionError(f"no device path line in {out}")
         info.update(busy=float(m.group(3)), load_s=_index_load_s(stdout),
-                    path=json.loads(pm.group(1)))
+                    path=json.loads(pm.group(1)), wall=wall,
+                    stdout=stdout, **peak)
     return n, rate, int(m.group(4)), int(m.group(5)), launches
 
 
@@ -2171,20 +2244,23 @@ def _index_load_s(stdout) -> float:
     return float(m.group(1))
 
 
-def _server_run(fasta, reads, env, logs):
+def _server_run(fasta, reads, env, logs, out="out_port_server", extra=(),
+                info=None, timeout=900):
     """The port's CLI through a resident server on the card: the server
     starts as a subprocess, builds, uploads and prewarms, and writes its
     ready file; the CLI primes through it (LARIAT_DEVICE_SOCKET) and never
     initialises CUDA; then ``stop``, and the server must exit 0 with its
     kernel launches in its log. Returns _port_run's tuple, the launches
-    being the server's."""
+    being the server's; ``info`` as _port_run's, its device path the
+    server's."""
     from lariat_tpu_torch.parallel.device_server import stop_server
     sock = os.path.join(SMOKE, "srv.sock")
     ready = os.path.join(SMOKE, "srv.ready")
     for f in (sock, ready):
         if os.path.exists(f):
             os.remove(f)
-    log_path = os.path.join(logs, "server.log")
+    log_path = os.path.join(logs, "server.log" if out == "out_port_server"
+                            else f"{out[4:]}_server.log")
     t0 = time.time()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
@@ -2199,10 +2275,12 @@ def _server_run(fasta, reads, env, logs):
                                    f"(exit {proc.poll()})")
             time.sleep(0.2)
         ready_s = time.time() - t0
+        peak = {} if info is not None else None
         stdout, wall = _cli("lariat_tpu_torch.cli", "on", fasta, reads,
-                            os.path.join(SMOKE, "out_port_server"), THREADS,
-                            os.path.join(logs, "port_server.log"),
-                            {**env, "LARIAT_DEVICE_SOCKET": sock})
+                            os.path.join(SMOKE, out), THREADS,
+                            os.path.join(logs, f"{out[4:]}.log"),
+                            {**env, "LARIAT_DEVICE_SOCKET": sock}, extra,
+                            timeout, peak)
         stop_server(sock)
         rc = proc.wait(timeout=120)
     finally:
@@ -2227,7 +2305,14 @@ def _server_run(fasta, reads, env, logs):
     launches = json.loads(lm.group(1))
     launches["entries"] = json.loads(em.group(1))
     launches["walks"] = []
-    print(f"  out_port_server: {n} pairs, {rate} pairs/s ({wall:.1f}s wall "
+    if info is not None:
+        pm2 = re.search(r"device path: (\{.*\})", slog)
+        if not pm2:
+            raise AssertionError("no device path line in the server's log")
+        info.update(busy=None, load_s=_index_load_s(stdout),
+                    path=json.loads(pm2.group(1)), wall=wall, stdout=stdout,
+                    **peak)
+    print(f"  {out}: {n} pairs, {rate} pairs/s ({wall:.1f}s wall "
           f"with index load); server ready after {ready_s:.1f}s (prewarm "
           f"{pm.group(1)}s of it); primed {m.group(1)}, host {m.group(2)}; "
           f"the CLI never initialised CUDA")
@@ -2602,11 +2687,9 @@ def phase_new_path(fasta, reads, out, flag, env, logs, rate_host):
     host-native's on those reads, K1 only through its tile entry, K2 and
     K2b launched. Returns its launches by kernel and K1's tile entry's."""
     want = REPLAY_BARCODES * PAIRS_PER_BC
-    knobs = {"LARIAT_PRIME_THREADS": str(-(-want // 512)),
-             "LARIAT_PRIME_TAIL_GRACE": "600", "LARIAT_PRIME_MIN_FRAC": "0"}
     n, rate, primed, host_pairs, launches = _port_run(
         fasta, reads, out, os.path.join(logs, f"{out}.log"),
-        {**env, **knobs, **flag})
+        {**env, **_all_primed(want), **flag})
     if not (n == primed == want and host_pairs == 0):
         raise AssertionError(f"{out}: {n} pairs, {primed} primed, "
                              f"{host_pairs} host-routed; want {want} all "
@@ -2839,8 +2922,7 @@ def phase_hg38(db, env, logs, chr20=None):
                             cen_arg)
     n_host, rate_host = _summary(host_out)
     env = {k: v for k, v in env.items() if k != "LARIAT_DEVICE_SEED"}
-    knobs = {"LARIAT_PRIME_THREADS": str(-(-HG38_PAIRS // 512)),
-             "LARIAT_PRIME_TAIL_GRACE": "600", "LARIAT_PRIME_MIN_FRAC": "0"}
+    knobs = _all_primed(HG38_PAIRS)
     runs = {}
     for out, flag in (("out_hg38_port", {}),
                       ("out_hg38_port_seed", {"LARIAT_DEVICE_SEED": "1"})):
@@ -2905,6 +2987,202 @@ def phase_hg38(db, env, logs, chr20=None):
     return res
 
 
+def _all_primed(pairs: int) -> dict:
+    """The router's knobs that leave it no reason to host-route a run of
+    ``pairs`` pairs: a thread for every batch it can make (batches are 512
+    pairs or more but the last), a tail grace past the run, no dormancy."""
+    return {"LARIAT_PRIME_THREADS": str(-(-pairs // 512)),
+            "LARIAT_PRIME_TAIL_GRACE": "600", "LARIAT_PRIME_MIN_FRAC": "0"}
+
+
+def _ran(launches, path, what):
+    """{kernel: [launches, largest launch]} of every kernel a run launched
+    (``path_log``'s largest launch in the kernel's unit); fails when one
+    of them has no largest launch."""
+    largest = path["largest_launches"]
+    ran = {k: [launches[k], largest.get(k, 0)] for k in KERNEL_INFO
+           if launches.get(k, 0) > 0}
+    bad = [k for k, (_, m) in ran.items() if m <= 0]
+    if bad:
+        raise AssertionError(f"{what}: {bad} launched without a largest "
+                             f"launch")
+    return ran
+
+
+def phase_messy(fasta, env, logs):
+    """The soak test's messy pairs (indels, N runs, chimeras,
+    homopolymers, junk, mates of 1-24 bases; tools/messy_reads.py) on phase
+    4's genome, MESSY_BARCODES x MESSY_PAIRS: host-native, then the port
+    all primed with host seeding and with LARIAT_DEVICE_SEED=1. Every pair
+    primed, records and whole files equal to host-native's, K1, K2 and K2b
+    launched (K3 when a mate was rescued; K4a, K4c and K5 when seeding on
+    the device), each kernel that ran printed with its launches and its
+    largest launch. Returns the phase's figures."""
+    from lariat_tpu_torch.tools import messy_reads
+    want = MESSY_BARCODES * MESSY_PAIRS
+    os.makedirs(SMOKE, exist_ok=True)
+    reads = os.path.join(SMOKE, "messy.fastq.gz")
+    messy_reads.write_fastq(messy_reads.load_genome(fasta), reads,
+                            MESSY_BARCODES, MESSY_PAIRS)
+    host_out, _ = _cli("lariat_tpu_torch.cli", "off", fasta, reads,
+                       os.path.join(SMOKE, "out_messy_host"), THREADS,
+                       os.path.join(logs, "messy_host.log"), env)
+    n_host, rate_host = _summary(host_out)
+    res = {"host_native_pairs_s": rate_host}
+    for out, flag in (("out_messy_port", {}),
+                      ("out_messy_port_seed", {"LARIAT_DEVICE_SEED": "1"})):
+        info = {}
+        n, rate, primed, host_pairs, launches = _port_run(
+            fasta, reads, out, os.path.join(logs, f"{out[4:]}.log"),
+            {**env, **_all_primed(want), **flag}, info=info)
+        if not (n_host == n == primed == want and host_pairs == 0):
+            raise AssertionError(f"{out}: host {n_host}, port {n}, primed "
+                                 f"{primed}, host-routed {host_pairs}; want "
+                                 f"{want} all primed")
+        _same_records(out, "out_messy_host")
+        phase_whole_bam([out], "out_messy_host")
+        need = list(CLI_KERNELS[:3]) + (list(SEED_KERNELS) if flag else [])
+        if info["path"]["rescue_tasks"]:
+            need.append("sw_local")
+        idle = [k for k in need if launches.get(k, 0) <= 0]
+        if idle:
+            raise AssertionError(f"{out}: no launch of {idle}")
+        ran = _ran(launches, info["path"], out)
+        print(f"  {out}: {rate} pairs/s (host-native {rate_host}); "
+              f"{info['path']['rescue_tasks']} rescue tasks; kernels that "
+              f"ran, [launches, largest launch]: {json.dumps(ran)}")
+        res[out] = {"pairs_s": rate, "kernels": ran}
+    return res
+
+
+_DORMANT = re.compile(r"device priming dormant \(measured (\d+) pairs/s\) "
+                      r"after ([\d.]+)s, (\d+) pairs primed")
+_SIMULATED = re.compile(r"^simulated: .*$", re.M)
+
+
+def _c20_figures(n, rate, primed, host_pairs, launches, info, what):
+    """One chr20 x 1M run's printed figures (and a dict of them)."""
+    path = info["path"]
+    dm = _DORMANT.search(info["stdout"])
+    sim = _SIMULATED.search(info["stdout"])
+    peak = path["cuda_peak_bytes"]
+    fig = {"pairs": n, "pairs_s": rate, "primed": primed,
+           "host_routed": host_pairs,
+           "dormant": dm and {"after_s": float(dm.group(2)),
+                              "primed_then": int(dm.group(3)),
+                              "measured_pairs_s": int(dm.group(1))},
+           "largest_batch_pairs": path["largest_batch_pairs"],
+           "kernels": _ran(launches, path, what),
+           "cuda_peak_gib": None if peak is None else round(peak / 2**30, 3),
+           "cli_peak_rss_gib": round(info["rss_gib"], 3),
+           "wall_s": round(info["wall"], 1), "busy": info["busy"],
+           "rescue_tasks": path["rescue_tasks"],
+           "seed_batches": [path["seed_host_batches"],
+                            path["seed_device_batches"]],
+           "simulated": sim and sim.group(0)}
+    print(f"  {what}: {n} pairs, {rate} pairs/s, {info['wall']:.1f} s wall; "
+          f"primed {primed}, host-routed {host_pairs}; dormant: "
+          f"{json.dumps(fig['dormant'])}; largest primed batch "
+          f"{fig['largest_batch_pairs']} pairs; kernels [launches, largest "
+          f"launch]: {json.dumps(fig['kernels'])}; card peak "
+          f"{fig['cuda_peak_gib']} GiB allocated in the priming process; "
+          f"CLI peak RSS {fig['cli_peak_rss_gib']} GiB; "
+          f"{fig['simulated'] or 'no simulated line'}")
+    return fig
+
+
+def phase_chr20(db, env, logs):
+    """The reference's chr20_1m run on ``db``'s chr20sim.fa, its .lariat.d
+    and sim1m_chr20.fastq.gz (``python -m lariat_tpu_torch.tools.
+    gen_data_big DIR --chr20`` builds them; this script never does):
+    without them it prints why and returns None. Else five CLI runs of
+    1,000,000 pairs, 8 workers, -simulated, one after another: a.
+    host-native; b. the port at the router's defaults; c. the router
+    without dormancy (LARIAT_PRIME_MIN_FRAC=0, two priming threads, host
+    seeding), whose batches grow toward the 16,384-pair cap; d. c with
+    LARIAT_DEVICE_SEED=1; e. through the resident server. Each prints
+    pairs/s, primed and host-routed pairs, whether and when the router
+    went dormant, the largest primed batch, each kernel's launches and
+    largest launch, the card's peak allocated memory in the priming
+    process, the CLI's peak RSS, the wall and the -simulated line. Checks
+    (every run is made before a failure is raised): 1,000,000 pairs a run,
+    records and whole files equal to host-native's, runs c and d primed
+    pairs, run c primed a batch of CHR20_MIN_BATCH pairs or more, run d
+    launched K4a, K4c and K5, every kernel that ran has a largest launch.
+    Returns the phase's figures."""
+    missing = [n for n in CHR20_INPUTS
+               if not os.path.exists(os.path.join(db, n))]
+    if missing:
+        print(f"  chr20 x 1M phase not run: {', '.join(missing)} absent "
+              f"from {db} (python -m lariat_tpu_torch.tools.gen_data_big "
+              f"DIR --chr20 builds them, in about 6 min; this script never "
+              f"does)")
+        return None
+    os.makedirs(SMOKE, exist_ok=True)
+    fa, reads = (os.path.join(db, n) for n in CHR20_INPUTS[::2])
+    sim = ("-simulated",)
+    peak = {}
+    host_out, host_s = _cli("lariat_tpu_torch.cli", "off", fa, reads,
+                            os.path.join(SMOKE, "out_c20_host"), THREADS,
+                            os.path.join(logs, "c20_host.log"), env, sim,
+                            CHR20_TIMEOUT, peak)
+    n_host, rate_host = _summary(host_out)
+    host_sim = _SIMULATED.search(host_out)
+    res = {"host_native": {"pairs": n_host, "pairs_s": rate_host,
+                           "wall_s": round(host_s, 1),
+                           "cli_peak_rss_gib": round(peak["rss_gib"], 3),
+                           "simulated": host_sim and host_sim.group(0)}}
+    print(f"  a. host-native: {n_host} pairs, {rate_host} pairs/s, "
+          f"{host_s:.1f} s wall; CLI peak RSS {peak['rss_gib']:.3f} GiB; "
+          f"{res['host_native']['simulated']}")
+    fails = [] if n_host == CHR20_PAIRS else [f"host-native: {n_host} pairs"]
+    no_dorm = {"LARIAT_PRIME_MIN_FRAC": "0"}
+    for what, out, flag in (
+            ("b. router defaults", "out_c20_default", {}),
+            ("c. no dormancy", "out_c20_nodorm", no_dorm),
+            ("d. no dormancy, device seeding", "out_c20_nodorm_seed",
+             {**no_dorm, "LARIAT_DEVICE_SEED": "1"}),
+            ("e. resident server", "out_c20_server", None)):
+        info = {}
+        try:
+            if flag is None:
+                run = _server_run(fa, reads, env, logs, out, sim, info,
+                                  CHR20_TIMEOUT)
+            else:
+                run = _port_run(fa, reads, out,
+                                os.path.join(logs, f"{out[4:]}.log"),
+                                {**env, **flag}, sim, info, CHR20_TIMEOUT)
+            res[out] = fig = _c20_figures(*run, info, what)
+            if not (fig["pairs"] == CHR20_PAIRS
+                    and fig["primed"] + fig["host_routed"] == CHR20_PAIRS):
+                fails.append(f"{out}: {fig['pairs']} pairs, "
+                             f"{fig['primed']} primed, "
+                             f"{fig['host_routed']} host-routed")
+            _same_records(out, "out_c20_host")
+            phase_whole_bam([out], "out_c20_host")
+        except Exception as e:  # noqa: BLE001 -- raised after every run
+            print(f"  {what} FAILED: {e}")
+            fails.append(f"{out}: {e}")
+        shutil.rmtree(os.path.join(SMOKE, out), ignore_errors=True)
+    shutil.rmtree(os.path.join(SMOKE, "out_c20_host"), ignore_errors=True)
+    print(f"  chr20 x 1M figures: {json.dumps(res)}")
+    for out in ("out_c20_nodorm", "out_c20_nodorm_seed"):
+        if out in res and res[out]["primed"] <= 0:
+            fails.append(f"{out}: no pair primed")
+    c = res.get("out_c20_nodorm")
+    if c and c["largest_batch_pairs"] < CHR20_MIN_BATCH:
+        fails.append(f"out_c20_nodorm: largest primed batch "
+                     f"{c['largest_batch_pairs']} < {CHR20_MIN_BATCH}")
+    d = res.get("out_c20_nodorm_seed")
+    if d:
+        idle = [k for k in SEED_KERNELS if k not in d["kernels"]]
+        if idle:
+            fails.append(f"out_c20_nodorm_seed: no launch of {idle}")
+    if fails:
+        raise AssertionError("chr20 x 1M: " + "; ".join(fails))
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--logs", default=SMOKE,
@@ -2913,6 +3191,9 @@ def main(argv=None) -> int:
                    help="phase 18's inputs (default data_big/; "
                         "tools/gen_data_big.py --cut builds a smaller "
                         "genome under the same names)")
+    p.add_argument("--chr20-data", default=HG38_DIR,
+                   help="phase 20's inputs (default data_big/; "
+                        "tools/gen_data_big.py --chr20 builds only them)")
     args = p.parse_args(argv)
     os.makedirs(args.logs, exist_ok=True)
     with Phase("environment"):
@@ -2951,12 +3232,8 @@ def main(argv=None) -> int:
            and k not in ("LARIAT_DEVICE_SOCKET",
                          "LARIAT_DEVICE_SERVER_CPU_OK")}
     # the all-primed runs: the router's own knobs leave it no reason to
-    # host-route (a thread for every batch the run can make, batches being
-    # 512 pairs or more but the last; a tail grace past the run; no
-    # dormancy)
-    knobs = {"LARIAT_PRIME_THREADS":
-             str(-(-BARCODES * PAIRS_PER_BC // 512)),
-             "LARIAT_PRIME_TAIL_GRACE": "600", "LARIAT_PRIME_MIN_FRAC": "0"}
+    # host-route
+    knobs = _all_primed(BARCODES * PAIRS_PER_BC)
     print(f"  router knobs of the all-primed port runs: {json.dumps(knobs)}")
     with Phase("port run"):
         runs["out_port"] = _port_run(fasta, reads, "out_port",
@@ -3056,6 +3333,10 @@ def main(argv=None) -> int:
     with Phase("hg38 scale"):
         hg = phase_hg38(args.hg38_data, env, args.logs,
                         chr20={k: kres[k][1] for k in SEED_KERNELS})
+    with Phase("messy reads"):
+        messy = phase_messy(fasta, env, args.logs)
+    with Phase("chr20 x 1M pairs"):
+        c20 = phase_chr20(args.chr20_data, env, args.logs)
     desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
     extra = {"smem_twoptr": {"seed_trace": kres.pop("seed_trace")},
              "sw_extend": {"desc_launches": desc,
@@ -3084,6 +3365,15 @@ def main(argv=None) -> int:
                          "device_seed": hg["out_hg38_port_seed"]["launches"][
                              k]},
             "ms": hg["ms"][k]}
+    # phase 19's runs and phase 20's ([launches, largest launch] a run, or
+    # null)
+    for name in KERNEL_INFO:
+        extra.setdefault(name, {})["messy"] = {
+            out: v["kernels"].get(name) for out, v in messy.items()
+            if out.startswith("out_")}
+        extra[name]["chr20_1m"] = c20 and {
+            out: v["kernels"].get(name) for out, v in c20.items()
+            if out.startswith("out_")}
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         err, ms, pms, _, bms, by, *more = kres[name]

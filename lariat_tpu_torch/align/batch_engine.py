@@ -224,6 +224,7 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         self.seed_batches = {"host": 0, "device": 0,
                              "host_before_device": None}
         self.rescue_tasks = 0
+        self.largest_batch = 0      # pairs of the largest finished pass
         # set by the CLI's router (or a server's abort request) to make the
         # passes in flight stop at their next wave boundary
         self.abort_prime = False
@@ -322,6 +323,12 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
             raise self._seed_err
         return None if started and not wait else self._seed_state
 
+    def _batch_done(self, pairs: int) -> None:
+        """A priming pass of ``pairs`` pairs has finished (an aborted one
+        never does)."""
+        with self._stats_lock:
+            self.largest_batch = max(self.largest_batch, pairs)
+
     def _note_seeder(self, device: bool) -> None:
         with self._stats_lock:
             sb = self.seed_batches
@@ -332,13 +339,22 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
     def path_log(self) -> dict:
         """What the CLI prints of the run's device path: the batches each
         seeder served, the host-seeded ones before the first device-seeded
-        one, the index upload's seconds and the mate-rescue tasks."""
+        one, the index upload's seconds, the mate-rescue tasks, the pairs
+        of the largest finished priming pass, each kernel's largest launch
+        in its own unit (``_build.largest``, since the last reset) and the
+        device's peak of allocated bytes
+        (``torch.cuda.max_memory_allocated``; None on the CPU)."""
         sb = self.seed_batches
+        dev = self.device
         return {"seed_host_batches": sb["host"],
                 "seed_device_batches": sb["device"],
                 "host_batches_before_device": sb["host_before_device"],
                 "seed_upload_s": self.seed_upload_s,
-                "rescue_tasks": self.rescue_tasks}
+                "rescue_tasks": self.rescue_tasks,
+                "largest_batch_pairs": self.largest_batch,
+                "largest_launches": _build.largest(),
+                "cuda_peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                                    if dev.type == "cuda" else None)}
 
     def sa_walks(self) -> list:
         """The SA lookups' K5 launches (``DeviceGenome.walks``); empty until
@@ -790,6 +806,7 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         realign on the host."""
         per_pair = self._pairs_regions(recs)
         if score_delta is None:
+            self._batch_done(len(recs))
             return per_pair
         pairs = [(encode_read(rec.read1), encode_read(rec.read2), r1, r2)
                  for rec, (r1, r2) in zip(recs, per_pair)]
@@ -812,6 +829,7 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
             out.append((r1, r2, True, sras[off:off + n1],
                         sras[off + n1:off + n1 + n2]))
             off += n1 + n2
+        self._batch_done(len(recs))
         return out
 
     def prime_pairs(self, recs, score_delta: int) -> None:
@@ -829,6 +847,7 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         for rec, (q1, q2, regs1, regs2) in zip(recs, pairs):
             cache[id(rec)] = self.finish_pair(q1, q2, regs1, regs2,
                                               score_delta, skip_rescue=True)
+        self._batch_done(len(recs))
 
     def align1(self, q: np.ndarray, mems=None, rbegs=None) -> List[AlnReg]:
         """One read's candidate regions through ``align_batch``; with its

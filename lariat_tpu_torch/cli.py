@@ -237,7 +237,8 @@ def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
                 dorm["off"] = True
         if dorm["off"]:
             print(f"device priming dormant (measured {r or 0:.0f} "
-                  f"pairs/s)", flush=True)
+                  f"pairs/s) after {time.time() - t0:.1f}s, "
+                  f"{feed_stats['primed_pairs']} pairs primed", flush=True)
         return dorm["off"]
 
     def host(tagged):

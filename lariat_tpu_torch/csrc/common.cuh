@@ -2,10 +2,38 @@
 #pragma once
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include <cuda_runtime.h>
 
 namespace lariat {
+
+// Let ``kernel`` take ``smem`` bytes of dynamic shared memory on the
+// current device: raise its cap (cudaFuncAttributeMaxDynamicSharedMemorySize)
+// when ``smem`` is above the largest cap set so far, never lower it. The
+// cap is one per kernel and device, shared by every host thread: a launch
+// asking for more than the cap fails with cudaErrorInvalidValue, so a
+// thread that lowered it to its own need would fail a launch of another
+// thread in flight with a longer target (the CLI primes on several threads,
+// each wave of its own width).
+template <typename K>
+cudaError_t raise_smem_cap(K kernel, int smem) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> caps;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> hold(mu);
+  int& cap = caps[{reinterpret_cast<const void*>(kernel), dev}];
+  if (smem <= cap) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess) cap = smem;
+  return err;
+}
 
 constexpr int32_t NEG = -0x40000000;
 constexpr int kThreads = 128;  // one task per thread, 128-thread blocks

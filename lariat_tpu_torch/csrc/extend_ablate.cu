@@ -300,9 +300,8 @@ int launch(const uint8_t* q, const uint8_t* t, const int32_t* params, int B,
   // the warp's shared memory: its target codes, a byte a row (a target
   // past the card's 227 KB fails with its CUDA error)
   const int smem = (Lt + 15) & ~15;
-  cudaError_t err = cudaFuncSetAttribute(
-      extend_ablate_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  const cudaError_t err = lariat::raise_smem_cap(extend_ablate_kernel<P>,
+                                                 smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   extend_ablate_kernel<P><<<B, 32, smem, s>>>(
       q, t, params, B, Lq, Lt, a, reinterpret_cast<int4*>(bnd), out,

@@ -358,10 +358,8 @@ __global__ void __launch_bounds__(kS1Threads) strategy1_kernel(
 // opt-in; below it (4 reads of L 192: 768 B) no host call is made
 template <typename K>
 cudaError_t allow_smem(K kernel, int smem) {
-  return smem > 48 * 1024
-             ? cudaFuncSetAttribute(
-                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-             : cudaSuccess;
+  return smem > 48 * 1024 ? lariat::raise_smem_cap(kernel, smem)
+                          : cudaSuccess;
 }
 
 template <typename IDX, bool kPlanes>

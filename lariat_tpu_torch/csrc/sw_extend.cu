@@ -401,9 +401,8 @@ int launch_extend(const Feed& fd, int B, int Lt, const Scoring& a,
   // the warp's shared memory: its target codes, a byte a row (a target
   // past the card's 227 KB fails with its CUDA error)
   const int smem = (Lt + 15) & ~15;
-  cudaError_t err = cudaFuncSetAttribute(
-      sw_extend_kernel<Feed>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  const cudaError_t err = lariat::raise_smem_cap(sw_extend_kernel<Feed>,
+                                                 smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   sw_extend_kernel<Feed><<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       fd, B, Lt, a, reinterpret_cast<int4*>(bnd), out, n_steps);

@@ -222,8 +222,7 @@ extern "C" int lariat_sw_local(
   const int smem_warp = 2 * 4 * ((Lt + 3) & ~3);
   const int wpb = lariat::warps_per_block(smem_warp);
   const int smem = smem_warp * wpb;
-  cudaError_t err = cudaFuncSetAttribute(
-      sw_local_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = lariat::raise_smem_cap(sw_local_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   sw_local_kernel<<<(B + wpb - 1) / wpb, wpb * 32, smem,
                     static_cast<cudaStream_t>(stream)>>>(

@@ -155,8 +155,7 @@ extern "C" int lariat_traceback(const uint8_t* z, const int32_t* qlen,
   if (B <= 0) return 0;
   const int smem = S / 4;  // past the static window's 48 KB share: opt in
   if (smem > 48 * 1024 - kWin) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        traceback_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err = lariat::raise_smem_cap(traceback_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   traceback_kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(

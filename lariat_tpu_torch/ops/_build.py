@@ -10,7 +10,7 @@ first use: importing this module compiles nothing.
 Each C entry launches one kernel on the stream it is given (PyTorch's
 current stream of the device its tensors lie on) and returns
 ``cudaGetLastError()``; ``launch`` raises when that is not 0, and otherwise
-adds one to the kernel's launch count.
+adds one to the kernel's launch count and keeps the largest launch's size.
 """
 
 from __future__ import annotations
@@ -71,6 +71,8 @@ ENTRIES = {
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 ENTRY_LAUNCHES: Dict[str, int] = dict.fromkeys(ENTRIES, 0)
+# the size of each kernel's largest launch, in its own unit (``launch``)
+LARGEST: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -82,6 +84,8 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
         for k in ENTRY_LAUNCHES:
             ENTRY_LAUNCHES[k] = 0
+        for k in LARGEST:
+            LARGEST[k] = 0
 
 
 def launches() -> Dict[str, int]:
@@ -95,6 +99,13 @@ def entry_launches() -> Dict[str, int]:
     ``launches()`` under their kernel)."""
     with _count_lock:
         return dict(ENTRY_LAUNCHES)
+
+
+def largest() -> Dict[str, int]:
+    """The size of each kernel's largest launch since the last reset (0
+    for a kernel not launched), in the unit its ``launch`` calls count."""
+    with _count_lock:
+        return dict(LARGEST)
 
 
 def _nvcc() -> str:
@@ -233,7 +244,8 @@ def check_byte_scores(**scores) -> None:
         raise ValueError(f"substitution scores outside [-128, 127]: {bad}")
 
 
-def launch(name: str, *args, entry: Optional[str] = None) -> None:
+def launch(name: str, *args, size: int = 0,
+           entry: Optional[str] = None) -> None:
     """Launch kernel ``name`` through its C entry or through ``entry`` (one
     of ``ENTRIES``, counted under ``name``) on the device its tensors lie
     on: on that device's current stream, under ``torch.cuda.device(dev)``
@@ -242,8 +254,12 @@ def launch(name: str, *args, entry: Optional[str] = None) -> None:
 
     ``args`` are tensors (passed by data pointer; the caller keeps them
     alive) and ints, in the C entry's order without the trailing stream.
-    Raises when the tensors span devices or lie on the CPU (or there is
-    none). Launch counts are summed over devices."""
+    ``size`` is the launch's work in the kernel's own unit: tasks for the
+    DP kernels (K1-K3, K2b, T1), lanes for K4a, K4b and K9, reads for K4c
+    and K7 (lookups for its occ1 entry), rows for K5, windows for K8; the
+    largest is kept (``largest``). Raises when the tensors span devices or
+    lie on the CPU (or there is none). Launch counts are summed over
+    devices."""
     # device indices, -1 for the CPU: cheaper than a torch.device a tensor
     devs = {a.get_device() for a in args if isinstance(a, torch.Tensor)}
     if len(devs) != 1 or -1 in devs:
@@ -266,9 +282,17 @@ def launch(name: str, *args, entry: Optional[str] = None) -> None:
             rc = getattr(lib, entry)(*cargs, stream)
     if rc != 0:
         msg = lib.lariat_cuda_error_string(rc).decode()
+        ints = [a for a in args if not isinstance(a, torch.Tensor)]
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
+                           f"({msg}); size {size}, int arguments {ints}")
+    _count(name, entry, size)
+
+
+def _count(name: str, entry: str, size: int) -> None:
+    """A launch of ``name`` through ``entry`` of ``size``: counted, and
+    kept when it is the kernel's largest."""
     with _count_lock:
         LAUNCHES[name] += 1
+        LARGEST[name] = max(LARGEST[name], int(size))
         if entry in ENTRY_LAUNCHES:
             ENTRY_LAUNCHES[entry] += 1

@@ -176,5 +176,5 @@ def run_variant(q: torch.Tensor, t: torch.Tensor, params: torch.Tensor,
                   s["e_del"], s["o_ins"], s["e_ins"], s["zdrop"],
                   s["match_sc"], s["mismatch_sc"], s["n_sc"], int(cummax),
                   int(trow), int(writeback), boundary_scratch(B, Lq, Lt, dev),
-                  out, 0 if steps is None else steps)
+                  out, 0 if steps is None else steps, size=B)
     return out

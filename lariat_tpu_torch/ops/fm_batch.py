@@ -294,7 +294,7 @@ def occ1_rank(fmd: DeviceFMIndex, k: torch.Tensor,
     _build.check("c", c, dev, (n,))
     out = torch.empty(n, dtype=dt, device=dev)
     _build.launch("exact_match", k, c, fmd.fused, fmd.L2, fmd.primary,
-                  fmd.seq_len, int(dt == torch.int64), n, out,
+                  fmd.seq_len, int(dt == torch.int64), n, out, size=n,
                   entry="lariat_occ1")
     return out
 
@@ -367,7 +367,7 @@ def backward_search(fmd: DeviceFMIndex, reads: torch.Tensor,
                   0 if start is None else start, lens, fmd.fused, fmd.L2,
                   fmd.primary, fmd.seq_len, int(dt == torch.int64), B, L,
                   L if max_iters is None else min(L, max_iters),
-                  int(skip_n), out, 0 if steps is None else steps)
+                  int(skip_n), out, 0 if steps is None else steps, size=B)
     return out[0], out[1]
 
 

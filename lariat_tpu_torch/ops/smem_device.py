@@ -291,7 +291,7 @@ def min_starts_twoptr(fmd: DeviceFMIndex, reads: torch.Tensor,
         aux = torch.empty((R, 3), dtype=torch.int32, device=dev)
         _build.launch("smem_twoptr", reads, start_e, end_e, min_intv, mid,
                       *_fm_args(fmd), R, L, budget, int(bwd_init),
-                      int(min_seed), cap, meta, big, aux)
+                      int(min_seed), cap, meta, big, aux, size=R)
     _twoptr_flags(meta, aux, cap)
     return meta, big, aux
 
@@ -329,7 +329,8 @@ def min_starts_twoptr_planes(fmd: DeviceFMIndex, reads: torch.Tensor,
                torch.zeros((R, L), dtype=torch.bool, device=dev),
                torch.empty((R, 3), dtype=torch.int32, device=dev))
         _build.launch("smem_planes", reads, start_e, end_e, min_intv,
-                      *_fm_args(fmd), R, L, budget, int(bwd_init), *out)
+                      *_fm_args(fmd), R, L, budget, int(bwd_init), *out,
+                      size=R)
     aux = out[5]
     return (*out[:5], aux[:, 0].bool().all(), aux)
 
@@ -419,7 +420,7 @@ def compact_starts(b, x0, x1, s, valid, start_e, end_e, mid, min_seed: int,
     counts = torch.empty(R, dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
     _build.launch("compact", *args, int(min_seed), C, *out, counts, overflow,
-                  0, 0, far)
+                  0, 0, far, size=R)
     return (*out, counts, overflow)
 
 
@@ -454,7 +455,7 @@ def compact_starts_packed(b, x0, x1, s, valid, start_e, end_e, mid, done,
     packed = torch.empty((R, 5 * C + 2), dtype=torch.int64, device=dev)
     scratch = torch.empty(2, dtype=torch.int32, device=dev)
     _build.launch("compact", *args, int(min_seed), C, 0, 0, 0, 0, 0, 0, 0,
-                  packed, scratch, far)
+                  packed, scratch, far, size=R)
     return packed
 
 
@@ -529,7 +530,7 @@ def min_starts_kernel(fmd: DeviceFMIndex, reads: torch.Tensor,
     valid = torch.empty(N, dtype=torch.bool, device=dev)
     _build.launch("smem_exhaustive", reads, read_idx, e, min_intv,
                   *_fm_args(fmd), N, L, b, x0, x1, s, valid,
-                  0 if counts is None else counts)
+                  0 if counts is None else counts, size=N)
     return b, x0, x1, s, valid
 
 
@@ -602,7 +603,8 @@ def strategy1(fmd: DeviceFMIndex, reads: torch.Tensor, lens: torch.Tensor,
     big = torch.zeros((R, 3 * cap), dtype=fmd.idx_dtype, device=dev)
     fused, L2, primary, seq_len, idx64 = _fm_args(fmd)
     _build.launch("smem_strategy1", reads, lens, fused, L2, primary, seq_len,
-                  int(max_intv), idx64, R, L, int(min_len), cap, meta, big)
+                  int(max_intv), idx64, R, L, int(min_len), cap, meta, big,
+                  size=R)
     return meta, big
 
 

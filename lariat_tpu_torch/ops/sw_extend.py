@@ -70,7 +70,7 @@ def _launch(B, Lq, Lt, dev, scores, steps, entry, *head) -> torch.Tensor:
     _build.launch("sw_extend", *head, *(scores[k] for k in (
         "o_del", "e_del", "o_ins", "e_ins", "end_bonus", "zdrop", "match_sc",
         "mismatch_sc", "n_sc")), boundary_scratch(B, Lq, Lt, dev), out,
-        0 if steps is None else steps, entry=entry)
+        0 if steps is None else steps, size=B, entry=entry)
     return out
 
 

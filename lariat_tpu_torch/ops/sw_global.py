@@ -132,7 +132,7 @@ def global_batch(query: torch.Tensor, qlen: torch.Tensor,
     z = torch.empty((B, Lt, Lq), dtype=torch.uint8, device=dev)
     _build.launch("sw_global", q8, t8, qlen, tlen, w, B, Lq, Lt, o_del,
                   e_del, o_ins, e_ins, match_sc, mismatch_sc, n_sc, bnd,
-                  score, z)
+                  score, z, size=B)
     return score, z
 
 
@@ -204,7 +204,7 @@ def traceback_ops_fused(z: torch.Tensor, qlen: torch.Tensor,
         _build.check("windows", windows, dev, (B,))
     blob = torch.empty((B, S // 4 + 12), dtype=torch.uint8, device=dev)
     _build.launch("traceback", z, qlen, tlen, w, score, B, Lt, Lq, S, blob,
-                  0 if windows is None else windows)
+                  0 if windows is None else windows, size=B)
     return blob
 
 

@@ -127,7 +127,8 @@ def local_batch(query: torch.Tensor, qlen: torch.Tensor,
                       dtype=torch.int32, device=dev)
     out = torch.empty((8, B), dtype=torch.int32, device=dev)
     _build.launch("sw_local", q8, t8, qlen, tlen, minsc, B, Lq, Lt, o_del,
-                  e_del, o_ins, e_ins, match_sc, mismatch_sc, n_sc, bnd, out)
+                  e_del, o_ins, e_ins, match_sc, mismatch_sc, n_sc, bnd, out,
+                  size=B)
     return out
 
 

@@ -141,7 +141,7 @@ def sa_walk_chunk(g: DeviceGenome, k: torch.Tensor, steps: torch.Tensor,
     fmd = g.fmd
     _build.launch("sa_walk", k, steps, done, fmd.fused, fmd.L2, fmd.primary,
                   fmd.seq_len, g.sa_intv, int(dt == torch.int64), n,
-                  max_steps, out)
+                  max_steps, out, size=n)
     return out
 
 
@@ -174,7 +174,7 @@ def sa_lookup_batch(g: DeviceGenome, k: torch.Tensor,
     fmd = g.fmd
     _build.launch("sa_walk", k, fmd.fused, fmd.L2, fmd.primary, fmd.seq_len,
                   g.sa_intv, int(dt == torch.int64), samples,
-                  samples.shape[0], n, max_steps, out,
+                  samples.shape[0], n, max_steps, out, size=n,
                   entry="lariat_sa_lookup")
     return out
 
@@ -230,7 +230,8 @@ def fetch_window_batch(g: DeviceGenome, start: torch.Tensor,
     start = start.to(torch.int64).contiguous()
     _build.check("start", start, dev, (B,), (torch.int64,))
     out = torch.empty((B, length), dtype=torch.int32, device=dev)
-    _build.launch("fetch_window", start, pac, g.l_pac, B, length, out)
+    _build.launch("fetch_window", start, pac, g.l_pac, B, length, out,
+                  size=B)
     return out
 
 

@@ -18,7 +18,9 @@ seeding index when the seeding policy turns it on), primes one synthetic
 batch of ``LARIAT_PRIME_BATCH`` pairs (``_prewarm``; skipped with
 ``LARIAT_SERVER_NO_PREWARM=1``), and only then listens and writes the ready
 file. It primes on two worker threads, as the CLI's two priming threads
-do, and at its end prints the kernel launches made since it became ready.
+do, and at its end prints the kernel launches made since it became ready
+and its device path (``path_log``: the largest batch and launches, the peak
+device memory since then).
 
 Protocol: length-prefixed pickles. Requests:
   ("prime", recs, score_delta) -> ("ok", primes, wave_stats_delta)
@@ -147,9 +149,13 @@ def serve(genome: str, socket_path: Optional[str] = None,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         print(f"[device_server] prewarm {time.time() - t0:.3f}s", flush=True)
-    # the launches printed at the end are the clients'
+    # the launches, the largest batch and the peak memory printed at the
+    # end are the clients'
     _build.reset_launches()
     engine.wave_stats = {"wall": 0.0, "n": 0}
+    engine.largest_batch = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
 
     try:
         os.unlink(path)
@@ -249,6 +255,8 @@ def serve(genome: str, socket_path: Optional[str] = None,
               f"{json.dumps(_build.launches())}", flush=True)
         print(f"[device_server] kernel entry launches: "
               f"{json.dumps(_build.entry_launches())}", flush=True)
+        print(f"[device_server] device path: "
+              f"{json.dumps(engine.path_log())}", flush=True)
 
 
 # ---------------------------------------------------------------- client

@@ -22,12 +22,20 @@ genome at that scale (0.36: 1.11 Gbp, a doubled text past 2^31): the
 genome, its centromeres, its index and the 10k read set. Give it a
 directory of its own: its genome keeps the name ``hg38sim.fa``.
 
+    python -m lariat_tpu_torch.tools.gen_data_big DIR --chr20
+
+builds only the chr20 step, what ``chip_smoke.py``'s chr20 x 1M phase
+reads: ``chr20sim.fa`` (64,228,320 bp), its index and
+``sim1m_chr20.fastq.gz`` (10,000 barcodes x 100 pairs), at the reference's
+sizes and seeds.
+
 Every output is written under a ``.part`` name and renamed into place when
 complete, so an output that exists is whole; each step runs only when its
 output is missing. One generator at a time: ``DIR/.gen.lock`` is held with
 ``fcntl.flock`` for the whole run, so a second generator blocks until the
 first is done (or dies: the kernel drops its lock) and then finds every
-output present and builds nothing.
+output present and builds nothing. Each step's seconds are printed on a
+line of their own.
 """
 
 from __future__ import annotations
@@ -46,10 +54,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 DEFAULT_DIR = os.path.join(REPO, "data_big")
 
 
+# the chr20 step: the genome's scale and seed, barcodes x pairs a barcode
+CHR20_SCALE = 0.0208
+CHR20_READS = (10000, 100)
+
+
 def run(args: list) -> None:
-    """One of the repository's generator scripts, as a subprocess."""
+    """One of the repository's generator scripts, as a subprocess; its
+    seconds on a line of their own."""
     print("+", " ".join(args), flush=True)
+    t0 = time.time()
     subprocess.run([sys.executable] + args, check=True, cwd=REPO)
+    print(f"{os.path.basename(args[0])}: {time.time() - t0:.1f} s",
+          flush=True)
 
 
 def build(fa: str, sa_intv: int = 32) -> None:
@@ -79,19 +96,26 @@ def _reads(fa: str, out: str, barcodes: int, pairs_per_bc: int) -> None:
     os.replace(part, out)
 
 
-def generate(db: str, cut: float = 0.0) -> None:
+def generate(db: str, cut: float = 0.0, chr20: bool = False,
+             chr20_scale: float = CHR20_SCALE,
+             chr20_reads: tuple = CHR20_READS) -> None:
     """Every missing output of ``db``, in the reference's order; with
     ``cut``, only the hg38 step's genome (at that scale), its index and
-    the 10k read set."""
+    the 10k read set; with ``chr20``, only the chr20 step, its genome at
+    ``chr20_scale`` and ``chr20_reads`` (barcodes, pairs a barcode): the
+    reference's sizes unless a test shrinks them."""
     os.makedirs(db, exist_ok=True)
     # --- chr20 scale (~64 Mbp) + 1M pairs ---
     c20 = os.path.join(db, "chr20sim.fa")
     if not cut and not os.path.isdir(c20 + ".lariat.d"):
-        run(["tools/synth_genome.py", c20, "--scale", "0.0208",
+        run(["tools/synth_genome.py", c20, "--scale", str(chr20_scale),
              "--seed", "7"])
         build(c20)
     if not cut:
-        _reads(c20, os.path.join(db, "sim1m_chr20.fastq.gz"), 10000, 100)
+        _reads(c20, os.path.join(db, "sim1m_chr20.fastq.gz"), *chr20_reads)
+    if chr20:
+        print("chr20 step complete", flush=True)
+        return
     # --- hg38 scale (3.09 Gbp) + 200k/50k/10k pairs ---
     hg = os.path.join(db, "hg38sim.fa")
     if not os.path.isdir(hg + ".lariat.d"):
@@ -115,7 +139,12 @@ def main(argv=None) -> int:
     p.add_argument("--cut", type=float, default=0.0, metavar="SCALE",
                    help="only the hg38 step's genome, at this scale, its "
                         "index and the 10k read set")
+    p.add_argument("--chr20", action="store_true",
+                   help="only the chr20 step: its genome, index and 1M "
+                        "pairs")
     args = p.parse_args(argv)
+    if args.chr20 and args.cut:
+        p.error("--chr20 and --cut build different steps: give one")
     db = os.path.abspath(args.dir)
     os.makedirs(db, exist_ok=True)
     with open(os.path.join(db, ".gen.lock"), "a") as lock:
@@ -125,7 +154,7 @@ def main(argv=None) -> int:
             print(f"another generator holds {db}/.gen.lock; waiting",
                   flush=True)
             fcntl.flock(lock, fcntl.LOCK_EX)
-        generate(db, args.cut)
+        generate(db, args.cut, args.chr20)
     return 0
 
 

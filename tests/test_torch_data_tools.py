@@ -118,6 +118,41 @@ def test_generator_cut_builds_the_hg38_phase_inputs(tmp_path, capsys):
         < 1_700_000
 
 
+def test_generator_chr20_builds_only_the_chr20_step(tmp_path, capsys):
+    """``--chr20`` (here ``generate``'s arguments at a tiny scale and read
+    count): the chr20 genome, its index (its build line printed) and the
+    1M read set's file, each step's seconds on a line of its own; nothing
+    of hg38. Run again, it builds nothing."""
+    import gzip
+    db = tmp_path / "c20"
+    small = dict(chr20=True, chr20_scale=0.0003, chr20_reads=(8, 10))
+    t_gen.generate(str(db), **small)
+    out = capsys.readouterr().out
+    assert BUILD_LINE.findall(out) == [str(db / "chr20sim.fa")]
+    assert re.findall(r"^(\w+)\.py: [0-9.]+ s$", out, re.M) == [
+        "synth_genome", "sim_reads"]
+    names = ["chr20sim.fa", "chr20sim.fa.lariat.d", "sim1m_chr20.fastq.gz"]
+    assert sorted(p.name for p in db.iterdir()) == names
+    from lariat_tpu_torch.index.fmindex import FMIndex
+    assert 800_000 < FMIndex.load_dir(str(db / "chr20sim.fa")).l_pac \
+        < 1_100_000
+    with gzip.open(db / "sim1m_chr20.fastq.gz", "rt") as f:
+        assert sum(1 for _ in f) == 9 * 80
+    before = {n: os.stat(db / n).st_mtime_ns for n in names}
+    t_gen.generate(str(db), **small)
+    out = capsys.readouterr().out
+    assert "+ " not in out and "build " not in out
+    assert out.strip() == "chr20 step complete"
+    assert {n: os.stat(db / n).st_mtime_ns for n in names} == before
+
+
+def test_generator_refuses_chr20_with_cut(tmp_path):
+    import pytest
+    with pytest.raises(SystemExit):
+        t_gen.main([str(tmp_path / "x"), "--chr20", "--cut", "0.36"])
+    assert not (tmp_path / "x").exists()
+
+
 def test_second_generator_waits_then_builds_nothing(tmp_path):
     """While one generator holds DIR/.gen.lock a second one blocks; once
     the lock is free it finds every output present and runs no step."""

@@ -239,6 +239,10 @@ def test_cli_paths_match_jax_cli(tmp_path, flags):
     assert path["seed_host_batches"] > 0 and not path["seed_device_batches"]
     assert path["host_batches_before_device"] is None
     assert path["rescue_tasks"] >= 0
+    # the CLI's batches: every pair primed, in batches of 35 pairs at most
+    assert 0 < path["largest_batch_pairs"] <= 35
+    assert path["largest_launches"] == dict.fromkeys(_build.KERNELS, 0)
+    assert path["cuda_peak_bytes"] is None
     bams = sorted(os.path.basename(p)
                   for p in glob.glob(str(tmp_path / "jax" / "*.bam")))
     assert bams and bams == sorted(
@@ -247,6 +251,41 @@ def test_cli_paths_match_jax_cli(tmp_path, flags):
     for k in bams:
         assert list(BamFile(str(tmp_path / "jax" / k))) == \
             list(BamFile(str(tmp_path / "port" / k))), k
+
+
+def test_path_log_keeps_the_largest_batch_and_launch(dup_genome):  # noqa: F811
+    """``path_log``'s largest batch is the largest finished priming pass
+    (an aborted one does not count; regions alone or with rescue and
+    reg2aln); its largest launches are ``_build``'s, kept a kernel at a
+    time, in the kernel's own unit, and cleared with the counts."""
+    from lariat_tpu_torch.align.batch_engine import PrimeAborted
+    from test_torch_engine import _recs
+    fm, genome = dup_genome
+    recs = _recs(genome)
+    eng = TorchBatchAlignmentEngine(fm, device="cpu")
+    log = eng.path_log()
+    assert log["largest_batch_pairs"] == 0 and log["cuda_peak_bytes"] is None
+    eng.prime_regions(recs[:3], 17)
+    eng.prime_regions(recs[:5])
+    eng.prime_regions(recs[:2], 17)
+    assert eng.path_log()["largest_batch_pairs"] == 5
+    eng.abort_prime = True
+    with pytest.raises(PrimeAborted):
+        eng.prime_regions(recs[:9], 17)
+    assert eng.path_log()["largest_batch_pairs"] == 5
+    _build.reset_launches()
+    for name, entry, size in (("sw_extend", "lariat_sw_extend_desc", 900),
+                              ("sw_extend", "lariat_sw_extend", 4000),
+                              ("sw_extend", "lariat_sw_extend_desc", 30),
+                              ("sa_walk", "lariat_sa_walk", 65536)):
+        _build._count(name, entry, size)
+    want = dict.fromkeys(_build.KERNELS, 0) | {"sw_extend": 4000,
+                                               "sa_walk": 65536}
+    assert eng.path_log()["largest_launches"] == _build.largest() == want
+    assert _build.launches()["sw_extend"] == 3
+    assert _build.entry_launches()["lariat_sw_extend_desc"] == 2
+    _build.reset_launches()
+    assert _build.largest() == dict.fromkeys(_build.KERNELS, 0)
 
 
 # ---- the background index upload ------------------------------------------
