@@ -5,6 +5,8 @@
     python3 chip_smoke.py --hg38-data DIR    # phase 18's inputs elsewhere
     python3 chip_smoke.py --chr20-data DIR   # phase 20's inputs elsewhere
 
+(--hg38-data DIR also holds phase 21's inputs.)
+
 Phases (one line each with its seconds, failures end the run nonzero):
   1. environment: the card (nvidia-smi name, power limit), torch, nvcc;
      requires torch.cuda.is_available();
@@ -222,14 +224,38 @@ Phases (one line each with its seconds, failures end the run nonzero):
      records and whole files equal to host-native's, the no-dormancy runs
      primed, the host-seeded one a batch of 4,096 pairs or more, K4a, K4c
      and K5 launched in the device-seeded one.
+ 21. hg38 x 200k, the CLI's device modes, on --hg38-data's hg38sim.fa, its
+     .lariat.d, centromeres and sim200k.fastq.gz (4,000 barcodes x 50
+     pairs, the reference bench's hg38_device_8w input), which `python -m
+     lariat_tpu_torch.tools.gen_data_big DIR --hg38` builds (never this
+     script): without them one line says the phase was not run. Else five
+     CLI runs of 8 workers with -centromeres, -simulated and auto seeding
+     (LARIAT_DEVICE_SEED unset): host-native, the router at its defaults
+     (-use_device auto, in-process engine), the router without dormancy,
+     through the resident server at its defaults (the bench's
+     hg38_device_8w) and without dormancy; each run's phase 20 figures,
+     plus the batches each seeder served, the host-seeded ones before the
+     first device-seeded one, the upload's s, K4b's launches, and for the
+     server runs its ready time split into imports, load, upload and
+     prewarm and its peak RSS; 200,000 pairs a run, primed plus
+     host-routed all of them, records and whole files equal to
+     host-native's, the no-dormancy run seeding batches on the device
+     (K4a, K4c and K5 launched), no batch host-seeded in the server, the
+     server's no-dormancy run priming pairs with K1 (every launch through
+     its descriptor entry), K2, K2b, K4a, K4c and K5 launched, and K3
+     wherever a mate was rescued. Phase 18's
+     device collect also takes phase 5's low-complexity reads on the hg38
+     index, so K4b runs on a real index past 2^31 (seeds equal to native,
+     K4b exact against its twin on the collect's lanes).
 Then each kernel's loss on its path (launches x (ms - bound ms)), a
 kernels JSON line (each kernel's launches on its path, max abs
 error, ms, plain ms, bound ms and what sets it, and library_ms: null where
 no single PyTorch call computes the function -- these recurrences -- and
 for K9 the stable argsort and gathers; K4a, K4c, K5 and K1 with an "hg38"
-entry, phase 18's launches and ms or null; every kernel with "messy" and
-"chr20_1m" entries, [launches, largest launch] in each run of phases 19
-and 20, or null) and, last,
+entry, phase 18's launches and ms or null, K4b's its collect's launches;
+every kernel with "messy", "chr20_1m" and "hg38_200k" entries,
+[launches, largest launch] in each run of phases 19, 20 and 21 (b-e), or
+null) and, last,
 {"ok": true, "device": {...}}.
 """
 
@@ -312,6 +338,14 @@ CHR20_TIMEOUT = 3000        # s a CLI run may take
 # run c's largest primed batch must reach this: 2 s of priming at 2,048
 # pairs/s, under half of one thread's slowest measured rate
 CHR20_MIN_BATCH = 4096
+# phase 21: the hg38 genome and its 200k read set (4,000 barcodes x 50
+# pairs), what `python -m lariat_tpu_torch.tools.gen_data_big DIR --hg38`
+# builds; the reference bench's hg38_device_8w input
+HG38_200K_INPUTS = ("hg38sim.fa", "hg38sim.fa.lariat.d",
+                    "hg38sim.centromeres.tsv", "sim200k.fastq.gz")
+HG38_200K_PAIRS = 200_000
+HG38_200K_TIMEOUT = 1800    # s a CLI run may take
+HG38_READY_S = 900          # s the server may take to load, upload, prewarm
 # reads whose two-pointer lanes outrun K4a's step cap on a genome of this
 # size (no exact copy of them in the synthetic genome)
 LOW_COMPLEXITY = [b"A" * 151, b"AT" * 75, b"ACG" * 50, b"AC" * 75,
@@ -1536,7 +1570,10 @@ def _fallback_collect(fm, fmd, g, qs, opt) -> int:
     """collect_seeds_rbegs_device, the main path's seeding call, on reads of
     the FASTQ plus low-complexity reads that blow K4a's step cap, so round
     1 takes the exhaustive fallback (K4b); its seeds and rbegs must equal
-    the native C++ seeder's. Returns K4b's launches in that call."""
+    the native C++ seeder's, and each K4b call of the collect its twin's on
+    the same inputs (exact); the lanes and the largest interval row K4b
+    returned are printed beside 2^31. Returns K4b's launches in that
+    call."""
     import numpy as np
     from lariat_tpu_torch.align.engine import encode_read
     from lariat_tpu_torch.index import native_ops
@@ -1545,17 +1582,42 @@ def _fallback_collect(fm, fmd, g, qs, opt) -> int:
     want = native_ops.collect_seeds_rbegs_batch(fm, reads, opt)
     if want is None:
         raise RuntimeError("native seeding unavailable")
+    calls = []
+    k4b = sd.min_starts_kernel
+
+    def logged(*a, **kw):
+        out = k4b(*a, **kw)
+        calls.append((a, out))
+        return out
+
     _build.reset_launches()
-    got = sd.collect_seeds_rbegs_device(fmd, g, fm, reads, opt)
+    sd.min_starts_kernel = logged
+    try:
+        got = sd.collect_seeds_rbegs_device(fmd, g, fm, reads, opt)
+    finally:
+        sd.min_starts_kernel = k4b
     n = _build.launches()["smem_exhaustive"]
     if g.sa_samples is not None:
         raise AssertionError("the seeding path uploaded the SA samples")
     _same_seeds(got, want, len(reads), "fallback collect")
+    err, lanes, top = 0, 0, 0
+    for a, out in calls:
+        err = max([err] + [_max_abs_err(x, y) for x, y in zip(
+            out, sd.min_starts_kernel_plain(*a))])
+        lanes += int(out[0].shape[0])
+        ok = out[4]
+        if bool(ok.any()):
+            top = max(top, int((out[1][ok] + out[3][ok]).max()))
+    if err:
+        raise AssertionError(f"fallback collect: K4b differs from its twin "
+                             f"(max abs err {err})")
     n_mems = sum(len(m) for m in got[0])
     print(f"  fallback collect: {len(reads)} reads ({len(LOW_COMPLEXITY)} "
           f"low-complexity), {n_mems} seeds, "
           f"{sum(len(r) for r in got[1])} rbegs, equal to native; K4b "
-          f"launched {n} times")
+          f"launched {n} times over {lanes} lanes, exact against its twin "
+          f"on them; largest row of its intervals {top:,} (2^31 = "
+          f"{1 << 31:,}; {fmd.idx_dtype})")
     return n
 
 
@@ -2192,13 +2254,13 @@ def phase_tools(fasta, reads, env, logs):
 
 
 def _port_run(fasta, reads, out, log, env, extra=(), info=None,
-              timeout=900):
-    """One port CLI run: (pairs, pairs/s, primed, host pairs, the run's
-    kernel launch counts); ``info``, when given, gets its busy fraction,
-    index load s, device path line (``path_log``), wall s, peak RSS
-    (``rss_gib``) and stdout."""
+              timeout=900, mode="on"):
+    """One port CLI run (``-use_device mode``): (pairs, pairs/s, primed,
+    host pairs, the run's kernel launch counts); ``info``, when given, gets
+    its busy fraction, index load s, device path line (``path_log``), wall
+    s, peak RSS (``rss_gib``) and stdout."""
     peak = {} if info is not None else None
-    stdout, wall = _cli("lariat_tpu_torch.cli", "on", fasta, reads,
+    stdout, wall = _cli("lariat_tpu_torch.cli", mode, fasta, reads,
                         os.path.join(SMOKE, out), THREADS, log, env, extra,
                         timeout, peak)
     n, rate = _summary(stdout)
@@ -2244,15 +2306,22 @@ def _index_load_s(stdout) -> float:
     return float(m.group(1))
 
 
+_SERVER_SETUP = re.compile(r"\[device_server\] set-up: imports ([\d.]+)s, "
+                           r"load ([\d.]+)s .*upload ([\d.]+)s")
+
+
 def _server_run(fasta, reads, env, logs, out="out_port_server", extra=(),
-                info=None, timeout=900):
-    """The port's CLI through a resident server on the card: the server
-    starts as a subprocess, builds, uploads and prewarms, and writes its
-    ready file; the CLI primes through it (LARIAT_DEVICE_SOCKET) and never
-    initialises CUDA; then ``stop``, and the server must exit 0 with its
-    kernel launches in its log. Returns _port_run's tuple, the launches
-    being the server's; ``info`` as _port_run's, its device path the
-    server's."""
+                info=None, timeout=900, mode="on", ready_timeout=300):
+    """The port's CLI (``-use_device mode``) through a resident server on
+    the card: the server starts as a subprocess, loads, uploads and
+    prewarms, and writes its ready file within ``ready_timeout`` s; the CLI
+    primes through it (LARIAT_DEVICE_SOCKET) and never initialises CUDA;
+    then ``stop``, and the server must exit 0 with its kernel launches in
+    its log. Returns _port_run's tuple, the launches being the server's;
+    ``info`` as _port_run's, its device path the server's, plus the
+    server's peak RSS (``server_rss_gib``, through ``_PEAK_WRAP``) and its
+    set-up (``server_setup``: ready, imports, load, upload and prewarm
+    s)."""
     from lariat_tpu_torch.parallel.device_server import stop_server
     sock = os.path.join(SMOKE, "srv.sock")
     ready = os.path.join(SMOKE, "srv.ready")
@@ -2261,22 +2330,24 @@ def _server_run(fasta, reads, env, logs, out="out_port_server", extra=(),
             os.remove(f)
     log_path = os.path.join(logs, "server.log" if out == "out_port_server"
                             else f"{out[4:]}_server.log")
+    wrap = [sys.executable, "-c", _PEAK_WRAP] if info is not None else []
     t0 = time.time()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "lariat_tpu_torch.parallel.device_server",
-             "-genome", fasta, "-socket", sock, "-ready_file", ready,
-             "-idle_timeout", "600"], cwd=REPO, env=env, stdout=log,
-            stderr=subprocess.STDOUT)
+            [*wrap, sys.executable, "-m",
+             "lariat_tpu_torch.parallel.device_server", "-genome", fasta,
+             "-socket", sock, "-ready_file", ready, "-idle_timeout", "600"],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True)
     try:
         while not os.path.exists(ready):
-            if proc.poll() is not None or time.time() - t0 > 300:
+            if proc.poll() is not None or time.time() - t0 > ready_timeout:
                 raise RuntimeError(f"the server never became ready "
                                    f"(exit {proc.poll()})")
             time.sleep(0.2)
         ready_s = time.time() - t0
         peak = {} if info is not None else None
-        stdout, wall = _cli("lariat_tpu_torch.cli", "on", fasta, reads,
+        stdout, wall = _cli("lariat_tpu_torch.cli", mode, fasta, reads,
                             os.path.join(SMOKE, out), THREADS,
                             os.path.join(logs, f"{out[4:]}.log"),
                             {**env, "LARIAT_DEVICE_SOCKET": sock}, extra,
@@ -2285,7 +2356,7 @@ def _server_run(fasta, reads, env, logs, out="out_port_server", extra=(),
         rc = proc.wait(timeout=120)
     finally:
         if proc.poll() is None:
-            proc.kill()
+            os.killpg(proc.pid, 9)    # the wrapper and the server
             proc.wait()
     if rc != 0:
         raise AssertionError(f"the server exited {rc}")
@@ -2305,17 +2376,29 @@ def _server_run(fasta, reads, env, logs, out="out_port_server", extra=(),
     launches = json.loads(lm.group(1))
     launches["entries"] = json.loads(em.group(1))
     launches["walks"] = []
+    sm = _SERVER_SETUP.search(slog)
+    if not sm:
+        raise AssertionError("no load and upload line in the server's log")
+    setup = {"ready_s": round(ready_s, 3), "imports_s": float(sm.group(1)),
+             "load_s": float(sm.group(2)), "upload_s": float(sm.group(3)),
+             "prewarm_s": float(pm.group(1))}
     if info is not None:
         pm2 = re.search(r"device path: (\{.*\})", slog)
-        if not pm2:
-            raise AssertionError("no device path line in the server's log")
+        rss = re.search(r"peak rss KiB (\d+)\s*$", slog)
+        if not (pm2 and rss):
+            raise AssertionError("no device path or peak RSS line in the "
+                                 "server's log")
         info.update(busy=None, load_s=_index_load_s(stdout),
                     path=json.loads(pm2.group(1)), wall=wall, stdout=stdout,
-                    **peak)
+                    server_rss_gib=int(rss.group(1)) / 2**20,
+                    server_setup=setup, **peak)
     print(f"  {out}: {n} pairs, {rate} pairs/s ({wall:.1f}s wall "
-          f"with index load); server ready after {ready_s:.1f}s (prewarm "
-          f"{pm.group(1)}s of it); primed {m.group(1)}, host {m.group(2)}; "
-          f"the CLI never initialised CUDA")
+          f"with index load); server ready after {ready_s:.1f}s (imports "
+          f"{setup['imports_s']}s, load {setup['load_s']}s, upload "
+          f"{setup['upload_s']}s, prewarm {setup['prewarm_s']}s; the rest "
+          f"the interpreter's start and the listen); primed {m.group(1)}, "
+          f"host "
+          f"{m.group(2)}; the CLI never initialised CUDA")
     print(f"  kernel launches in the server: "
           f"{json.dumps({k: v for k, v in launches.items() if k != 'walks'})}")
     return n, rate, int(m.group(1)), int(m.group(2)), launches
@@ -2787,7 +2870,9 @@ def phase_hg38(db, env, logs, chr20=None):
     prints why and returns None. Else: the index loaded as the CLI loads it
     (its seconds); the seeding index built and uploaded (int64, asserted);
     collect_seeds_rbegs_device on SEED_READS reads equal to the native C++
-    seeder's; K4a (round 1), K4c and K5 (the lookup's 65,536 rows) against
+    seeder's, and on FALLBACK_READS of them with the low-complexity reads
+    (``_fallback_collect``: K4b on the real index, exact against its twin);
+    K4a (round 1), K4c and K5 (the lookup's 65,536 rows) against
     their twins and timed beside phase 5's ``chr20`` figures, K5's longest
     walk; K1's descriptor entry on an int64 wave; host-native (-use_device
     off, -centromeres), then the port with every pair primed, once with
@@ -2859,6 +2944,11 @@ def phase_hg38(db, env, logs, chr20=None):
           f"{sum(len(r) for r in got[1])} rbegs, equal to native; K4a "
           f"{n['smem_twoptr']}, K4c {n['smem_strategy1']}, K5 "
           f"{n['sa_walk']} launches")
+    # K4b on the real index: phase 5's low-complexity reads blow K4a's
+    # step cap here too
+    k4b_launches = _fallback_collect(fm, fmd, g, qs[:FALLBACK_READS], opt)
+    if k4b_launches <= 0:
+        raise AssertionError("hg38 fallback collect launched no K4b")
     # K4a (round 1), K4c and K5 at the collect's shapes against their twins
     R, L = rmat.shape
 
@@ -2934,7 +3024,8 @@ def phase_hg38(db, env, logs, chr20=None):
     res = {"l_pac": fm.l_pac, "load_s": load_s,
            "host_native": {"pairs_s": rate_host,
                            "load_s": _index_load_s(host_out)},
-           "ms": ms, "k5_longest_walk": longest, "k1_desc_wave": k1}
+           "ms": ms, "k5_longest_walk": longest, "k1_desc_wave": k1,
+           "k4b_collect_launches": k4b_launches}
     for out, (n_port, rate, primed, host_pairs, launches, info) in \
             runs.items():
         res[out] = {"pairs_s": rate, "primed": primed,
@@ -3060,12 +3151,15 @@ _DORMANT = re.compile(r"device priming dormant \(measured (\d+) pairs/s\) "
 _SIMULATED = re.compile(r"^simulated: .*$", re.M)
 
 
-def _c20_figures(n, rate, primed, host_pairs, launches, info, what):
-    """One chr20 x 1M run's printed figures (and a dict of them)."""
+def _run_figures(n, rate, primed, host_pairs, launches, info, what):
+    """One long CLI run's printed figures (phases 20 and 21; and a dict of
+    them); a server run's add the server's peak RSS and set-up."""
     path = info["path"]
     dm = _DORMANT.search(info["stdout"])
     sim = _SIMULATED.search(info["stdout"])
     peak = path["cuda_peak_bytes"]
+    srv = {k: info[k] for k in ("server_rss_gib", "server_setup")
+           if k in info}
     fig = {"pairs": n, "pairs_s": rate, "primed": primed,
            "host_routed": host_pairs,
            "dormant": dm and {"after_s": float(dm.group(2)),
@@ -3079,15 +3173,22 @@ def _c20_figures(n, rate, primed, host_pairs, launches, info, what):
            "rescue_tasks": path["rescue_tasks"],
            "seed_batches": [path["seed_host_batches"],
                             path["seed_device_batches"]],
-           "simulated": sim and sim.group(0)}
+           "host_batches_before_device": path["host_batches_before_device"],
+           "seed_upload_s": path["seed_upload_s"],
+           "simulated": sim and sim.group(0), **srv}
     print(f"  {what}: {n} pairs, {rate} pairs/s, {info['wall']:.1f} s wall; "
           f"primed {primed}, host-routed {host_pairs}; dormant: "
           f"{json.dumps(fig['dormant'])}; largest primed batch "
-          f"{fig['largest_batch_pairs']} pairs; kernels [launches, largest "
-          f"launch]: {json.dumps(fig['kernels'])}; card peak "
-          f"{fig['cuda_peak_gib']} GiB allocated in the priming process; "
-          f"CLI peak RSS {fig['cli_peak_rss_gib']} GiB; "
-          f"{fig['simulated'] or 'no simulated line'}")
+          f"{fig['largest_batch_pairs']} pairs; batches seeded [host, "
+          f"device] {fig['seed_batches']}, host-seeded before the first "
+          f"device-seeded {fig['host_batches_before_device']}, upload "
+          f"{fig['seed_upload_s']} s; kernels [launches, largest launch]: "
+          f"{json.dumps(fig['kernels'])}; card peak {fig['cuda_peak_gib']} "
+          f"GiB allocated in the priming process; CLI peak RSS "
+          f"{fig['cli_peak_rss_gib']} GiB; "
+          + (f"server peak RSS {srv['server_rss_gib']:.3f} GiB, set-up "
+             f"{json.dumps(srv['server_setup'])}; " if srv else "")
+          + f"{fig['simulated'] or 'no simulated line'}")
     return fig
 
 
@@ -3152,7 +3253,7 @@ def phase_chr20(db, env, logs):
                 run = _port_run(fa, reads, out,
                                 os.path.join(logs, f"{out[4:]}.log"),
                                 {**env, **flag}, sim, info, CHR20_TIMEOUT)
-            res[out] = fig = _c20_figures(*run, info, what)
+            res[out] = fig = _run_figures(*run, info, what)
             if not (fig["pairs"] == CHR20_PAIRS
                     and fig["primed"] + fig["host_routed"] == CHR20_PAIRS):
                 fails.append(f"{out}: {fig['pairs']} pairs, "
@@ -3183,14 +3284,125 @@ def phase_chr20(db, env, logs):
     return res
 
 
+def phase_hg38_200k(db, env, logs):
+    """Phase 21, the CLI's device modes at hg38 x 200k, on ``db``'s
+    hg38sim.fa, its .lariat.d, centromeres and sim200k.fastq.gz (``python
+    -m lariat_tpu_torch.tools.gen_data_big DIR --hg38`` builds them; this
+    script never does): without them it prints why and returns None. Else
+    five CLI runs of 200,000 pairs, 8 workers, -centromeres, -simulated,
+    LARIAT_DEVICE_SEED unset (auto seeding): a. host-native; b. the router's
+    defaults (-use_device auto, the CLI's own engine); c. b without
+    dormancy (LARIAT_PRIME_MIN_FRAC=0); d. through the resident server on
+    the same genome (the reference bench's hg38_device_8w); e. d without
+    dormancy. Each prints _run_figures' line (d and e with the server's
+    set-up split and peak RSS) and its K4b launches. Checks (every run is
+    made before a failure is raised): 200,000 pairs a run, primed plus
+    host-routed all of them, records and whole files equal to
+    host-native's; c seeds a batch or more on the device, with K4a, K4c and
+    K5 launched; no batch host-seeded in the server (d, e); e primes pairs,
+    and its server launches K1 (every launch through its descriptor
+    entry), K2, K2b, K4a, K4c and K5, and K3 wherever a mate was rescued.
+    Returns the phase's figures."""
+    missing = [n for n in HG38_200K_INPUTS
+               if not os.path.exists(os.path.join(db, n))]
+    if missing:
+        print(f"  hg38 x 200k phase not run: {', '.join(missing)} absent "
+              f"from {db} (python -m lariat_tpu_torch.tools.gen_data_big "
+              f"DIR --hg38 builds them, in about 40 min; this script "
+              f"never does)")
+        return None
+    os.makedirs(SMOKE, exist_ok=True)
+    fa, _, cen, reads = (os.path.join(db, n) for n in HG38_200K_INPUTS)
+    extra = ("-centromeres", cen, "-simulated")
+    env = {k: v for k, v in env.items() if k != "LARIAT_DEVICE_SEED"}
+    peak = {}
+    host_out, host_s = _cli("lariat_tpu_torch.cli", "off", fa, reads,
+                            os.path.join(SMOKE, "out_h200_host"), THREADS,
+                            os.path.join(logs, "h200_host.log"), env, extra,
+                            HG38_200K_TIMEOUT, peak)
+    n_host, rate_host = _summary(host_out)
+    host_sim = _SIMULATED.search(host_out)
+    res = {"host_native": {"pairs": n_host, "pairs_s": rate_host,
+                           "wall_s": round(host_s, 1),
+                           "load_s": _index_load_s(host_out),
+                           "cli_peak_rss_gib": round(peak["rss_gib"], 3),
+                           "simulated": host_sim and host_sim.group(0)}}
+    print(f"  a. host-native: {n_host} pairs, {rate_host} pairs/s, "
+          f"{host_s:.1f} s wall (index load {res['host_native']['load_s']} "
+          f"s); CLI peak RSS {peak['rss_gib']:.3f} GiB; "
+          f"{res['host_native']['simulated']}")
+    fails = ([] if n_host == HG38_200K_PAIRS
+             else [f"host-native: {n_host} pairs"])
+    no_dorm = {"LARIAT_PRIME_MIN_FRAC": "0"}
+    for what, out, server, flag in (
+            ("b. router defaults", "out_h200_default", False, {}),
+            ("c. no dormancy", "out_h200_nodorm", False, no_dorm),
+            ("d. server, defaults", "out_h200_server", True, {}),
+            ("e. server, no dormancy", "out_h200_server_nodorm", True,
+             no_dorm)):
+        info = {}
+        try:
+            if server:
+                run = _server_run(fa, reads, {**env, **flag}, logs, out,
+                                  extra, info, HG38_200K_TIMEOUT, "auto",
+                                  HG38_READY_S)
+            else:
+                run = _port_run(fa, reads, out,
+                                os.path.join(logs, f"{out[4:]}.log"),
+                                {**env, **flag}, extra, info,
+                                HG38_200K_TIMEOUT, "auto")
+            res[out] = fig = _run_figures(*run, info, what)
+            print(f"  {what}: K4b launches "
+                  f"{run[4].get('smem_exhaustive', 0)}")
+            if not (fig["pairs"] == HG38_200K_PAIRS and fig["primed"]
+                    + fig["host_routed"] == HG38_200K_PAIRS):
+                fails.append(f"{out}: {fig['pairs']} pairs, "
+                             f"{fig['primed']} primed, "
+                             f"{fig['host_routed']} host-routed")
+            if server and fig["seed_batches"][0]:
+                fails.append(f"{out}: {fig['seed_batches'][0]} batches "
+                             f"host-seeded in the server")
+            if server:
+                desc = run[4]["entries"]["lariat_sw_extend_desc"]
+                if desc != run[4]["sw_extend"]:
+                    fails.append(f"{out}: {desc} of {run[4]['sw_extend']} "
+                                 f"K1 launches through the descriptor entry")
+            _same_records(out, "out_h200_host")
+            phase_whole_bam([out], "out_h200_host")
+        except Exception as e:  # noqa: BLE001 -- raised after every run
+            print(f"  {what} FAILED: {e}")
+            fails.append(f"{out}: {e}")
+        shutil.rmtree(os.path.join(SMOKE, out), ignore_errors=True)
+    shutil.rmtree(os.path.join(SMOKE, "out_h200_host"), ignore_errors=True)
+    print(f"  hg38 x 200k figures: {json.dumps(res)}")
+    c = res.get("out_h200_nodorm")
+    if c:
+        idle = [k for k in SEED_KERNELS if k not in c["kernels"]]
+        if c["seed_batches"][1] <= 0 or idle:
+            fails.append(f"out_h200_nodorm: {c['seed_batches'][1]} batches "
+                         f"seeded on the device; no launch of {idle}")
+    e = res.get("out_h200_server_nodorm")
+    if e:
+        need = ["sw_extend", "sw_global", "traceback", *SEED_KERNELS]
+        if e["rescue_tasks"]:
+            need.append("sw_local")
+        idle = [k for k in need if k not in e["kernels"]]
+        if e["primed"] <= 0 or idle:
+            fails.append(f"out_h200_server_nodorm: {e['primed']} primed; "
+                         f"no launch of {idle} in the server")
+    if fails:
+        raise AssertionError("hg38 x 200k: " + "; ".join(fails))
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--logs", default=SMOKE,
                    help="directory for the CLI runs' and the tools' logs")
     p.add_argument("--hg38-data", default=HG38_DIR,
-                   help="phase 18's inputs (default data_big/; "
-                        "tools/gen_data_big.py --cut builds a smaller "
-                        "genome under the same names)")
+                   help="phases 18 and 21's inputs (default data_big/; "
+                        "tools/gen_data_big.py --hg38 builds only them, "
+                        "--cut a smaller genome under the same names)")
     p.add_argument("--chr20-data", default=HG38_DIR,
                    help="phase 20's inputs (default data_big/; "
                         "tools/gen_data_big.py --chr20 builds only them)")
@@ -3337,6 +3549,8 @@ def main(argv=None) -> int:
         messy = phase_messy(fasta, env, args.logs)
     with Phase("chr20 x 1M pairs"):
         c20 = phase_chr20(args.chr20_data, env, args.logs)
+    with Phase("hg38 x 200k, the CLI's device modes"):
+        h200 = phase_hg38_200k(args.hg38_data, env, args.logs)
     desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
     extra = {"smem_twoptr": {"seed_trace": kres.pop("seed_trace")},
              "sw_extend": {"desc_launches": desc,
@@ -3358,13 +3572,15 @@ def main(argv=None) -> int:
     for k in SEED_KERNELS:
         extra.setdefault(k, {})["auto_upload_launches"] = auto[k]
     # phase 18's launches (its two all-primed CLI runs: auto seeding and
-    # device seeding forced) and ms, or null
+    # device seeding forced) and ms, or null; K4b's in its collect
     for k in SEED_KERNELS + ("sw_extend",):
         extra[k]["hg38"] = hg and {
             "launches": {"auto": hg["out_hg38_port"]["launches"][k],
                          "device_seed": hg["out_hg38_port_seed"]["launches"][
                              k]},
             "ms": hg["ms"][k]}
+    extra.setdefault("smem_exhaustive", {})["hg38"] = hg and {
+        "collect_launches": hg["k4b_collect_launches"]}
     # phase 19's runs and phase 20's ([launches, largest launch] a run, or
     # null)
     for name in KERNEL_INFO:
@@ -3373,6 +3589,9 @@ def main(argv=None) -> int:
             if out.startswith("out_")}
         extra[name]["chr20_1m"] = c20 and {
             out: v["kernels"].get(name) for out, v in c20.items()
+            if out.startswith("out_")}
+        extra[name]["hg38_200k"] = h200 and {
+            out: v["kernels"].get(name) for out, v in h200.items()
             if out.startswith("out_")}
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():

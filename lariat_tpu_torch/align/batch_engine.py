@@ -192,6 +192,9 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
     # seeding is FM-cache-miss-bound at gigabase scale; small genomes keep
     # the (very fast there) host seeder
     DEVICE_SEED_AUTO_MIN_LPAC = 1_000_000_000
+    # device types on which auto mode seeds there (the reference's: a real
+    # accelerator, never the CPU)
+    DEVICE_SEED_AUTO_TYPES = ("cuda",)
 
     # reg2aln tasks per session: every chunk's wave is dispatched before any
     # is downloaded
@@ -329,6 +332,16 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         with self._stats_lock:
             self.largest_batch = max(self.largest_batch, pairs)
 
+    def reset_path_log(self) -> None:
+        """Start ``path_log``'s and ``wave_stats``' counts afresh (a server
+        after its prewarm); the upload's seconds stay."""
+        with self._stats_lock:
+            self.wave_stats = {"wall": 0.0, "n": 0}
+            self.seed_batches = {"host": 0, "device": 0,
+                                 "host_before_device": None}
+            self.rescue_tasks = 0
+            self.largest_batch = 0
+
     def _note_seeder(self, device: bool) -> None:
         with self._stats_lock:
             sb = self.seed_batches
@@ -366,7 +379,7 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         flag = os.environ.get("LARIAT_DEVICE_SEED")
         if flag:
             return flag != "0"
-        return (self.device.type == "cuda"
+        return (self.device.type in self.DEVICE_SEED_AUTO_TYPES
                 and self.fm.l_pac >= self.DEVICE_SEED_AUTO_MIN_LPAC)
 
     def _device_seed(self, nonempty):

@@ -212,6 +212,7 @@ def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
 
     futs = deque()       # (future, tagged batch), in submission order
     abandoned = []       # futures left running past the tail grace
+    queued = set()       # futures submitted while every thread was busy
     dorm = {"first_submit": None, "off": False}
 
     def busy() -> int:
@@ -249,7 +250,14 @@ def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
     def submit(tagged):
         if dorm["first_submit"] is None:
             dorm["first_submit"] = time.time()
-        futs.append((ex.submit(prime, tagged), tagged))
+        # a batch submitted with fewer passes in flight than the pool has
+        # threads has a thread of its own, idle or about to be: it starts
+        # whatever the scheduler does, and is never cancelled
+        behind = busy() >= ex._max_workers
+        f = ex.submit(prime, tagged)
+        if behind:
+            queued.add(f)
+        futs.append((f, tagged))
 
     def drain(block: bool):
         while futs and (block or futs[0][0].done()):
@@ -299,16 +307,14 @@ def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
                 yield from host(buf)
             else:
                 submit(buf)
-        # a batch just handed to a free thread gets a moment to start: only
-        # batches still queued behind busy threads are cancelled (the
-        # reference cancels whatever its threads have not picked up yet,
-        # the remainder submitted a line above included)
-        if any(not (f.running() or f.done()) for f, _ in futs):
-            time.sleep(0.05)
+        # only batches queued behind busy threads are cancelled; one handed
+        # to a free thread runs (the reference cancels whatever its threads
+        # have not picked up yet, the remainder submitted a line above
+        # included)
         keep = deque()
         while futs:
             f, tagged = futs.popleft()
-            if f.cancel():
+            if f in queued and f.cancel():
                 yield from host(tagged)
             else:
                 keep.append((f, tagged))

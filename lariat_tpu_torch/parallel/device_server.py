@@ -17,10 +17,12 @@ the server listens on the genome's default socket). The server builds
 seeding index when the seeding policy turns it on), primes one synthetic
 batch of ``LARIAT_PRIME_BATCH`` pairs (``_prewarm``; skipped with
 ``LARIAT_SERVER_NO_PREWARM=1``), and only then listens and writes the ready
-file. It primes on two worker threads, as the CLI's two priming threads
-do, and at its end prints the kernel launches made since it became ready
-and its device path (``path_log``: the largest batch and launches, the peak
-device memory since then).
+file; its log gives the seconds of its imports, the load, the upload and
+the prewarm. It primes on two worker threads, as the CLI's two priming
+threads do, and at its end prints the kernel launches made since it
+became ready and its device path (``path_log`` since then: the batches
+each seeder served, the largest batch and launches, the peak device
+memory).
 
 Protocol: length-prefixed pickles. Requests:
   ("prime", recs, score_delta) -> ("ok", primes, wave_stats_delta)
@@ -125,6 +127,7 @@ def serve(genome: str, socket_path: Optional[str] = None,
     """Run the priming server until a stop request or ``idle_timeout_s``
     without one. Any set-up error (the kernel build, an upload, the
     prewarm) raises before the server listens."""
+    t_imports = time.time()
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -135,25 +138,31 @@ def serve(genome: str, socket_path: Optional[str] = None,
     from ..ops import _build
 
     path = socket_path or default_socket_path(genome)
+    t0 = time.time()
     fm = load_reference(genome)
     engine = TorchBatchAlignmentEngine(fm)       # builds the kernels
     dev = engine.device
+    t1 = time.time()
     engine._pac_resident()
-    if engine.device_seeding():
+    seeding = engine.device_seeding()
+    if seeding:
         engine._seed_index()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    print(f"[device_server] set-up: imports {t0 - t_imports:.3f}s, load "
+          f"{t1 - t0:.3f}s (index, kernels), upload {time.time() - t1:.3f}s "
+          f"(pac{', seeding index' if seeding else ''}), l_pac {fm.l_pac}",
+          flush=True)
     if os.environ.get("LARIAT_SERVER_NO_PREWARM") != "1":
         t0 = time.time()
         _prewarm(engine, fm)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         print(f"[device_server] prewarm {time.time() - t0:.3f}s", flush=True)
-    # the launches, the largest batch and the peak memory printed at the
-    # end are the clients'
+    # the launches, the batches, the largest batch and the peak memory
+    # printed at the end are the clients'
     _build.reset_launches()
-    engine.wave_stats = {"wall": 0.0, "n": 0}
-    engine.largest_batch = 0
+    engine.reset_path_log()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 

@@ -29,6 +29,13 @@ reads: ``chr20sim.fa`` (64,228,320 bp), its index and
 ``sim1m_chr20.fastq.gz`` (10,000 barcodes x 100 pairs), at the reference's
 sizes and seeds.
 
+    python -m lariat_tpu_torch.tools.gen_data_big DIR --hg38 [--cut SCALE]
+
+builds only the hg38 step: ``hg38sim.fa`` (3.09 Gbp, or ``--cut``'s
+scale), its centromeres, its index and the 200k, 50k and 10k read sets
+(4,000, 1,000 and 200 barcodes x 50 pairs), what ``chip_smoke.py``'s hg38
+phases read; nothing of chr20.
+
 Every output is written under a ``.part`` name and renamed into place when
 complete, so an output that exists is whole; each step runs only when its
 output is missing. One generator at a time: ``DIR/.gen.lock`` is held with
@@ -57,6 +64,9 @@ DEFAULT_DIR = os.path.join(REPO, "data_big")
 # the chr20 step: the genome's scale and seed, barcodes x pairs a barcode
 CHR20_SCALE = 0.0208
 CHR20_READS = (10000, 100)
+# the hg38 step's read sets: (file, barcodes, pairs a barcode)
+HG38_READS = (("sim200k.fastq.gz", 4000, 50), ("sim50k.fastq.gz", 1000, 50),
+              ("sim10k.fastq.gz", 200, 50))
 
 
 def run(args: list) -> None:
@@ -98,20 +108,23 @@ def _reads(fa: str, out: str, barcodes: int, pairs_per_bc: int) -> None:
 
 def generate(db: str, cut: float = 0.0, chr20: bool = False,
              chr20_scale: float = CHR20_SCALE,
-             chr20_reads: tuple = CHR20_READS) -> None:
+             chr20_reads: tuple = CHR20_READS, hg38: bool = False,
+             hg38_reads: tuple = HG38_READS) -> None:
     """Every missing output of ``db``, in the reference's order; with
-    ``cut``, only the hg38 step's genome (at that scale), its index and
-    the 10k read set; with ``chr20``, only the chr20 step, its genome at
-    ``chr20_scale`` and ``chr20_reads`` (barcodes, pairs a barcode): the
-    reference's sizes unless a test shrinks them."""
+    ``chr20``, only the chr20 step, its genome at ``chr20_scale`` and
+    ``chr20_reads`` (barcodes, pairs a barcode); with ``hg38``, only the
+    hg38 step, its genome at ``cut`` when given and ``hg38_reads``; with
+    ``cut`` alone, only the hg38 step's genome at that scale, its index
+    and the 10k read set. The sizes are the reference's unless a test
+    shrinks them."""
     os.makedirs(db, exist_ok=True)
     # --- chr20 scale (~64 Mbp) + 1M pairs ---
     c20 = os.path.join(db, "chr20sim.fa")
-    if not cut and not os.path.isdir(c20 + ".lariat.d"):
+    if not (cut or hg38) and not os.path.isdir(c20 + ".lariat.d"):
         run(["tools/synth_genome.py", c20, "--scale", str(chr20_scale),
              "--seed", "7"])
         build(c20)
-    if not cut:
+    if not (cut or hg38):
         _reads(c20, os.path.join(db, "sim1m_chr20.fastq.gz"), *chr20_reads)
     if chr20:
         print("chr20 step complete", flush=True)
@@ -123,10 +136,8 @@ def generate(db: str, cut: float = 0.0, chr20: bool = False,
              "--seed", "7", "--centromeres",
              os.path.join(db, "hg38sim.centromeres.tsv")])
         build(hg)
-    for name, bcs, ppb in (("sim200k.fastq.gz", 4000, 50),
-                           ("sim50k.fastq.gz", 1000, 50),
-                           ("sim10k.fastq.gz", 200, 50)):
-        if not cut or name == "sim10k.fastq.gz":
+    for name, bcs, ppb in hg38_reads:
+        if hg38 or not cut or name == "sim10k.fastq.gz":
             _reads(hg, os.path.join(db, name), bcs, ppb)
     print("data_big complete", flush=True)
 
@@ -137,14 +148,18 @@ def main(argv=None) -> int:
                    help="output directory (default: data_big/ at the "
                         "repository root)")
     p.add_argument("--cut", type=float, default=0.0, metavar="SCALE",
-                   help="only the hg38 step's genome, at this scale, its "
-                        "index and the 10k read set")
+                   help="the hg38 step's genome at this scale; alone, only "
+                        "that genome, its index and the 10k read set")
     p.add_argument("--chr20", action="store_true",
                    help="only the chr20 step: its genome, index and 1M "
                         "pairs")
+    p.add_argument("--hg38", action="store_true",
+                   help="only the hg38 step: its genome, centromeres, index "
+                        "and the 200k, 50k and 10k read sets")
     args = p.parse_args(argv)
-    if args.chr20 and args.cut:
-        p.error("--chr20 and --cut build different steps: give one")
+    if args.chr20 and (args.cut or args.hg38):
+        p.error("--chr20 and --cut or --hg38 build different steps: give "
+                "one")
     db = os.path.abspath(args.dir)
     os.makedirs(db, exist_ok=True)
     with open(os.path.join(db, ".gen.lock"), "a") as lock:
@@ -154,7 +169,7 @@ def main(argv=None) -> int:
             print(f"another generator holds {db}/.gen.lock; waiting",
                   flush=True)
             fcntl.flock(lock, fcntl.LOCK_EX)
-        generate(db, args.cut, args.chr20)
+        generate(db, args.cut, args.chr20, hg38=args.hg38)
     return 0
 
 

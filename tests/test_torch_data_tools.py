@@ -146,6 +146,56 @@ def test_generator_chr20_builds_only_the_chr20_step(tmp_path, capsys):
     assert {n: os.stat(db / n).st_mtime_ns for n in names} == before
 
 
+def test_generator_hg38_builds_only_the_hg38_step(tmp_path, capsys):
+    """``--hg38`` with ``--cut``'s scale (here ``generate``'s arguments at a
+    tiny scale and read counts): the hg38 genome, its centromeres, its
+    index (its build line printed) and the 200k, 50k and 10k read sets'
+    files; nothing of chr20. Run again, it builds nothing."""
+    import gzip
+    db = tmp_path / "hg"
+    small = dict(cut=0.0005, hg38=True,
+                 hg38_reads=(("sim200k.fastq.gz", 6, 10),
+                             ("sim50k.fastq.gz", 3, 10),
+                             ("sim10k.fastq.gz", 2, 10)))
+    t_gen.generate(str(db), **small)
+    out = capsys.readouterr().out
+    assert BUILD_LINE.findall(out) == [str(db / "hg38sim.fa")]
+    assert re.findall(r"^(\w+)\.py: [0-9.]+ s$", out, re.M) == [
+        "synth_genome", "sim_reads", "sim_reads", "sim_reads"]
+    names = ["hg38sim.centromeres.tsv", "hg38sim.fa", "hg38sim.fa.lariat.d",
+             "sim10k.fastq.gz", "sim200k.fastq.gz", "sim50k.fastq.gz"]
+    assert sorted(p.name for p in db.iterdir()) == names
+    from lariat_tpu_torch.index.fmindex import FMIndex
+    assert 1_400_000 < FMIndex.load_dir(str(db / "hg38sim.fa")).l_pac \
+        < 1_700_000
+    for name, bcs, ppb in small["hg38_reads"]:
+        with gzip.open(db / name, "rt") as f:
+            assert sum(1 for _ in f) == 9 * bcs * ppb, name
+    before = {n: os.stat(db / n).st_mtime_ns for n in names}
+    t_gen.generate(str(db), **small)
+    out = capsys.readouterr().out
+    assert "+ " not in out and "build " not in out
+    assert out.strip() == "data_big complete"
+    assert {n: os.stat(db / n).st_mtime_ns for n in names} == before
+
+
+def test_generator_hg38_flag_reaches_generate(tmp_path, monkeypatch):
+    """``main``: ``--hg38`` (with and without ``--cut``) asks ``generate``
+    for the hg38 step alone, under the lock; ``--chr20`` with it is
+    refused."""
+    import pytest
+    got = []
+    monkeypatch.setattr(t_gen, "generate",
+                        lambda db, cut, chr20, hg38: got.append(
+                            (cut, chr20, hg38)))
+    assert t_gen.main([str(tmp_path / "a"), "--hg38"]) == 0
+    assert t_gen.main([str(tmp_path / "b"), "--hg38", "--cut", "0.36"]) == 0
+    assert got == [(0.0, False, True), (0.36, False, True)]
+    with pytest.raises(SystemExit):
+        t_gen.main([str(tmp_path / "c"), "--chr20", "--hg38"])
+    assert not (tmp_path / "c").exists()
+
+
 def test_generator_refuses_chr20_with_cut(tmp_path):
     import pytest
     with pytest.raises(SystemExit):

@@ -143,6 +143,53 @@ def test_cli_via_server_matches_host_and_jax_server(tmp_path):
     assert _records(tmp_path / "jax") == want
 
 
+def test_device_seeding_server_matches_host_and_jax_server(tmp_path):
+    """Servers whose environment has LARIAT_DEVICE_SEED=1 (the port's seeds
+    through the kernels' twins): every batch the port's server primed
+    seeded on the device, and the port's CLI through it writes the records
+    of lariat_tpu.cli's host run and of the JAX CLI through the JAX server
+    under the same setting."""
+    import json
+    import re
+    fasta, fq = _inputs(tmp_path)
+    _run_cli("lariat_tpu.cli", fq, fasta, tmp_path / "host")
+    proc, sock = _start("lariat_tpu_torch.parallel.device_server", fasta,
+                        tmp_path, "port", LARIAT_TORCH_DEVICE="cpu",
+                        LARIAT_DEVICE_SEED="1")
+    try:
+        # the all-primed knobs: a thread for each of the five batches, no
+        # dormancy (the twins seed slowly on the CPU)
+        log = _run_cli("lariat_tpu_torch.cli", fq, fasta, tmp_path / "port",
+                       LARIAT_DEVICE_SOCKET=sock,
+                       LARIAT_DEVICE_SERVER_CPU_OK="1",
+                       LARIAT_PRIME_BATCH="8", LARIAT_PRIME_THREADS="5",
+                       LARIAT_PRIME_MIN_FRAC="0")
+    finally:
+        srv_log = _stop(proc, sock)
+    assert "primed pairs 35  host pairs 0" in log, log
+    assert re.search(r"\[device_server\] set-up: imports [0-9.]+s, load "
+                     r"[0-9.]+s \(index, kernels\), upload [0-9.]+s \(pac, "
+                     r"seeding index\)", srv_log)
+    path = json.loads(re.search(r"\[device_server\] device path: (\{.*\})",
+                                srv_log).group(1))
+    # the clients' batches only (the prewarm's are not counted): all five
+    # seeded on the device
+    assert (path["seed_host_batches"], path["seed_device_batches"]) == (0, 5)
+    jproc, jsock = _start("lariat_tpu.parallel.device_server", fasta,
+                          tmp_path, "jax", LARIAT_SERVER_NO_PREWARM="1",
+                          LARIAT_DEVICE_SEED="1")
+    try:
+        _run_cli("lariat_tpu.cli", fq, fasta, tmp_path / "jax",
+                 LARIAT_DEVICE_SOCKET=jsock, LARIAT_DEVICE_SERVER_CPU_OK="1",
+                 LARIAT_PRIME_BATCH="8")
+    finally:
+        jproc.kill()
+        jproc.wait()
+    want = _records(tmp_path / "host")
+    assert want and _records(tmp_path / "port") == want
+    assert _records(tmp_path / "jax") == want
+
+
 def _pairs(fasta, n, seed=3):
     """n read pairs from the genome, 151 bases a mate."""
     fm = cli.load_reference(str(fasta))

@@ -22,21 +22,27 @@ from test_torch_cli import _inputs
 
 class _Engine:
     """A stand-in that primes at once, or (``hold``) waits for ``go`` and
-    raises PrimeAborted when ``abort_prime`` is set meanwhile; it logs the
-    pair count of every batch it is given."""
+    raises PrimeAborted when ``abort_prime`` is set meanwhile; ``batches``
+    is the pair count of every batch it was given, in the order the router
+    made them (the threads may start them in another)."""
 
     def __init__(self, hold=False, path=None):
         self.go = threading.Event()
         if not hold:
             self.go.set()
         self.abort_prime = False
-        self.batches = []
+        self._log = []
         self.done = threading.Event()
         if path:
             self.path = path
 
+    @property
+    def batches(self):
+        # a batch's first pair is "r<item>.0": items are numbered in order
+        return [n for _, n in sorted(self._log)]
+
     def prime_regions(self, recs, score_delta):
-        self.batches.append(len(recs))
+        self._log.append((int(recs[0][1:].split(".")[0]), len(recs)))
         while not self.go.wait(0.01):
             if self.abort_prime:
                 raise PrimeAborted()
@@ -168,6 +174,26 @@ def test_no_fixed_batch_without_a_server(monkeypatch):
     eng = _Engine()
     _run(_items([300] * 7), eng, 8)
     assert eng.batches == [1200, 900]    # 1024 until the rate is known
+
+
+class _LateThreads(cli.ThreadPoolExecutor):
+    """A pool whose threads are made 0.3 s after a submit asks for one, as
+    on a host too loaded to schedule a new thread at once."""
+
+    def _adjust_thread_count(self):
+        threading.Timer(0.3, super()._adjust_thread_count).start()
+
+
+def test_eof_never_cancels_a_batch_given_a_free_thread(monkeypatch):
+    """The end-of-input remainder goes to a free thread that starts late:
+    it is primed, not cancelled and host-routed, however long the thread
+    takes to pick it up."""
+    monkeypatch.setattr(cli, "ThreadPoolExecutor", _LateThreads)
+    monkeypatch.setenv("LARIAT_PRIME_TAIL_GRACE", "60")
+    eng = _Engine()
+    _, primed, stats = _run(_items([300] * 7), eng, 8)
+    assert eng.batches == [1200, 900]
+    assert len(primed) == 7 and stats["host_pairs"] == 0
 
 
 class _OneWorker(cli.ThreadPoolExecutor):
