@@ -5,7 +5,8 @@
     python3 chip_smoke.py --hg38-data DIR    # phase 18's inputs elsewhere
     python3 chip_smoke.py --chr20-data DIR   # phase 20's inputs elsewhere
 
-(--hg38-data DIR also holds phase 21's inputs.)
+(--hg38-data DIR also holds phase 21's inputs; phase 22 reads both, on a
+host with four cards.)
 
 Phases (one line each with its seconds, failures end the run nonzero):
   1. environment: the card (nvidia-smi name, power limit), torch, nvcc;
@@ -247,6 +248,33 @@ Phases (one line each with its seconds, failures end the run nonzero):
      device collect also takes phase 5's low-complexity reads on the hg38
      index, so K4b runs on a real index past 2^31 (seeds equal to native,
      K4b exact against its twin on the collect's lanes).
+ 22. four cards, one multihost process a card: only on a host with four
+     cards and with phase 20's or phase 21's inputs (else one line says
+     which is missing). Each input is cut into four barcode-complete
+     shards of whole barcodes in input order (250,000 pairs each at chr20,
+     50,000 at hg38); with C the host's CPUs and W = min(8, C // 4): a.
+     one host-native process of 4W workers over the whole input; b. four
+     `python -m lariat_tpu_torch.parallel.multihost` processes of W
+     workers (file:// rendezvous), -use_device off; c. the same on the
+     cards, process h with LARIAT_TORCH_DEVICE=cuda:h and the router
+     without dormancy (LARIAT_PRIME_MIN_FRAC=0); d. each through its own
+     resident server on cuda:h and its own socket, the router at its
+     defaults; -simulated (and -centromeres at hg38), auto seeding. Each
+     process's pairs/s and wall, primed and host-routed pairs, batches
+     each seeder served, card peak, peak RSS and -simulated line, each
+     mode's aggregate pairs/s (all pairs over the first start to the last
+     exit) and the host's MemAvailable before it printed; nvidia-smi's
+     compute apps sampled every 2 s. Checks, every mode run first: each
+     process exits 0 with its JSON line, the global stats equal in the
+     four, to their locals' sum and to a's; b's merge (cat_bams --auto)
+     holds a's records; each process's directory in c and d equals its
+     directory in b as records and as whole files; each card carries
+     exactly its process (the server in d, where no CLI holds a context),
+     none on two cards, by the path log's device and CUDA contexts and by
+     nvidia-smi (a host whose nvidia-smi lists no app of the run is said
+     so); K1, K2 and K2b launched on every card (K3 where a mate
+     was rescued; K4a, K4c and K5 in d at hg38) with a nonzero card peak.
+     A failed process gets the others' process groups killed.
 Then each kernel's loss on its path (launches x (ms - bound ms)), a
 kernels JSON line (each kernel's launches on its path, max abs
 error, ms, plain ms, bound ms and what sets it, and library_ms: null where
@@ -255,6 +283,7 @@ for K9 the stable argsort and gathers; K4a, K4c, K5 and K1 with an "hg38"
 entry, phase 18's launches and ms or null, K4b's its collect's launches;
 every kernel with "messy", "chr20_1m" and "hg38_200k" entries,
 [launches, largest launch] in each run of phases 19, 20 and 21 (b-e), or
+null, and a "four_cards" entry, phase 22's launches in c and d a card, or
 null) and, last,
 {"ok": true, "device": {...}}.
 """
@@ -263,12 +292,14 @@ from __future__ import annotations
 
 import argparse
 import glob
+import itertools
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -346,6 +377,13 @@ HG38_200K_INPUTS = ("hg38sim.fa", "hg38sim.fa.lariat.d",
 HG38_200K_PAIRS = 200_000
 HG38_200K_TIMEOUT = 1800    # s a CLI run may take
 HG38_READY_S = 900          # s the server may take to load, upload, prewarm
+# phase 22: one multihost process a card on a host with four cards, over
+# four barcode-complete shards of phase 20's and phase 21's reads
+FOUR = 4
+FOUR_SHARD_PAIRS = {"chr20_1m": 250_000, "hg38_200k": 50_000}
+FOUR_TIMEOUT = 1800         # s a mode's processes may take
+CARD = "cuda:{}"            # process h's LARIAT_TORCH_DEVICE
+SMI_EVERY_S = 2.0           # s between two samples of nvidia-smi's apps
 # reads whose two-pointer lanes outrun K4a's step cap on a genome of this
 # size (no exact copy of them in the synthetic genome)
 LOW_COMPLEXITY = [b"A" * 151, b"AT" * 75, b"ACG" * 50, b"AC" * 75,
@@ -406,6 +444,13 @@ def _run(cmd, timeout, log=None, env=None, peak=None):
     return stdout
 
 
+def _meminfo_gib(key: str) -> float:
+    """A /proc/meminfo field (MemTotal, MemAvailable ...) in GiB."""
+    with open("/proc/meminfo") as f:
+        mem = dict(line.split(":", 1) for line in f)
+    return int(mem[key].split()[0]) / 2**20
+
+
 def phase_environment():
     import torch
     if not torch.cuda.is_available():
@@ -422,11 +467,8 @@ def phase_environment():
     nv = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                         text=True, check=True, timeout=60).stdout
     print(nv.strip().splitlines()[-1])
-    with open("/proc/meminfo") as f:
-        mem = dict(line.split(":", 1) for line in f)
-    kib = {k: int(mem[k].split()[0]) for k in ("MemTotal", "MemAvailable")}
-    print(f"host RAM: {kib['MemTotal'] / 2**20:.1f} GiB total, "
-          f"{kib['MemAvailable'] / 2**20:.1f} GiB available; "
+    print(f"host RAM: {_meminfo_gib('MemTotal'):.1f} GiB total, "
+          f"{_meminfo_gib('MemAvailable'):.1f} GiB available; "
           f"{os.cpu_count()} CPUs")
     return smi
 
@@ -2598,30 +2640,77 @@ def phase_dryrun():
     return res
 
 
-def _fastq_shards(reads, n, out_dir):
-    """``reads`` cut into ``n`` barcode-complete gzip shards of whole
-    barcodes in input order (9-line records, the barcode on line 6):
-    [(path, pairs)]."""
+def _fastq_records(reads):
+    """(barcode, record text) of each 9-line record of a gzip FASTQ, in
+    input order, the barcode from line 6; streamed."""
     import gzip
     with gzip.open(reads, "rt") as f:
-        lines = f.read().splitlines(keepends=True)
-    recs = [lines[i:i + 9] for i in range(0, len(lines), 9)]
-    groups = []
-    for rec in recs:
-        bc = rec[5].split(",")[0]
-        if not groups or groups[-1][0] != bc:
-            groups.append((bc, []))
-        groups[-1][1].append("".join(rec))
-    per = -(-len(groups) // n)
-    out = []
-    for h in range(n):
-        part = groups[h * per:(h + 1) * per]
-        path = os.path.join(out_dir, f"shard{h}.fastq.gz")
-        with gzip.open(path, "wt", compresslevel=1) as f:
-            for _, rs in part:
-                f.writelines(rs)
-        out.append((path, sum(len(rs) for _, rs in part)))
+        while True:
+            rec = "".join(itertools.islice(f, 9))
+            if not rec:
+                return
+            yield rec.split("\n", 6)[5].split(",")[0], rec
+
+
+def _fastq_shards(reads, n, out_dir):
+    """``reads`` cut into ``n`` barcode-complete gzip shards of whole
+    barcodes in input order (a barcode group is a run of records with one
+    barcode): [(path, pairs)]. Two streamed passes, one counting the groups
+    and one writing them, so no more than a record is held at a time."""
+    import gzip
+    groups, last = 0, None
+    for bc, _ in _fastq_records(reads):
+        groups += bc != last
+        last = bc
+    per = -(-groups // n)
+    paths = [os.path.join(out_dir, f"shard{h}.fastq.gz") for h in range(n)]
+    pairs = [0] * n
+    files = [gzip.open(p, "wt", compresslevel=1) for p in paths]
+    try:
+        g, last = -1, None
+        for bc, rec in _fastq_records(reads):
+            g += bc != last
+            last = bc
+            files[g // per].write(rec)
+            pairs[g // per] += 1
+    finally:
+        for f in files:
+            f.close()
+    return list(zip(paths, pairs))
+
+
+def _split_records(path: str) -> list:
+    """The records of a BAM, each its bytes, in file order."""
+    body, _ = _bam_records(path)
+    out, off = [], 0
+    while off < len(body):
+        k = 4 + int.from_bytes(body[off:off + 4], "little")
+        out.append(body[off:off + k])
+        off += k
     return out
+
+
+def _merge_matches(dirs, ref, merged, env):
+    """The port's ``cat_bams --auto`` over the shard runs' output
+    directories ``dirs`` into ``merged``; its position-bucketed records
+    against those of the single run's directory ``ref`` as sorted lists,
+    and the barcode-sorted records of ``dirs``, shard by shard, against
+    ``ref``'s in order; raises on a difference. Returns the two record
+    counts."""
+    _run([sys.executable, "-m", "lariat_tpu_torch.tools.cat_bams", "-o",
+          merged, "--auto", *dirs], timeout=600, env=env)
+    got = sorted(_split_records(merged))
+    want = sorted(r for path in sorted(glob.glob(os.path.join(
+        ref, "*_pos_bucketed.bam"))) for r in _split_records(path))
+    if got != want:
+        raise AssertionError(f"merged records ({len(got)}) differ from "
+                             f"the single run's ({len(want)})")
+    bc = [r for d in dirs
+          for r in _split_records(os.path.join(d, "bc_sorted_bam.bam"))]
+    if bc != _split_records(os.path.join(ref, "bc_sorted_bam.bam")):
+        raise AssertionError("barcode-sorted records differ from the "
+                             "single run's")
+    return len(got), len(bc)
 
 
 # a [wtrace] line is one write, so another thread's print may end up on
@@ -2721,35 +2810,10 @@ def phase_multihost(fasta, reads, env, logs):
               f"{b} ms, dispatch {d} ms, download {dl} ms, up {up:.2f} MB, "
               f"down {dn:.2f} MB; the longest line {top} ms (each line "
               f"rounds to whole ms)")
-    # records: the merged position-bucketed BAMs against host-native's as
-    # sorted lists; the barcode-sorted BAMs, host by host, in order
-    merged = os.path.join(base, "merged.bam")
-    _run([sys.executable, "-m", "lariat_tpu_torch.tools.cat_bams", "-o",
-          merged, "--auto", *(r[0]["output_dir"] for r in results)],
-         timeout=300, env=env)
-    host = sorted(glob.glob(os.path.join(SMOKE, "out_host",
-                                         "*_pos_bucketed.bam")))
-
-    def records(path):
-        body, _ = _bam_records(path)
-        out, off = [], 0
-        while off < len(body):
-            k = 4 + int.from_bytes(body[off:off + 4], "little")
-            out.append(body[off:off + k])
-            off += k
-        return out
-
-    got = sorted(records(merged))
-    ref = sorted(r for path in host for r in records(path))
-    if got != ref:
-        raise AssertionError(f"multihost merged records ({len(got)}) differ "
-                             f"from host-native's ({len(ref)})")
-    bc = [r for res in results for r in records(
-        os.path.join(res[0]["output_dir"], "bc_sorted_bam.bam"))]
-    if bc != records(os.path.join(SMOKE, "out_host", "bc_sorted_bam.bam")):
-        raise AssertionError("multihost barcode-sorted records differ from "
-                             "host-native's")
-    print(f"  multihost: {len(got)} position-bucketed and {len(bc)} "
+    n_pos, n_bc = _merge_matches([r[0]["output_dir"] for r in results],
+                                 os.path.join(SMOKE, "out_host"),
+                                 os.path.join(base, "merged.bam"), env)
+    print(f"  multihost: {n_pos} position-bucketed and {n_bc} "
           f"barcode-sorted records equal host-native's; global stats "
           f"{want} in all 4 processes")
     return {"rates": [r[1] for r in results], "wtrace": sums,
@@ -3395,6 +3459,511 @@ def phase_hg38_200k(db, env, logs):
     return res
 
 
+def _card_env(env, h, sock=None):
+    """Process h's environment in phase 22: ``env`` without any LARIAT_*
+    knob it carries, process h's card (``LARIAT_TORCH_DEVICE=cuda:h``)
+    and, when it primes through a server, that server's socket
+    (``LARIAT_DEVICE_SOCKET``)."""
+    out = {k: v for k, v in env.items() if not k.startswith("LARIAT_")}
+    out["LARIAT_TORCH_DEVICE"] = CARD.format(h)
+    if sock:
+        out["LARIAT_DEVICE_SOCKET"] = sock
+    return out
+
+
+def _bus(bus_id: str) -> str:
+    """A PCI bus id without its domain, in lower case (nvidia-smi writes
+    the domain with 4 or 8 digits)."""
+    return ":".join(bus_id.strip().lower().split(":")[-2:])
+
+
+class _Apps:
+    """nvidia-smi's compute apps, sampled every SMI_EVERY_S s on a thread
+    while a mode runs. ``seen`` maps (owner, card index) to the largest
+    MiB used, the owner being the label of the run's process whose tree
+    holds the app's pid (``roots``: a started process's pid -> its label,
+    filled as they start), else "pid N"."""
+
+    def __init__(self, roots):
+        self.roots = roots
+        q = subprocess.run(["nvidia-smi", "--query-gpu=index,pci.bus_id",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True, timeout=60).stdout
+        # a host may read "[N/A]" for every bus id: those map to no card
+        self.index = {_bus(b): int(i) for i, b in
+                      (line.split(",") for line in q.splitlines()
+                       if line.strip()) if ":" in b}
+        self.seen: dict = {}
+        self.samples = 0
+        self.errors: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(60)
+        return False
+
+    def _loop(self):
+        while True:
+            self.sample()
+            if self._stop.wait(SMI_EVERY_S):
+                return
+
+    def sample(self):
+        try:
+            out = subprocess.run(
+                ["nvidia-smi",
+                 "--query-compute-apps=pid,gpu_bus_id,used_memory",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=30).stdout
+        except (OSError, subprocess.SubprocessError) as e:
+            self.errors.append(repr(e))
+            return
+        self.samples += 1
+        for line in out.splitlines():
+            parts = [x.strip() for x in line.split(",")]
+            if len(parts) != 3:
+                continue
+            pid, bus, mib = parts
+            key = (self._owner(int(pid)) if pid.isdigit() else f"pid {pid}",
+                   self.index.get(_bus(bus), bus))
+            self.seen[key] = max(self.seen.get(key, 0),
+                                 int(mib) if mib.isdigit() else 0)
+
+    def _owner(self, pid: int) -> str:
+        p = pid
+        for _ in range(64):
+            if p in self.roots:
+                return self.roots[p]
+            try:
+                with open(f"/proc/{p}/stat") as f:
+                    p = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                break
+            if p <= 1:
+                break
+        return f"pid {pid}"
+
+    def binding(self, want):
+        """Problems with the binding nvidia-smi showed, and a note: ``want``
+        maps each card to the one process of the run that may hold a
+        context there, and no other process of the run holds one. No
+        problem, and a note saying so, when nvidia-smi listed no app of
+        the run at all (the processes' own logs then hold the binding)."""
+        run = set(self.roots.values())
+        ours = {k for k in self.seen if k[0] in run}
+        if not ours:
+            return [], (f"nvidia-smi listed no app of this run in "
+                        f"{self.samples} samples (all it listed: "
+                        f"{sorted(map(str, self.seen))}; errors "
+                        f"{self.errors[:2]})")
+        problems = []
+        for card, label in want.items():
+            on = sorted(w for w, c in ours if c == card)
+            if on != [label]:
+                problems.append(f"card {card} carried {on}, want [{label}]")
+        for who in sorted(run):
+            cards = sorted(str(c) for w, c in ours if w == who)
+            if len(cards) > 1 or (cards and who not in want.values()):
+                problems.append(f"{who} held contexts on cards {cards}")
+        return problems, None
+
+
+def _group(procs, timeout, roots):
+    """Start every {"label", "cmd", "env", "log"} of ``procs`` at once,
+    each under _PEAK_WRAP in a session of its own (``roots`` gets each
+    pid and label), and wait for all of them within ``timeout`` s; at the
+    first nonzero exit or at the timeout every process group still
+    running is killed, so none is left waiting at a rendezvous. Each entry
+    gains "rc" (None when killed), "start", "end", "out" (its log) and
+    "rss_gib" (None without the wrapper's line)."""
+    try:
+        for x in procs:
+            with open(x["log"], "w") as log:
+                x["start"], x["end"] = time.time(), None
+                x["proc"] = subprocess.Popen(
+                    [sys.executable, "-c", _PEAK_WRAP, *x["cmd"]], cwd=REPO,
+                    env=x["env"], stdout=log, stderr=subprocess.STDOUT,
+                    start_new_session=True)
+            roots[x["proc"].pid] = x["label"]
+        deadline = time.time() + timeout
+        while not all(x["end"] for x in procs):
+            for x in procs:
+                if x["end"] is None and x["proc"].poll() is not None:
+                    x["end"] = time.time()
+            if any(x["proc"].returncode not in (None, 0) for x in procs) \
+                    or time.time() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for x in procs:
+            if "proc" not in x:
+                continue
+            if x["proc"].poll() is None:
+                os.killpg(x["proc"].pid, 9)   # the wrapper and its tree
+                x["proc"].wait()
+            x["rc"] = x["proc"].returncode if x["end"] else None
+            x["end"] = x["end"] or time.time()
+            with open(x["log"]) as f:
+                x["out"] = f.read()
+            rss = re.search(r"peak rss KiB (\d+)\s*$", x["out"])
+            x["rss_gib"] = rss and int(rss.group(1)) / 2**20
+
+
+def _start_servers(fa, env, base, logs, tag, roots):
+    """Phase 22 d's resident servers, server h on card h and socket
+    ``base/srv_h.sock``, all started at once under _PEAK_WRAP; returns
+    them once every ready file exists. One that exits or a wait past
+    HG38_READY_S kills them all and raises."""
+    servers = []
+    try:
+        for h in range(FOUR):
+            sock = os.path.join(base, f"srv_{h}.sock")
+            ready = os.path.join(base, f"srv_{h}.ready")
+            log = os.path.join(logs, f"four_{tag}_d_server_{h}.log")
+            with open(log, "w") as lf:
+                proc = subprocess.Popen(
+                    [sys.executable, "-c", _PEAK_WRAP, sys.executable, "-m",
+                     "lariat_tpu_torch.parallel.device_server", "-genome",
+                     fa, "-socket", sock, "-ready_file", ready,
+                     "-idle_timeout", "900"], cwd=REPO,
+                    env=_card_env(env, h), stdout=lf,
+                    stderr=subprocess.STDOUT, start_new_session=True)
+            roots[proc.pid] = f"server {h}"
+            servers.append({"proc": proc, "sock": sock, "ready": ready,
+                            "log": log, "start": time.time(),
+                            "ready_s": None})
+        while not all(s["ready_s"] for s in servers):
+            for s in servers:
+                if s["ready_s"] is None and os.path.exists(s["ready"]):
+                    s["ready_s"] = time.time() - s["start"]
+                if s["proc"].poll() is not None:
+                    raise RuntimeError(f"server {servers.index(s)} exited "
+                                       f"{s['proc'].returncode} before it "
+                                       f"was ready")
+            if time.time() - servers[0]["start"] > HG38_READY_S:
+                raise RuntimeError(f"the servers were not ready within "
+                                   f"{HG38_READY_S} s")
+            time.sleep(0.2)
+    except BaseException:
+        _stop_servers(servers)
+        raise
+    return servers
+
+
+def _stop_servers(servers):
+    """Ask each running server to stop and wait for it (120 s), then kill
+    what is left; each server gains "rc", "out" (its log) and "rss_gib"
+    (its peak RSS, None without the wrapper's line)."""
+    from lariat_tpu_torch.parallel.device_server import stop_server
+    for s in servers:
+        if s["proc"].poll() is None:
+            try:
+                stop_server(s["sock"])
+            except OSError:
+                pass
+    for s in servers:
+        try:
+            s["proc"].wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            pass
+        if s["proc"].poll() is None:
+            os.killpg(s["proc"].pid, 9)
+            s["proc"].wait()
+        s["rc"] = s["proc"].returncode
+        with open(s["log"]) as f:
+            s["out"] = f.read()
+        rss = re.search(r"peak rss KiB (\d+)\s*$", s["out"])
+        s["rss_gib"] = rss and int(rss.group(1)) / 2**20
+
+
+def _sim_stats(stdout):
+    """The CLI's -simulated counts [total, correct, total at MAPQ >= 10,
+    correct at MAPQ >= 10], as multihost sums them."""
+    m = re.search(r"simulated: total=(\d+) correct=(\d+) mapq10 "
+                  r"total=(\d+) correct=(\d+)", stdout)
+    if not m:
+        raise AssertionError("no 'simulated:' line")
+    return [int(g) for g in m.groups()]
+
+
+def _four_process(tag, mode, h, x, server, fails):
+    """Process h's figures in mode ``mode`` of phase 22, its checks'
+    failures appended to ``fails``: exit 0 with its JSON line; in c and d
+    its card's binding as the process logs it (the path log's device and
+    CUDA contexts: the CLI's in c, the server's in d, where the CLI never
+    initialises CUDA), pairs primed, K1, K2 and K2b launched, K3 where a
+    mate was rescued, K4a, K4c and K5 in d at hg38, a nonzero peak of
+    device memory."""
+    what = f"{tag} {mode} process {h}"
+    if x["rc"] != 0:
+        fails.append(f"{what} exited {x['rc']}: {x['out'][-800:]}")
+        return None
+    out = x["out"]
+    res = _last_json(out, ("host", "rc", "output_dir", "local_stats",
+                           "global_stats"), what)
+    n, rate = _summary(out)
+    sim = _SIMULATED.search(out)
+    fig = {"pairs": n, "pairs_s": rate, "wall_s": round(x["end"] - x["start"],
+                                                          1),
+           "rss_gib": x["rss_gib"] and round(x["rss_gib"], 3),
+           "local_stats": res["local_stats"],
+           "global_stats": res["global_stats"],
+           "output_dir": res["output_dir"],
+           "simulated": sim and sim.group(0)}
+    if mode == "b":
+        return fig
+    card = CARD.format(h)
+    m = re.search(r"primed pairs (\d+)\s+host pairs (\d+)", out)
+    if not m:
+        fails.append(f"{what}: no device summary line")
+        return fig
+    fig.update(primed=int(m.group(1)), host_routed=int(m.group(2)))
+    log = server["out"] if server else out
+    lm = re.search(r"kernel launches: (\{.*\})", log)
+    pm = re.search(r"device path: (\{.*\})", log)
+    if not (lm and pm):
+        fails.append(f"{what}: no kernel launch or device path line")
+        return fig
+    launches, path = json.loads(lm.group(1)), json.loads(pm.group(1))
+    peak = path["cuda_peak_bytes"]
+    fig.update(launches=launches, device=path["device"],
+               cuda_contexts=path["cuda_contexts"],
+               seed_batches=[path["seed_host_batches"],
+                             path["seed_device_batches"]],
+               seed_upload_s=path["seed_upload_s"],
+               rescue_tasks=path["rescue_tasks"],
+               largest_batch_pairs=path["largest_batch_pairs"],
+               cuda_peak_gib=peak and round(peak / 2**30, 3))
+    if server:
+        fig.update(server_rss_gib=server["rss_gib"]
+                   and round(server["rss_gib"], 3),
+                   server_ready_s=round(server["ready_s"], 2))
+        if "cuda initialized in the CLI process: False" not in out or \
+                f"device priming via server ({server['sock']}" not in out:
+            fails.append(f"{what}: the CLI did not prime through server {h} "
+                         f"alone")
+    if path["device"] != card or path["cuda_contexts"] != [h]:
+        fails.append(f"{what}: the {'server' if server else 'CLI'} primed "
+                     f"on {path['device']} with contexts on cards "
+                     f"{path['cuda_contexts']}, want {card} and [{h}]")
+    need = list(CLI_KERNELS[:3]) + (["sw_local"] if path["rescue_tasks"]
+                                    else [])
+    if server and tag == "hg38_200k":
+        need += SEED_KERNELS
+    idle = [k for k in need if launches.get(k, 0) <= 0]
+    if idle or fig["primed"] <= 0 or not peak:
+        fails.append(f"{what}: {fig['primed']} primed, card peak {peak}, no "
+                     f"launch of {idle}")
+    return fig
+
+
+def _four_mode(tag, mode, fa, shards, extra, env, base, logs, W, fails):
+    """Mode b, c or d of phase 22: four multihost processes, process h on
+    shard h with W workers, meeting through a file; in d each through its
+    own server on card h. nvidia-smi is sampled throughout. Returns the
+    mode's figures: each process's, the aggregate and the card binding."""
+    mem = _meminfo_gib('MemAvailable')
+    print(f"  {tag} {mode}: MemAvailable {mem:.1f} GiB before the mode")
+    rdv = os.path.join(base, f"{mode}.rendezvous")
+    procs = []
+    for h, (shard, _) in enumerate(shards):
+        penv = _card_env(env, h, os.path.join(base, f"srv_{h}.sock")
+                         if mode == "d" else None)
+        if mode == "c":
+            penv["LARIAT_PRIME_MIN_FRAC"] = "0"
+        procs.append({
+            "label": f"cli {h}", "env": penv,
+            "log": os.path.join(logs, f"four_{tag}_{mode}_{h}.log"),
+            "cmd": [sys.executable, "-m",
+                    "lariat_tpu_torch.parallel.multihost", "-coordinator",
+                    "file://" + rdv, "-num_processes", str(FOUR),
+                    "-process_id", str(h), "-reads", shard, "-genome", fa,
+                    "-output_base", os.path.join(base, mode), "-threads",
+                    str(W), "-use_device", "off" if mode == "b" else "auto",
+                    *extra]})
+    roots, servers = {}, []
+    with _Apps(roots) as apps:
+        try:
+            if mode == "d":
+                servers = _start_servers(fa, env, base, logs, tag, roots)
+            _group(procs, FOUR_TIMEOUT, roots)
+        finally:
+            _stop_servers(servers)
+    for h, s in enumerate(servers):
+        if s["rc"] != 0:
+            fails.append(f"{tag} d server {h} exited {s['rc']}: "
+                         f"{s['out'][-800:]}")
+    figs = []
+    for h, x in enumerate(procs):
+        try:
+            figs.append(_four_process(tag, mode, h, x,
+                                      servers[h] if servers else None, fails))
+        except AssertionError as e:
+            fails.append(f"{tag} {mode} process {h}: {e}")
+            figs.append(None)
+    want = {} if mode == "b" else {
+        h: f"{'server' if mode == 'd' else 'cli'} {h}" for h in range(FOUR)}
+    problems, note = apps.binding(want)
+    fails.extend(f"{tag} {mode}: {p}" for p in problems)
+    seen = {f"{w} on card {c}": mib for (w, c), mib in sorted(
+        apps.seen.items(), key=str)}
+    pairs = sum(f["pairs"] for f in figs if f)
+    wall = max(x["end"] for x in procs) - min(x["start"] for x in procs)
+    for h, f in enumerate(figs):
+        if f:
+            print(f"  {tag} {mode} process {h}: {json.dumps(f)}")
+    print(f"  {tag} {mode} aggregate: {pairs} pairs in {wall:.1f} s from the "
+          f"first start to the last exit, {pairs / wall:.1f} pairs/s")
+    print(f"  {tag} {mode} nvidia-smi ({apps.samples} samples), largest MiB "
+          f"by process and card: {json.dumps(seen)}"
+          + (f"; {note}" if note else ""))
+    return {"processes": figs, "pairs": pairs, "wall_s": round(wall, 1),
+            "pairs_s": round(pairs / wall, 1), "mem_available_gib":
+            round(mem, 1), "nvidia_smi": seen, "nvidia_smi_note": note}
+
+
+def phase_four_cards(c20_db, hg38_db, env, logs):
+    """Phase 22: the scale-out path with one multihost process a card, on a
+    host with four cards, over the inputs of phase 20 (``c20_db``) and of
+    phase 21 (``hg38_db``), each where it exists (None: not this one).
+    Without four cards or without either input it prints why and returns
+    None. Each input is cut into four barcode-complete shards of whole
+    barcodes in input order; with C the host's CPUs and W = min(8, C //
+    4): a. one process, host-native, 4W workers, over the whole input;
+    b. four multihost processes, W workers each, -use_device off; c. the
+    same with process h's engine on cuda:h (LARIAT_TORCH_DEVICE) and the
+    router without dormancy; d. each through its own resident server on
+    cuda:h (its own socket) at the router's defaults. -simulated, and
+    -centromeres at hg38; auto seeding. Checks (every mode is run before
+    a failure is raised): each process exits 0 with its JSON line, the
+    four global stats equal, equal to the sum of the locals and to a's;
+    b's merge (cat_bams --auto) equal to a's records; each process's
+    directory in c and d equal to its directory in b, as records and as
+    whole files; each card carrying exactly its process (the server in d,
+    where no CLI holds a context) in nvidia-smi's samples and in the
+    processes' own path logs, kernels launched on every card. Returns the
+    figures by input and mode."""
+    import torch
+    n_cards = torch.cuda.device_count()
+    sets = {"chr20_1m": (c20_db, CHR20_INPUTS),
+            "hg38_200k": (hg38_db, HG38_200K_INPUTS)}
+    missing = {tag: [n for n in names if not (db and os.path.exists(
+        os.path.join(db, n)))] for tag, (db, names) in sets.items()}
+    why = [] if n_cards >= FOUR else [f"{n_cards} CUDA device(s), {FOUR} "
+                                      f"needed"]
+    if all(missing.values()):
+        why.append("no inputs: " + "; ".join(
+            f"{tag}'s {', '.join(m)} absent from {sets[tag][0]}"
+            for tag, m in missing.items()))
+    if why:
+        print(f"  four-card phase not run: {'; '.join(why)}")
+        return None
+    env = {k: v for k, v in env.items() if not k.startswith("LARIAT_")}
+    cpus = os.cpu_count() or 1
+    W = max(1, min(8, cpus // FOUR))
+    res, fails = {}, []
+    for tag, (db, _) in sets.items():
+        if missing[tag]:
+            print(f"  four-card phase, {tag} not run: "
+                  f"{', '.join(missing[tag])} absent from {db}")
+            continue
+        if tag == "chr20_1m":
+            fa, _, reads = (os.path.join(db, n) for n in CHR20_INPUTS)
+            extra = ("-simulated",)
+        else:
+            fa, _, cen, reads = (os.path.join(db, n)
+                                 for n in HG38_200K_INPUTS)
+            extra = ("-centromeres", cen, "-simulated")
+        res[tag] = _four_cards_run(tag, fa, reads, extra, env, logs, cpus,
+                                   W, fails)
+    print(f"  four-card figures: {json.dumps(res)}")
+    if fails:
+        raise AssertionError("four cards: " + "; ".join(fails))
+    return res
+
+
+def _four_cards_run(tag, fa, reads, extra, env, logs, cpus, W, fails):
+    """Phase 22's four modes on one input (see phase_four_cards), every
+    mode run before the checks that span modes; failures appended to
+    ``fails``. Returns the figures."""
+    base = os.path.join(SMOKE, f"four_{tag}")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    t0 = time.time()
+    shards = _fastq_shards(reads, FOUR, base)
+    sizes = [k for _, k in shards]
+    print(f"  {tag}: shards of {sizes} pairs in {time.time() - t0:.1f} s; "
+          f"{cpus} CPUs, {W} workers a process, {FOUR * W} in the single "
+          f"one")
+    if sizes != [FOUR_SHARD_PAIRS[tag]] * FOUR:
+        fails.append(f"{tag}: shards of {sizes} pairs")
+    res = {"shard_pairs": sizes, "cpus": cpus, "workers": W}
+    a_stats = None
+    try:
+        mem = _meminfo_gib('MemAvailable')
+        peak = {}
+        out, wall = _cli("lariat_tpu_torch.cli", "off", fa, reads,
+                         os.path.join(base, "a"), FOUR * W,
+                         os.path.join(logs, f"four_{tag}_a.log"), env, extra,
+                         FOUR_TIMEOUT, peak)
+        n, rate = _summary(out)
+        a_stats = _sim_stats(out)
+        res["a"] = {"pairs": n, "pairs_s": rate, "wall_s": round(wall, 1),
+                    "rss_gib": round(peak["rss_gib"], 3),
+                    "mem_available_gib": round(mem, 1),
+                    "simulated": _SIMULATED.search(out).group(0)}
+        print(f"  {tag} a (MemAvailable {mem:.1f} GiB before): "
+              f"{json.dumps(res['a'])}")
+    except Exception as e:  # noqa: BLE001 -- raised after every mode
+        print(f"  {tag} a FAILED: {e}")
+        fails.append(f"{tag} a: {e}")
+    for mode in "bcd":
+        try:
+            res[mode] = _four_mode(tag, mode, fa, shards, extra, env, base,
+                                   logs, W, fails)
+        except Exception as e:  # noqa: BLE001 -- raised after every mode
+            print(f"  {tag} {mode} FAILED: {e}")
+            fails.append(f"{tag} {mode}: {e}")
+    # the stats: equal in the four processes, their locals' sum, a's
+    for mode in "bcd":
+        figs = res.get(mode, {}).get("processes") or []
+        if len(figs) != FOUR or not all(figs):
+            continue
+        glob_stats = [f["global_stats"] for f in figs]
+        local_sum = [sum(c) for c in zip(*(f["local_stats"] for f in figs))]
+        if any(g != local_sum for g in glob_stats) or (
+                a_stats and local_sum != a_stats):
+            fails.append(f"{tag} {mode}: global stats {glob_stats}, locals "
+                         f"sum to {local_sum}, a's {a_stats}")
+    # the records: b merged against a; c and d against b, process by
+    # process, as records and as whole files
+    rel = os.path.relpath(base, SMOKE)
+    try:
+        n_pos, n_bc = _merge_matches(
+            [os.path.join(base, "b", f"host{h:03d}") for h in range(FOUR)],
+            os.path.join(base, "a"), os.path.join(base, "b_merged.bam"), env)
+        print(f"  {tag}: b's merge holds a's {n_pos} position-bucketed "
+              f"records; its {n_bc} barcode-sorted ones in order")
+    except Exception as e:  # noqa: BLE001 -- every comparison is made
+        fails.append(f"{tag} b against a: {e}")
+    for mode in "cd":
+        for h in range(FOUR):
+            run, ref = (f"{rel}/{m}/host{h:03d}" for m in (mode, "b"))
+            try:
+                _same_records(run, ref)
+                phase_whole_bam([run], ref)
+            except Exception as e:  # noqa: BLE001 -- every one is made
+                fails.append(f"{tag} {mode} process {h} against b: {e}")
+    shutil.rmtree(base, ignore_errors=True)
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--logs", default=SMOKE,
@@ -3551,6 +4120,9 @@ def main(argv=None) -> int:
         c20 = phase_chr20(args.chr20_data, env, args.logs)
     with Phase("hg38 x 200k, the CLI's device modes"):
         h200 = phase_hg38_200k(args.hg38_data, env, args.logs)
+    with Phase("four cards, one multihost process a card"):
+        four = phase_four_cards(args.chr20_data, args.hg38_data, env,
+                                args.logs)
     desc = runs["out_port"][4]["entries"]["lariat_sw_extend_desc"]
     extra = {"smem_twoptr": {"seed_trace": kres.pop("seed_trace")},
              "sw_extend": {"desc_launches": desc,
@@ -3593,6 +4165,13 @@ def main(argv=None) -> int:
         extra[name]["hg38_200k"] = h200 and {
             out: v["kernels"].get(name) for out, v in h200.items()
             if out.startswith("out_")}
+        # phase 22's launches by mode, a list over the cards (null for a
+        # process that failed), or null
+        extra[name]["four_cards"] = four and {
+            tag: {mode: [p and p.get("launches", {}).get(name, 0)
+                         for p in r[mode]["processes"]]
+                  for mode in "cd" if mode in r}
+            for tag, r in four.items()}
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         err, ms, pms, _, bms, by, *more = kres[name]

@@ -67,6 +67,7 @@ after it (no silent fallback to the host seeder).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
@@ -76,7 +77,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import get_device
+from ..device import contexts, get_device
 from ..index import native_ops
 from ..ops import _build, fm_batch, resident, smem_device, sw_extend, sw_global
 from ..parallel import align_step
@@ -291,7 +292,12 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         try:
             cuda = self.device.type == "cuda"
             stream = torch.cuda.Stream(self.device) if cuda else None
-            with torch.cuda.stream(stream):
+            # the thread starts with card 0 current: leaving a stream
+            # context of another card switches back to it, which makes a
+            # context there (cudaSetDevice), so the thread takes the
+            # engine's card first
+            with (torch.cuda.device(self.device) if cuda
+                  else contextlib.nullcontext()), torch.cuda.stream(stream):
                 fmd = fm_batch.DeviceFMIndex.from_host(self.fm, self.device)
                 # the SA walk shares the seeding index and the waves' pac:
                 # one copy of each on the device (its SA samples stay on
@@ -350,16 +356,19 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
                 sb["host_before_device"] = sb["host"]
 
     def path_log(self) -> dict:
-        """What the CLI prints of the run's device path: the batches each
-        seeder served, the host-seeded ones before the first device-seeded
-        one, the index upload's seconds, the mate-rescue tasks, the pairs
-        of the largest finished priming pass, each kernel's largest launch
-        in its own unit (``_build.largest``, since the last reset) and the
-        device's peak of allocated bytes
-        (``torch.cuda.max_memory_allocated``; None on the CPU)."""
+        """What the CLI prints of the run's device path: the engine's
+        device (``"cuda:2"``), the cards on which the process holds a CUDA
+        context (``device.contexts``), the batches each seeder served, the
+        host-seeded ones before the first device-seeded one, the index
+        upload's seconds, the mate-rescue tasks, the pairs of the largest
+        finished priming pass, each kernel's largest launch in its own unit
+        (``_build.largest``, since the last reset) and the device's peak of
+        allocated bytes (``torch.cuda.max_memory_allocated``; None on the
+        CPU)."""
         sb = self.seed_batches
         dev = self.device
-        return {"seed_host_batches": sb["host"],
+        return {"device": str(dev), "cuda_contexts": contexts(),
+                "seed_host_batches": sb["host"],
                 "seed_device_batches": sb["device"],
                 "host_batches_before_device": sb["host_before_device"],
                 "seed_upload_s": self.seed_upload_s,

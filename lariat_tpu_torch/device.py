@@ -2,11 +2,14 @@
 
 The default is ``cuda``; without CUDA that raises. The CPU (where every
 kernel wrapper runs its plain PyTorch twin) is used only when a caller asks
-for it, through an argument or ``LARIAT_TORCH_DEVICE=cpu``.
+for it, through an argument or ``LARIAT_TORCH_DEVICE=cpu``. On a host with
+several cards, ``LARIAT_TORCH_DEVICE=cuda:h`` puts a process's engine (the
+CLI's or a resident server's) on card h.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Optional, Union
 
@@ -32,6 +35,10 @@ def get_device(device: Optional[Union[str, torch.device]] = None
                 f"the plain PyTorch versions on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        elif dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"CUDA device {str(dev)!r} requested but this host has "
+                f"{torch.cuda.device_count()} CUDA device(s)")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
@@ -42,3 +49,33 @@ def describe(dev: torch.device) -> str:
     if dev.type == "cuda":
         return f"{dev} ({torch.cuda.get_device_name(dev)})"
     return str(dev)
+
+
+def contexts() -> list:
+    """The indices of the cards on which this process holds an active CUDA
+    primary context (the driver's ``cuDevicePrimaryCtxGetState``), in the
+    order ``torch.cuda`` numbers them; [] without a CUDA driver. A process
+    bound to card h should list [h] and nothing else."""
+    try:
+        drv = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return []
+    ip, up = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint)
+    for fn, args in (("cuInit", [ctypes.c_uint]),
+                     ("cuDeviceGetCount", [ip]),
+                     ("cuDeviceGet", [ip, ctypes.c_int]),
+                     ("cuDevicePrimaryCtxGetState", [ctypes.c_int, up, ip])):
+        getattr(drv, fn).argtypes = args
+        getattr(drv, fn).restype = ctypes.c_int
+    n, dev = ctypes.c_int(0), ctypes.c_int(0)
+    flags, active = ctypes.c_uint(0), ctypes.c_int(0)
+    if drv.cuInit(0) != 0 or drv.cuDeviceGetCount(ctypes.byref(n)) != 0:
+        return []
+    out = []
+    for i in range(n.value):
+        if (drv.cuDeviceGet(ctypes.byref(dev), i) == 0
+                and drv.cuDevicePrimaryCtxGetState(
+                    dev, ctypes.byref(flags), ctypes.byref(active)) == 0
+                and active.value):
+            out.append(i)
+    return out

@@ -264,11 +264,13 @@ class StepClock:
     @contextlib.contextmanager
     def part(self, name: str):
         if self.device.type == "cuda":
+            # on the step's card's stream, not the current card's
+            stream = torch.cuda.current_stream(self.device)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
-            a.record()
+            a.record(stream)
             yield
-            b.record()
+            b.record(stream)
         else:
             a = time.perf_counter()
             yield

@@ -18,9 +18,13 @@ seeding index when the seeding policy turns it on), primes one synthetic
 batch of ``LARIAT_PRIME_BATCH`` pairs (``_prewarm``; skipped with
 ``LARIAT_SERVER_NO_PREWARM=1``), and only then listens and writes the ready
 file; its log gives the seconds of its imports, the load, the upload and
-the prewarm. It primes on two worker threads, as the CLI's two priming
-threads do, and at its end prints the kernel launches made since it
-became ready and its device path (``path_log`` since then: the batches
+the prewarm. On a host with several cards each server takes its card with
+``LARIAT_TORCH_DEVICE=cuda:h`` and a ``-socket`` of its own, and each CLI
+that primes through it that socket in ``LARIAT_DEVICE_SOCKET``: a server
+refuses a socket on which another already answers. It primes on two
+worker threads, as the CLI's two priming threads do, and at its end
+prints the kernel launches made since it became ready and its device
+path (``path_log`` since then: its card and CUDA contexts, the batches
 each seeder served, the largest batch and launches, the peak device
 memory).
 
@@ -121,12 +125,22 @@ def _prewarm(engine, fm, pairs: int = 0) -> None:
     engine.prime_regions(recs, 17)
 
 
+def _refuse_taken(genome: str, path: str) -> None:
+    """Raise when a server answers on ``path``: another would unlink its
+    socket and take its clients, so servers on one host (a card each) need
+    a socket each."""
+    if DeviceServerClient.connect(genome, path=path) is not None:
+        raise RuntimeError(f"a device server already listens on {path}; "
+                           f"give this one a socket of its own (-socket)")
+
+
 def serve(genome: str, socket_path: Optional[str] = None,
           idle_timeout_s: float = 1800.0, ready_file: Optional[str] = None
           ) -> None:
     """Run the priming server until a stop request or ``idle_timeout_s``
     without one. Any set-up error (the kernel build, an upload, the
-    prewarm) raises before the server listens."""
+    prewarm) raises before the server listens, as does a server already
+    answering on the socket."""
     t_imports = time.time()
     from concurrent.futures import ThreadPoolExecutor
 
@@ -138,6 +152,7 @@ def serve(genome: str, socket_path: Optional[str] = None,
     from ..ops import _build
 
     path = socket_path or default_socket_path(genome)
+    _refuse_taken(genome, path)
     t0 = time.time()
     fm = load_reference(genome)
     engine = TorchBatchAlignmentEngine(fm)       # builds the kernels
@@ -166,8 +181,9 @@ def serve(genome: str, socket_path: Optional[str] = None,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
+    _refuse_taken(genome, path)
     try:
-        os.unlink(path)
+        os.unlink(path)           # a stale socket file
     except OSError:
         pass
     srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
@@ -219,17 +235,19 @@ def serve(genome: str, socket_path: Optional[str] = None,
                     try:
                         primes = ex.submit(engine.prime_regions, recs,
                                            delta).result()
-                        dw = {k: engine.wave_stats[k] - w0[k]
-                              for k in engine.wave_stats}
+                        reply = ("ok", primes,
+                                 {k: engine.wave_stats[k] - w0[k]
+                                  for k in engine.wave_stats})
                     except Exception as e:  # noqa: BLE001 -- to the client
-                        _send(conn, ("err", repr(e)))
-                        continue
+                        reply = ("err", repr(e))
                     finally:
                         with alock:
                             active[0] -= 1
                             if active[0] == 0:
                                 engine.abort_prime = False
-                    _send(conn, ("ok", primes, dw))
+                    # only now: a client that sends its next prime on the
+                    # reply (on another connection) finds no abort left
+                    _send(conn, reply)
                 else:
                     _send(conn, ("err", f"unknown request {kind!r}"))
         except OSError:

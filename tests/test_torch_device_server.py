@@ -55,9 +55,18 @@ def _start(module, fasta, tmp_path, tag, **extra):
     raise RuntimeError("server never became ready")
 
 
-def _port_server(fasta, tmp_path, tag="port"):
+def _port_server(fasta, tmp_path, tag="port", device="cpu"):
     return _start("lariat_tpu_torch.parallel.device_server", fasta, tmp_path,
-                  tag, LARIAT_TORCH_DEVICE="cpu")
+                  tag, LARIAT_TORCH_DEVICE=device)
+
+
+@pytest.fixture
+def last_card():
+    """The host's last card (``cuda:N-1``), or a skip: a server on a card
+    needs one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return f"cuda:{torch.cuda.device_count() - 1}"
 
 
 def _stop(proc, sock):
@@ -208,16 +217,80 @@ def _pairs(fasta, n, seed=3):
     return out
 
 
-def test_abort_relay_stops_a_prime_in_flight(tmp_path):
-    """The router's abort, relayed to the server, makes its prime in
-    flight raise PrimeAborted at a wave boundary; the server then primes
-    the next request in full."""
+def _abort_relay(tmp_path, device, n_pairs):
+    """The router's abort, relayed to a server on ``device`` priming
+    ``n_pairs`` pairs, makes its prime in flight raise PrimeAborted at a
+    wave boundary; the server then primes the next request in full."""
     fasta, _ = _inputs(tmp_path)
-    recs = _pairs(fasta, 600)
+    recs = _pairs(fasta, n_pairs)
     proc, sock = _start("lariat_tpu_torch.parallel.device_server", fasta,
-                        tmp_path, "abort", LARIAT_TORCH_DEVICE="cpu",
+                        tmp_path, "abort", LARIAT_TORCH_DEVICE=device,
                         LARIAT_SERVER_NO_PREWARM="1")
     try:
+        client = device_server.DeviceServerClient.connect(str(fasta),
+                                                          path=sock)
+        box = {}
+
+        def prime():
+            try:
+                box["out"] = client.prime_regions(recs, DELTA)
+            except Exception as e:  # noqa: BLE001
+                box["err"] = e
+
+        th = threading.Thread(target=prime)
+        th.start()
+        time.sleep(1.0)          # the prime runs for several seconds
+        client.abort_prime = True
+        th.join(120)
+        assert isinstance(box.get("err"), PrimeAborted), box
+        assert len(client.prime_regions(recs[:4], DELTA)) == 4
+        client.close()
+    finally:
+        _stop(proc, sock)
+
+
+def test_abort_relay_stops_a_prime_in_flight(tmp_path):
+    # 600 pairs prime in about 7 s on one CPU core
+    _abort_relay(tmp_path, "cpu", 600)
+
+
+@pytest.mark.cuda
+def test_abort_relay_stops_a_prime_in_flight_on_a_card(tmp_path, last_card):
+    # the card primes about 60 times faster than one CPU core
+    _abort_relay(tmp_path, last_card, 40_000)
+
+
+def test_abort_is_cleared_before_the_aborted_prime_replies(tmp_path,
+                                                           monkeypatch):
+    """The server answers an aborted prime only once the abort is
+    cleared, so a client's next prime, sent on that answer over another
+    connection, runs in full. The server runs in this process, its error
+    replies held 0.5 s after they are sent: a clearing made after the
+    reply would still be pending when the next prime arrives."""
+    fasta, _ = _inputs(tmp_path)
+    recs = _pairs(fasta, 600)
+    sock, ready = str(tmp_path / "s.sock"), tmp_path / "s.ready"
+    send = device_server._send
+
+    def slow_err(conn, obj):
+        send(conn, obj)
+        if obj[0] == "err":
+            time.sleep(0.5)
+
+    monkeypatch.setattr(device_server, "_send", slow_err)
+    monkeypatch.setenv("LARIAT_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("LARIAT_SERVER_NO_PREWARM", "1")
+    monkeypatch.delenv("LARIAT_DEVICE_SEED", raising=False)
+    srv = threading.Thread(target=device_server.serve,
+                           args=(str(fasta), sock, 300.0, str(ready)),
+                           daemon=True)
+    srv.start()
+    try:
+        for _ in range(1200):
+            if ready.exists() or not srv.is_alive():
+                break
+            time.sleep(0.1)
+        assert ready.exists()
         client = device_server.DeviceServerClient.connect(str(fasta),
                                                           path=sock)
         box = {}
@@ -237,23 +310,27 @@ def test_abort_relay_stops_a_prime_in_flight(tmp_path):
         assert len(client.prime_regions(recs[:4], DELTA)) == 4
         client.close()
     finally:
-        _stop(proc, sock)
+        if srv.is_alive():
+            device_server.stop_server(sock)
+        srv.join(120)
+    assert not srv.is_alive()
 
 
-def test_killed_server_fails_client_and_cli(tmp_path, monkeypatch):
-    """A server that dies under a client: the client raises (not
-    PrimeAborted), and a CLI run priming through it ends with an error."""
+def _killed_server(tmp_path, monkeypatch, device):
+    """A server on ``device`` that dies under a client: the client raises
+    (not PrimeAborted), and a CLI run priming through it ends with an
+    error."""
     fasta, fq = _inputs(tmp_path)
     reads = _first_barcode(fq)
-    proc, sock = _port_server(fasta, tmp_path)
+    proc, sock = _port_server(fasta, tmp_path, device=device)
     client = device_server.DeviceServerClient.connect(str(fasta), path=sock)
-    assert client is not None
+    assert client is not None and client.device_type == device.split(":")[0]
     proc.kill()
     proc.wait()
     with pytest.raises(OSError):
         client.prime_regions(reads, DELTA)
 
-    proc, sock = _port_server(fasta, tmp_path, "cli")
+    proc, sock = _port_server(fasta, tmp_path, "cli", device=device)
     real = cli._device_engine
 
     def dying(genome, fm):
@@ -272,6 +349,39 @@ def test_killed_server_fails_client_and_cli(tmp_path, monkeypatch):
                   "-first_chunk"])
     assert isinstance(e.value.__cause__, OSError)
     assert not isinstance(e.value.__cause__, PrimeAborted)
+
+
+def test_killed_server_fails_client_and_cli(tmp_path, monkeypatch):
+    _killed_server(tmp_path, monkeypatch, "cpu")
+
+
+@pytest.mark.cuda
+def test_killed_server_fails_client_and_cli_on_a_card(tmp_path, monkeypatch,
+                                                      last_card):
+    _killed_server(tmp_path, monkeypatch, last_card)
+
+
+def test_second_server_refuses_a_socket_in_use(tmp_path):
+    """A server started on a socket another server answers on exits
+    nonzero before it loads anything, and the first keeps serving: servers
+    on one host, a card each, cannot silently share a socket."""
+    fasta, _ = _inputs(tmp_path)
+    proc, sock = _port_server(fasta, tmp_path)
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "lariat_tpu_torch.parallel.device_server",
+             "-genome", str(fasta), "-socket", sock, "-ready_file",
+             str(tmp_path / "second.ready")], cwd=REPO,
+            env=_env(LARIAT_TORCH_DEVICE="cpu", LARIAT_PRIME_BATCH="8"),
+            capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0
+        assert f"a device server already listens on {sock}" in r.stderr
+        assert not (tmp_path / "second.ready").exists()
+        client = device_server.DeviceServerClient.connect(str(fasta),
+                                                          path=sock)
+        assert client is not None and client.device_type == "cpu"
+    finally:
+        _stop(proc, sock)
 
 
 def test_socket_path_differs_from_the_jax_server():

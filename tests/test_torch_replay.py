@@ -257,7 +257,8 @@ def test_path_log_keeps_the_largest_batch_and_launch(dup_genome):  # noqa: F811
     """``path_log``'s largest batch is the largest finished priming pass
     (an aborted one does not count; regions alone or with rescue and
     reg2aln); its largest launches are ``_build``'s, kept a kernel at a
-    time, in the kernel's own unit, and cleared with the counts."""
+    time, in the kernel's own unit, and cleared with the counts; it names
+    the engine's device and the cards the process holds a context on."""
     from lariat_tpu_torch.align.batch_engine import PrimeAborted
     from test_torch_engine import _recs
     fm, genome = dup_genome
@@ -265,6 +266,8 @@ def test_path_log_keeps_the_largest_batch_and_launch(dup_genome):  # noqa: F811
     eng = TorchBatchAlignmentEngine(fm, device="cpu")
     log = eng.path_log()
     assert log["largest_batch_pairs"] == 0 and log["cuda_peak_bytes"] is None
+    assert log["device"] == "cpu"
+    assert set(log["cuda_contexts"]) <= set(range(torch.cuda.device_count()))
     eng.prime_regions(recs[:3], 17)
     eng.prime_regions(recs[:5])
     eng.prime_regions(recs[:2], 17)
