@@ -53,6 +53,14 @@ the kernels' time. ``LARIAT_WAVE_DEBUG=1`` prints the reference's
 ``[wave]`` line after each seed-extension wave of a session. The Python
 replays print neither, as in the reference.
 
+Spans (``utils/spans.py``, recorded with ``LARIAT_SPANS``): a priming pass
+is ``prime.regions`` (seeding and extension), ``prime.rescue`` and
+``prime.reg2aln``; each seeding call a ``seed.device`` (its ``[seedtrace]``
+phases as children) or ``seed.host``; each session wave ``wave.<site>``
+with the children ``build``, ``disp`` and ``dl`` and the attributes
+``tasks``, ``rows`` (padded), ``up_b`` and ``dn_b``. The ``[wtrace]``
+line is printed from these spans.
+
 Seeding follows the reference's policy: ``LARIAT_DEVICE_SEED=1`` runs the
 3-round SMEM seeding and its SA walks on the device (``_device_seed``,
 kernels K4a-K4c and K5), ``=0`` keeps the host C++ seeder, and unset
@@ -81,6 +89,7 @@ from ..device import contexts, get_device
 from ..index import native_ops
 from ..ops import _build, fm_batch, resident, smem_device, sw_extend, sw_global
 from ..parallel import align_step
+from ..utils import spans
 from . import ksw, native_engine
 from .chaining import Chain, chain_seeds, enumerate_occurrences, filter_chains
 from .engine import (AlignmentEngine, OP_M, SingleReadAlignment, cigar_nm,
@@ -408,8 +417,9 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
             return None          # still uploading: the host seeder
         fmd, dg = state
         t_dev = time.time()
-        out = smem_device.collect_seeds_rbegs_device(fmd, dg, self.fm,
-                                                     nonempty, self.opt)
+        with spans.span("seed.device", reads=len(nonempty)):
+            out = smem_device.collect_seeds_rbegs_device(fmd, dg, self.fm,
+                                                         nonempty, self.opt)
         self._wave_done(time.time() - t_dev)
         return out
 
@@ -448,8 +458,9 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         seeded = self._device_seed(nonempty)
         self._note_seeder(seeded is not None)
         if seeded is None:
-            seeded = native_ops.collect_seeds_rbegs_batch(self.fm, nonempty,
-                                                          opt)
+            with spans.span("seed.host", reads=len(nonempty)):
+                seeded = native_ops.collect_seeds_rbegs_batch(
+                    self.fm, nonempty, opt)
         if seeded is None:
             return None
         mems_ne, rbegs_ne = seeded
@@ -472,32 +483,42 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
             l_pac = int(self.fm.l_pac)
             while sess.pending():
                 self._check_abort()
-                t_wave = time.time()
                 bonus = opt.pen_clip5 if sess.phase() == 0 else opt.pen_clip3
-                (rid, qstart, qdir, qlen, tstart, tdir, tlen, h0, w,
-                 Lq, Lt) = sess.wave_descs()
-                desc = resident.pack_desc(rid, qstart, qdir, qlen, tstart,
-                                          tdir, tlen, h0, w, l_pac)
-                blocks, inv = self._split_wave(len(desc),
-                                               np.count_nonzero(qlen))
-                t_dev = time.time()
-                outs = [resident.extend_wave_resident(
-                    reads[dev], self._pac_resident(dev)[0], l_pac,
-                    torch.from_numpy(desc if inv is None else desc[idx]).to(
-                        dev), Lq=Lq, Lt=Lt, opt_key=self._opt_key(bonus))
-                    for dev, idx in blocks if len(idx)]
-                t_disp = time.time()
-                rows = ksw.download_blocks(outs, inv, 1)   # (8, B)
-                self._wave_done(time.time() - t_dev)
+                with spans.span("wave.ext",
+                                timed=WAVE_TRACE or WAVE_DEBUG) as wave:
+                    step = wave.child("build")
+                    (rid, qstart, qdir, qlen, tstart, tdir, tlen, h0, w,
+                     Lq, Lt) = sess.wave_descs()
+                    desc = resident.pack_desc(rid, qstart, qdir, qlen,
+                                              tstart, tdir, tlen, h0, w,
+                                              l_pac)
+                    real = np.count_nonzero(qlen)
+                    blocks, inv = self._split_wave(len(desc), real)
+                    step.end()
+                    step = wave.child("disp")
+                    t_dev = time.time()
+                    outs = [resident.extend_wave_resident(
+                        reads[dev], self._pac_resident(dev)[0], l_pac,
+                        torch.from_numpy(
+                            desc if inv is None else desc[idx]).to(dev),
+                        Lq=Lq, Lt=Lt, opt_key=self._opt_key(bonus))
+                        for dev, idx in blocks if len(idx)]
+                    step.end()
+                    with wave.child("dl"):
+                        rows = ksw.download_blocks(outs, inv, 1)  # (8, B)
+                    self._wave_done(time.time() - t_dev)
+                    wave.set(tasks=int(real), rows=len(desc),
+                             up_b=desc.nbytes, dn_b=rows.nbytes)
                 if WAVE_TRACE:
-                    _wtrace("ext", (len(qlen), Lq, Lt), t_dev - t_wave,
-                            t_disp - t_dev, time.time() - t_disp,
+                    _wtrace("ext", (len(qlen), Lq, Lt), wave.kid_s("build"),
+                            wave.kid_s("disp"), wave.kid_s("dl"),
                             desc.nbytes, rows.nbytes)
                 sess.feed(rows[0], rows[1], rows[2], rows[3], rows[4],
                           rows[5])
                 if WAVE_DEBUG:
                     _line(f"[wave] phase={sess.phase()} B={len(qlen)} "
-                          f"q={Lq} t={Lt} {time.time() - t_wave:.2f}s")
+                          f"q={Lq} t={Lt} "
+                          f"{time.time() - wave.t0 / 1e9:.2f}s")
             return sess.finish()
         finally:
             sess.close()
@@ -549,7 +570,9 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         qs = [encode_read(s) for s in seqs]
         # native batched seeding + one batched SA dereference for all reads
         nonempty = [q for q in qs if len(q)]
-        seeds_per = native_ops.collect_seeds_batch(self.fm, nonempty, opt)
+        with spans.span("seed.host", reads=len(nonempty)):
+            seeds_per = native_ops.collect_seeds_batch(self.fm, nonempty,
+                                                       opt)
         self._note_seeder(False)
         mems_per: List[Optional[List[Intv]]] = [None] * len(qs)
         rbegs_per: List[Optional[List[int]]] = [None] * len(qs)
@@ -790,19 +813,19 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         self._check_abort()
         opt = self.opt
         t_dev = time.time()
-        trace = {} if WAVE_TRACE else None
-        out = ksw.local_align_batch(
-            tasks, self.mat, opt.gap_open_del, opt.gap_extend_del,
-            opt.gap_open_ins, opt.gap_extend_ins,
-            opt.min_seed_len * opt.match_score, device=self.device,
-            split_fn=self._split_wave, trace=trace)
+        with spans.span("wave.loc", timed=WAVE_TRACE) as wave:
+            out = ksw.local_align_batch(
+                tasks, self.mat, opt.gap_open_del, opt.gap_extend_del,
+                opt.gap_open_ins, opt.gap_extend_ins,
+                opt.min_seed_len * opt.match_score, device=self.device,
+                split_fn=self._split_wave, wave=wave)
         self._wave_done(time.time() - t_dev)
         with self._stats_lock:
             self.rescue_tasks += len(tasks)
         if WAVE_TRACE:     # no DP task: a line of zeros, as the reference
-            _wtrace("loc", (len(tasks),),
-                    *(trace.get(k, 0) for k in ("build", "disp", "dl",
-                                                "up", "dn")))
+            _wtrace("loc", (len(tasks),), wave.kid_s("build"),
+                    wave.kid_s("disp"), wave.kid_s("dl"),
+                    wave.attrs.get("up_b", 0), wave.attrs.get("dn_b", 0))
         return out
 
     def _pairs_regions(self, recs):
@@ -826,25 +849,29 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         then interpret and walk without touching any DP. Without it, each
         pair gets (regs1, regs2) before rescue, and workers rescue and
         realign on the host."""
-        per_pair = self._pairs_regions(recs)
+        with spans.span("prime.regions", pairs=len(recs)):
+            per_pair = self._pairs_regions(recs)
         if score_delta is None:
             self._batch_done(len(recs))
             return per_pair
-        pairs = [(encode_read(rec.read1), encode_read(rec.read2), r1, r2)
-                 for rec, (r1, r2) in zip(recs, per_pair)]
-        self.rescue_pairs_batch(pairs, score_delta,
-                                local_align_fn=self.local_align_device)
-        # final SW for every post-rescue candidate (the task list
-        # get_alignments would build: one per region, in reg order)
-        tasks = []
-        counts = []
-        for rec, (r1, r2) in zip(recs, per_pair):
-            for reg in r1:
-                tasks.append((rec.read1, reg))
-            for reg in r2:
-                tasks.append((rec.read2, reg))
-            counts.append((len(r1), len(r2)))
-        sras = self.reg2aln_batch(tasks) if tasks else []
+        with spans.span("prime.rescue"):
+            pairs = [(encode_read(rec.read1), encode_read(rec.read2), r1,
+                      r2) for rec, (r1, r2) in zip(recs, per_pair)]
+            self.rescue_pairs_batch(pairs, score_delta,
+                                    local_align_fn=self.local_align_device)
+        with spans.span("prime.reg2aln") as sp:
+            # final SW for every post-rescue candidate (the task list
+            # get_alignments would build: one per region, in reg order)
+            tasks = []
+            counts = []
+            for rec, (r1, r2) in zip(recs, per_pair):
+                for reg in r1:
+                    tasks.append((rec.read1, reg))
+                for reg in r2:
+                    tasks.append((rec.read2, reg))
+                counts.append((len(r1), len(r2)))
+            sp.set(tasks=len(tasks))
+            sras = self.reg2aln_batch(tasks) if tasks else []
         out = []
         off = 0
         for (r1, r2), (n1, n2) in zip(per_pair, counts):
@@ -858,11 +885,13 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         """Candidate regions and mate rescue of many pairs on the device;
         caches each record's finished pair (keyed by ``id(rec)``) in
         ``_pair_cache``, which ``rfa.candidates.get_chains`` consumes."""
-        per_pair = self._pairs_regions(recs)
-        pairs = [(encode_read(rec.read1), encode_read(rec.read2), r1, r2)
-                 for rec, (r1, r2) in zip(recs, per_pair)]
-        self.rescue_pairs_batch(pairs, score_delta,
-                                local_align_fn=self.local_align_device)
+        with spans.span("prime.regions", pairs=len(recs)):
+            per_pair = self._pairs_regions(recs)
+        with spans.span("prime.rescue"):
+            pairs = [(encode_read(rec.read1), encode_read(rec.read2), r1,
+                      r2) for rec, (r1, r2) in zip(recs, per_pair)]
+            self.rescue_pairs_batch(pairs, score_delta,
+                                    local_align_fn=self.local_align_device)
         cache = getattr(self, "_pair_cache", None)
         if cache is None:
             cache = self._pair_cache = {}
@@ -970,38 +999,42 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
         session; returns the blocks' blobs, still on their devices, the
         split's ``inv`` and the op count S."""
         sess = st["sess"]
-        t_fill = time.time()
-        if st["reads_res"] is None:
-            st["reads_res"] = self._replicas(
-                resident.put_reads(st["reads"], "cpu").codes)
-        l_pac = int(self.fm.l_pac)
-        (rid, qstart, qdir, qlen, tstart, tdir, tlen, wv,
-         Lq, Lt) = sess.wave_descs()
-        desc = resident.pack_desc(rid, qstart, qdir, qlen, tstart, tdir,
-                                  tlen, np.zeros_like(wv), wv, l_pac)
-        blocks, inv = self._split_wave(len(desc), sess.pending())
-        S = Lq + Lt
-        t_build, t_disp = time.time() - t_fill, 0.0
-        blobs = []
-        for dev, idx in blocks:
-            if not len(idx):
-                continue
-            t0 = time.time()
-            desc_d = torch.from_numpy(
-                desc if inv is None else desc[idx]).to(dev)
-            q, t = resident.build_qt(st["reads_res"][dev],
-                                     self._pac_resident(dev)[0], l_pac,
-                                     desc_d, Lq=Lq, Lt=Lt)
-            qlen_d, tlen_d, w_d = (desc_d[:, k].to(torch.int32).contiguous()
-                                   for k in (resident.D_QL, resident.D_TL,
-                                             resident.D_W))
-            t1 = time.time()
-            blobs.append(self._global_wave(q, qlen_d, t, tlen_d, w_d, S))
-            t_build += t1 - t0
-            t_disp += time.time() - t1
+        with spans.span("wave.r2a.d", timed=WAVE_TRACE) as wave:
+            step = wave.child("build")
+            if st["reads_res"] is None:
+                st["reads_res"] = self._replicas(
+                    resident.put_reads(st["reads"], "cpu").codes)
+            l_pac = int(self.fm.l_pac)
+            (rid, qstart, qdir, qlen, tstart, tdir, tlen, wv,
+             Lq, Lt) = sess.wave_descs()
+            desc = resident.pack_desc(rid, qstart, qdir, qlen, tstart, tdir,
+                                      tlen, np.zeros_like(wv), wv, l_pac)
+            real = sess.pending()
+            blocks, inv = self._split_wave(len(desc), real)
+            S = Lq + Lt
+            step.end()
+            blobs = []
+            for dev, idx in blocks:
+                if not len(idx):
+                    continue
+                step = wave.child("build")
+                desc_d = torch.from_numpy(
+                    desc if inv is None else desc[idx]).to(dev)
+                q, t = resident.build_qt(st["reads_res"][dev],
+                                         self._pac_resident(dev)[0], l_pac,
+                                         desc_d, Lq=Lq, Lt=Lt)
+                qlen_d, tlen_d, w_d = (
+                    desc_d[:, k].to(torch.int32).contiguous()
+                    for k in (resident.D_QL, resident.D_TL, resident.D_W))
+                step.end()
+                with wave.child("disp"):
+                    blobs.append(self._global_wave(q, qlen_d, t, tlen_d,
+                                                   w_d, S))
+            wave.set(tasks=int(real), rows=len(desc), up_b=desc.nbytes,
+                     dn_b=0)
         if WAVE_TRACE:
-            _wtrace("r2a.d", (len(desc), Lq, Lt), t_build, t_disp, 0.0,
-                    desc.nbytes, 0)
+            _wtrace("r2a.d", (len(desc), Lq, Lt), wave.kid_s("build"),
+                    wave.kid_s("disp"), 0.0, desc.nbytes, 0)
         return blobs, inv, S
 
     def _global_wave(self, q, qlen, t, tlen, w, S: int) -> torch.Tensor:
@@ -1018,10 +1051,12 @@ class TorchBatchAlignmentEngine(AlignmentEngine):
     def _r2s_feed(self, st, handle) -> None:
         """Download a dispatched wave's blobs and feed the session."""
         blobs, inv, S = handle
-        t_dl = time.time()
-        blob = ksw.download_blocks(blobs, inv, 0)
+        with spans.span("wave.r2a.f", timed=WAVE_TRACE) as wave:
+            with wave.child("dl"):
+                blob = ksw.download_blocks(blobs, inv, 0)
+            wave.set(rows=len(blob), dn_b=blob.nbytes)
         if WAVE_TRACE:
-            _wtrace("r2a.f", (len(blob),), 0.0, 0.0, time.time() - t_dl, 0,
+            _wtrace("r2a.f", (len(blob),), 0.0, 0.0, wave.kid_s("dl"), 0,
                     blob.nbytes)
         packed, score, i_fin, k_fin = sw_global.split_traceback_blob(blob, S)
         cig_mat, nops = sw_global.cigars_from_ops_packed(packed, i_fin,

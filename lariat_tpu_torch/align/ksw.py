@@ -25,13 +25,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import sw_local
+from ..utils import spans
 
 MINUS_INF = -0x40000000
 
@@ -508,7 +508,7 @@ def pad_tiles(qs, ts) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
 def local_align_batch(tasks: List[Tuple[np.ndarray, np.ndarray]],
                       mat: np.ndarray, o_del: int, e_del: int, o_ins: int,
                       e_ins: int, minsc: int, device, split_fn=None,
-                      trace: Optional[dict] = None) -> List[LocalResult]:
+                      wave=spans.OFF) -> List[LocalResult]:
     """ksw_align2 (XSTART|XSUBO) for many (query, target) tasks on
     ``device``: one two-pass K3 wave (forward local SW, then the reversed
     prefixes for the start coordinates) and one (8, B) download.
@@ -521,12 +521,13 @@ def local_align_batch(tasks: List[Tuple[np.ndarray, np.ndarray]],
     rows)], inv): each nonempty block runs the whole two-pass call on its
     device (the second pass reverses prefixes at the first pass's ends),
     every block is dispatched before any is downloaded, and ``inv`` puts
-    the rows back in task order. ``trace``, a dict, gets the wave's build,
-    dispatch and download seconds and the bytes sent each way."""
+    the rows back in task order. ``wave``, the caller's span
+    (``utils/spans.py``), gets the children ``build``, ``disp`` and ``dl``
+    and the attributes ``tasks``, ``rows``, ``up_b`` and ``dn_b``."""
     B = len(tasks)
     if B == 0:
         return []
-    t0 = time.time()
+    step = wave.child("build")
     params = _mat_params(np.asarray(mat))
     if params is None:
         raise ValueError("the local kernel needs bwa's uniform score matrix")
@@ -546,19 +547,19 @@ def local_align_batch(tasks: List[Tuple[np.ndarray, np.ndarray]],
     arrays = (qa, qlen, ta, tlen, minscs)
     blocks, inv = (split_fn(Bp, n) if split_fn is not None
                    else ([(torch.device(device), None)], None))
-    t_build = time.time()
+    step.end()
+    step = wave.child("disp")
     outs = [sw_local.local_two_pass(
         *(torch.from_numpy(a if inv is None else a[idx]).to(dev)
           for a in arrays),
         o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
         match_sc=params[0], mismatch_sc=params[1], n_sc=params[2])
         for dev, idx in blocks if inv is None or len(idx)]
-    t_disp = time.time()
-    rows = download_blocks(outs, inv, 1)      # (8, Bp) in task order
-    if trace is not None:
-        trace.update(build=t_build - t0, disp=t_disp - t_build,
-                     dl=time.time() - t_disp,
-                     up=sum(a.nbytes for a in arrays), dn=rows.nbytes)
+    step.end()
+    with wave.child("dl"):
+        rows = download_blocks(outs, inv, 1)      # (8, Bp) in task order
+    wave.set(tasks=n, rows=Bp, up_b=sum(a.nbytes for a in arrays),
+             dn_b=rows.nbytes)
     score, te, qe, score2, te2, qe_r, te_r, scored = (
         rows[k].tolist() for k in range(8))
     for k, i in enumerate(fwd_idx):

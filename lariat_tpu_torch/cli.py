@@ -51,6 +51,15 @@ from .parallel.host_pipeline import ParallelRunner, write_packed
 from .rfa.pipeline import (RFAStats, load_centromeres, process_barcode,
                            worth_running_rfa)
 from .rfa.tensor_rfa import rows_jit
+from .utils import spans
+
+# why a batch went to the host workers (``feed_stats["host_by"]``): every
+# priming thread busy, the device dormant, a server batch at or under half
+# of ``LARIAT_PRIME_BATCH``, one barcode group over it, queued at the end
+# of the input and cancelled, still priming past the tail grace, or its
+# pass aborted
+HOST_REASONS = ("busy", "dormant", "half", "oversize", "tail_cancel",
+                "abandoned", "aborted")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -142,6 +151,7 @@ def _device_engine(genome: str, fm):
 
 
 def main(argv=None) -> int:
+    spans.set_role("cli")
     rc, _ = run(argv)
     return rc
 
@@ -185,7 +195,12 @@ def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
     host-routed, and batches still priming get a grace (``_tail_grace``);
     then ``device_engine.abort_prime`` is set, they are host-routed and
     their results, whenever they land, are discarded. Every item is yielded
-    exactly once; ``feed_stats`` counts primed and host-routed pairs.
+    exactly once; ``feed_stats`` counts primed and host-routed pairs, and
+    in ``feed_stats["host_by"]`` the host-routed ones by reason
+    (``HOST_REASONS``). Recorded spans (``utils/spans.py``): each batch's
+    ``router.batch`` (from its first barcode to its results yielded;
+    ``pairs``, ``route``: ``prime`` or the host reason) and each submitted
+    one's ``router.queue`` (until a priming thread starts it).
 
     A pass that raises ``PrimeAborted`` host-routes its batch. Any other
     error of a priming pass ends the feed and is left in
@@ -196,27 +211,29 @@ def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
     rate = {"pairs_s": None}
     fixed = (int(os.environ.get("LARIAT_PRIME_BATCH", "1024"))
              if getattr(device_engine, "path", None) else None)
+    by = feed_stats.setdefault("host_by", dict.fromkeys(HOST_REASONS, 0))
 
-    def prime(tagged):
+    def prime(tagged, batch, queue):
+        queue.end()
         t = time.time()
         try:
-            primed = _prime_group(device_engine, [it for _, it in tagged],
-                                  config)
+            with spans.under(batch):
+                primed = _prime_group(device_engine,
+                                      [it for _, it in tagged], config)
         except PrimeAborted:
             return None
-        n = sum(len(it[0]) for _, it in tagged)
-        r = n / max(time.time() - t, 1e-3)
+        r = pairs(tagged) / max(time.time() - t, 1e-3)
         prev = rate["pairs_s"]
         rate["pairs_s"] = r if prev is None else 0.5 * prev + 0.5 * r
         return [(s, p) for (s, _), p in zip(tagged, primed)]
 
-    futs = deque()       # (future, tagged batch), in submission order
+    futs = deque()       # (future, tagged batch, its span), in order
     abandoned = []       # futures left running past the tail grace
     queued = set()       # futures submitted while every thread was busy
     dorm = {"first_submit": None, "off": False}
 
     def busy() -> int:
-        return sum(1 for f, _ in futs if not f.done())
+        return sum(1 for f, _, _ in futs if not f.done())
 
     def dormant() -> bool:
         """Give up on priming for the rest of the run when the device
@@ -242,30 +259,38 @@ def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
                   f"{feed_stats['primed_pairs']} pairs primed", flush=True)
         return dorm["off"]
 
-    def host(tagged):
+    def pairs(tagged) -> int:
+        return sum(len(it[0]) for _, it in tagged)
+
+    def host(tagged, reason, batch):
+        batch.end(route=reason, pairs=pairs(tagged))
         for s, it in tagged:
             feed_stats["host_pairs"] += len(it[0])
+            by[reason] += len(it[0])
             yield (s, it)
 
-    def submit(tagged):
+    def submit(tagged, batch):
         if dorm["first_submit"] is None:
             dorm["first_submit"] = time.time()
         # a batch submitted with fewer passes in flight than the pool has
         # threads has a thread of its own, idle or about to be: it starts
         # whatever the scheduler does, and is never cancelled
         behind = busy() >= ex._max_workers
-        f = ex.submit(prime, tagged)
+        batch.set(route="prime", pairs=pairs(tagged))
+        f = ex.submit(prime, tagged, batch,
+                      spans.span("router.queue", parent=batch))
         if behind:
             queued.add(f)
-        futs.append((f, tagged))
+        futs.append((f, tagged, batch))
 
     def drain(block: bool):
         while futs and (block or futs[0][0].done()):
-            f, tagged = futs.popleft()
+            f, tagged, batch = futs.popleft()
             res = f.result()
             if res is None:                 # the pass was aborted
-                yield from host(tagged)
+                yield from host(tagged, "aborted", batch)
                 continue
+            batch.end()
             for t in res:
                 feed_stats["primed_pairs"] += len(t[1][0])
                 yield t
@@ -275,65 +300,74 @@ def _primed_iter(work_iter, device_engine, config, n_prime, feed_stats,
     try:
         buf = []
         pending = 0
+        batch = spans.OFF
         for item in work_iter:
             t = (next(seq), item)
             npairs = len(item[0])
             if fixed and pending and pending + npairs > fixed:
                 # never overshoot the server's batch: send what is there
                 # when it is over half of it, else host-route it
-                if (pending <= fixed // 2 or dormant()
-                        or busy() >= n_prime):
-                    yield from host(buf)
+                reason = ("half" if pending <= fixed // 2 else
+                          "dormant" if dormant() else
+                          "busy" if busy() >= n_prime else None)
+                if reason:
+                    yield from host(buf, reason, batch)
                 else:
-                    submit(buf)
+                    submit(buf, batch)
                 buf, pending = [], 0
                 yield from drain(block=False)
+            if not buf:
+                batch = spans.span("router.batch")
             buf.append(t)
             pending += npairs
             if pending >= _batch_target(rate["pairs_s"], fixed):
-                if (fixed and pending > fixed) or dormant() \
-                        or busy() >= n_prime:
-                    # one oversized barcode group, or priming saturated or
-                    # dormant: host route now
-                    yield from host(buf)
+                # one oversized barcode group, or priming dormant or
+                # saturated: host route now
+                reason = ("oversize" if fixed and pending > fixed else
+                          "dormant" if dormant() else
+                          "busy" if busy() >= n_prime else None)
+                if reason:
+                    yield from host(buf, reason, batch)
                 else:
-                    submit(buf)
+                    submit(buf, batch)
                 buf, pending = [], 0
                 yield from drain(block=False)
         # end of input: the remainder only to a free thread (and, with a
         # server, only past half its batch); queued batches host-route
         if buf:
-            if (fixed and pending <= fixed // 2) or busy() >= n_prime:
-                yield from host(buf)
+            if fixed and pending <= fixed // 2:
+                yield from host(buf, "half", batch)
+            elif busy() >= n_prime:
+                yield from host(buf, "busy", batch)
             else:
-                submit(buf)
+                submit(buf, batch)
         # only batches queued behind busy threads are cancelled; one handed
         # to a free thread runs (the reference cancels whatever its threads
         # have not picked up yet, the remainder submitted a line above
         # included)
         keep = deque()
         while futs:
-            f, tagged = futs.popleft()
+            f, tagged, batch = futs.popleft()
             if f in queued and f.cancel():
-                yield from host(tagged)
+                yield from host(tagged, "tail_cancel", batch)
             else:
-                keep.append((f, tagged))
+                keep.append((f, tagged, batch))
         futs.extend(keep)
         if futs:
             r = rate["pairs_s"]
             grace = _tail_grace(r, _batch_target(r, fixed),
                                 time.time() - t0)
-            wait_futures([f for f, _ in futs], timeout=grace)
-            if any(not f.done() for f, _ in futs):
+            wait_futures([f for f, _, _ in futs], timeout=grace)
+            if any(not f.done() for f, _, _ in futs):
                 device_engine.abort_prime = True
                 keep = deque()
                 while futs:
-                    f, tagged = futs.popleft()
+                    f, tagged, batch = futs.popleft()
                     if f.done():
-                        keep.append((f, tagged))
+                        keep.append((f, tagged, batch))
                     else:
                         abandoned.append(f)
-                        yield from host(tagged)
+                        yield from host(tagged, "abandoned", batch)
                 futs.extend(keep)
         yield from drain(block=True)
         # an abandoned pass ends at its next wave boundary; its result is
@@ -431,6 +465,8 @@ def run(argv=None):
                     stats.picks += packed.stats[4]
                     stats.tie_picks += packed.stats[5]
                     stats.rfa_wall += packed.stats[6]
+                    stats.cand_wall_host += packed.stats[7]
+                    stats.cand_wall_primed += packed.stats[8]
         finally:
             runner.close()
         if "error" in feed_stats:
@@ -460,6 +496,9 @@ def run(argv=None):
               f"busy fraction {min(ws['wall'] / max(dt, 1e-9), 1.0):.2f}  "
               f"primed pairs {feed_stats['primed_pairs']}  "
               f"host pairs {feed_stats['host_pairs']}")
+        routes = {"primed": feed_stats["primed_pairs"],
+                  **feed_stats.get("host_by", {})}
+        print(f"router routes: {json.dumps(routes)}")
         if getattr(device_engine, "path", None):
             print(f"priming ran in the server {device_engine.path} on "
                   f"{device_engine.device_name} (its kernel launches are in "
@@ -482,6 +521,9 @@ def run(argv=None):
     if stats.rfa_wall:
         print(f"rfa wall: {stats.rfa_wall:.2f}s across workers "
               f"(rows: {'jit' if rows_jit() else 'numpy'})")
+    if stats.cand_wall_host or stats.cand_wall_primed:
+        print(f"candidates wall: {stats.cand_wall_host:.2f}s host-routed, "
+              f"{stats.cand_wall_primed:.2f}s primed across workers")
     if args.simulated and stats.total:
         print(f"simulated: total={stats.total} correct={stats.correct} "
               f"mapq10 total={stats.total_mapq10} "

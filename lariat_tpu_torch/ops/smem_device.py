@@ -16,7 +16,10 @@ assembly, round 2, round 3's assembly, the merge; then the rbeg schedule
 and the SA walk), the straggler count of each two-pointer round, and round
 2's lanes and flags. A launch returns before the card is done, as a JAX
 dispatch does, so the kernels' time falls in the phase that first waits
-on them (round 1's download); the trace adds no synchronisation.
+on them (round 1's download); the trace adds no synchronisation. Each
+phase is a span (``utils/spans.py``) named by its tag, under the engine's
+``seed.device``: recorded with ``LARIAT_SPANS``, and the printed ms are
+its seconds.
 
   K4a ``min_starts_twoptr``  two-pointer minimal-start machine, one lane per
                              read (or reseed request); plateau-end seeds go
@@ -48,12 +51,12 @@ gives each lane exactly that.
 from __future__ import annotations
 
 import os
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import spans
 from . import _build
 from .fm_batch import DeviceFMIndex, bwt_extend_dir_batch, rank_rows
 
@@ -63,13 +66,22 @@ UNROLL = 2
 CAP1, CAP2 = 32, 16
 
 
-def _strace(tag: str, t0: float) -> float:
-    """Print the ms since ``t0`` under ``tag`` when the trace is on; returns
-    the time now (the next phase's start)."""
-    if SEED_TRACE:
-        print(f"[seedtrace] {tag:14s} {(time.time() - t0) * 1e3:7.1f}ms",
-              flush=True)
-    return time.time()
+def _phase():
+    """The next phase of a collect: a span named when it ends
+    (``_strace``), timed when the trace is on."""
+    return spans.span("seed.phase", timed=SEED_TRACE)
+
+
+def _strace(tag: str, phase):
+    """End ``phase`` as ``tag`` and, when the trace is on, print its ms;
+    returns the next phase, started now."""
+    if phase is not spans.OFF:
+        phase.name = tag
+        phase.end()
+        if SEED_TRACE:
+            print(f"[seedtrace] {tag:14s} {phase.seconds * 1e3:7.1f}ms",
+                  flush=True)
+    return _phase()
 
 
 def _budget(max_steps: int) -> int:
@@ -745,7 +757,7 @@ def collect_seeds_arrays_device(fmd: DeviceFMIndex, fm,
         big[idx] = pk2[1].cpu().numpy()[:len(idx)]
         return (meta, big), 1
 
-    _t = time.time()
+    _t = _phase()
     # ---- round 1 (phase A at 3L transitions) and round 3 -----------------
     pk1 = min_starts_twoptr(fmd, rd, put(np.zeros(R), np.int32),
                             put(lens, np.int32), put(np.ones(R), np.int64),
@@ -881,7 +893,7 @@ def collect_seeds_rbegs_device(dfm: DeviceFMIndex, dg, fm,
     from ..parallel.align_step import sa_lookup_batch_host
 
     mems = collect_seeds_arrays_device(dfm, fm, reads, opt)
-    _t = time.time()
+    _t = _phase()
     max_occ = int(opt.max_occ)
     flat = (np.concatenate(mems, axis=0) if mems
             else np.zeros((0, 5), np.int64))

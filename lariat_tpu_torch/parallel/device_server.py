@@ -38,6 +38,14 @@ A server-side exception answers ("err", repr) and the connection stays
 usable. The client raises on a socket error or an "err" reply; only a
 server-side PrimeAborted comes back as PrimeAborted, which the router
 host-routes.
+
+Spans (``utils/spans.py``, recorded with ``LARIAT_SPANS``): the server's
+``server.request``, from a request's header to its reply sent, with the
+children ``server.recv`` (the body and its unpickling), ``server.queue``
+(a prime waiting for a worker thread) and ``server.reply``, and on the
+worker thread ``prime``, under ``server.request``; the client's
+``client.prime`` with ``client.send``, ``client.wait`` (until the reply's
+header) and ``client.recv``.
 """
 
 from __future__ import annotations
@@ -52,6 +60,8 @@ import tempfile
 import threading
 import time
 from typing import Optional
+
+from ..utils import spans
 
 _HDR = struct.Struct("<Q")
 
@@ -69,15 +79,26 @@ def _send(conn: socket.socket, obj) -> None:
     conn.sendall(_HDR.pack(len(data)) + data)
 
 
-def _recv(conn: socket.socket):
-    """One message, or None when the peer closed the connection."""
+def _recv_header(conn: socket.socket):
+    """A message's length, or None when the peer closed the connection."""
     hdr = b""
     while len(hdr) < _HDR.size:
         chunk = conn.recv(_HDR.size - len(hdr))
         if not chunk:
             return None
         hdr += chunk
-    (n,) = _HDR.unpack(hdr)
+    return _HDR.unpack(hdr)[0]
+
+
+def _recv(conn: socket.socket):
+    """One message, or None when the peer closed the connection."""
+    n = _recv_header(conn)
+    return None if n is None else _recv_body(conn, n)
+
+
+def _recv_body(conn: socket.socket, n: int):
+    """The ``n`` bytes after a header, unpickled; None when the peer
+    closed the connection."""
     buf = bytearray(n)
     view = memoryview(buf)
     got = 0
@@ -203,57 +224,78 @@ def serve(genome: str, socket_path: Optional[str] = None,
     active = [0]
     alock = threading.Lock()
 
+    def prime(request, queue, recs, delta):
+        queue.end()
+        with spans.span("prime", parent=request, pairs=len(recs)):
+            return engine.prime_regions(recs, delta)
+
     def handle(conn: socket.socket) -> None:
         try:
             while not stop.is_set():
-                req = _recv(conn)
-                if req is None:
+                n = _recv_header(conn)
+                if n is None:
                     return
-                last_used[0] = time.time()
-                kind = req[0]
-                if kind == "ping":
-                    _send(conn, ("ok", dev.type, name))
-                elif kind == "stop":
-                    _send(conn, ("ok",))
-                    stop.set()
-                    return
-                elif kind == "abort":
-                    # a client hit the end of its input with primes in
-                    # flight: they stop at their next wave boundary, so the
-                    # workers are free for the next run
-                    with alock:
-                        if active[0] > 0:
-                            engine.abort_prime = True
-                    _send(conn, ("ok",))
-                elif kind == "prime":
-                    _, recs, delta = req
-                    with alock:
-                        active[0] += 1
-                    # the waves of this prime (and of one running beside
-                    # it on the other worker, as in the reference)
-                    w0 = dict(engine.wave_stats)
-                    try:
-                        primes = ex.submit(engine.prime_regions, recs,
-                                           delta).result()
-                        reply = ("ok", primes,
-                                 {k: engine.wave_stats[k] - w0[k]
-                                  for k in engine.wave_stats})
-                    except Exception as e:  # noqa: BLE001 -- to the client
-                        reply = ("err", repr(e))
-                    finally:
-                        with alock:
-                            active[0] -= 1
-                            if active[0] == 0:
-                                engine.abort_prime = False
-                    # only now: a client that sends its next prime on the
-                    # reply (on another connection) finds no abort left
-                    _send(conn, reply)
-                else:
-                    _send(conn, ("err", f"unknown request {kind!r}"))
+                with spans.span("server.request") as request:
+                    if not answer(conn, n, request):
+                        return
         except OSError:
             pass
         finally:
             conn.close()
+
+    def answer(conn: socket.socket, n: int, request) -> bool:
+        """Read and answer one request; False when the connection is
+        done."""
+        with spans.span("server.recv"):
+            req = _recv_body(conn, n)
+        if req is None:
+            return False
+        last_used[0] = time.time()
+        kind = req[0]
+        request.set(kind=kind)
+        if kind == "ping":
+            reply = ("ok", dev.type, name)
+        elif kind == "stop":
+            _send(conn, ("ok",))
+            stop.set()
+            return False
+        elif kind == "abort":
+            # a client hit the end of its input with primes in flight:
+            # they stop at their next wave boundary, so the workers are
+            # free for the next run
+            with alock:
+                if active[0] > 0:
+                    engine.abort_prime = True
+            reply = ("ok",)
+        elif kind == "prime":
+            _, recs, delta = req
+            request.set(pairs=len(recs))
+            with alock:
+                active[0] += 1
+            # the waves of this prime (and of one running beside it on
+            # the other worker, as in the reference)
+            w0 = dict(engine.wave_stats)
+            try:
+                primes = ex.submit(prime, request,
+                                   spans.span("server.queue"), recs,
+                                   delta).result()
+                reply = ("ok", primes,
+                         {k: engine.wave_stats[k] - w0[k]
+                          for k in engine.wave_stats})
+            except Exception as e:  # noqa: BLE001 -- to the client
+                reply = ("err", repr(e))
+            finally:
+                with alock:
+                    active[0] -= 1
+                    if active[0] == 0:
+                        engine.abort_prime = False
+            # only now: a client that sends its next prime on the reply
+            # (on another connection) finds no abort left
+        else:
+            reply = ("err", f"unknown request {kind!r}")
+        with spans.span("server.reply"):
+            _send(conn, reply)
+        return True
 
     try:
         while not stop.is_set():
@@ -357,8 +399,13 @@ class DeviceServerClient:
     def prime_regions(self, recs, score_delta=None):
         from ..align.batch_engine import PrimeAborted
         c = self._conn()
-        _send(c, ("prime", list(recs), score_delta))
-        resp = _recv(c)
+        with spans.span("client.prime", pairs=len(recs)):
+            with spans.span("client.send"):
+                _send(c, ("prime", list(recs), score_delta))
+            with spans.span("client.wait"):
+                n = _recv_header(c)
+            with spans.span("client.recv"):
+                resp = None if n is None else _recv_body(c, n)
         if resp is None:
             raise ConnectionError(
                 f"device server {self.path} closed the connection")
@@ -400,6 +447,7 @@ def main(argv=None) -> int:
     p.add_argument("-idle_timeout", type=float, default=1800.0)
     p.add_argument("-ready_file", default="")
     a = p.parse_args(argv)
+    spans.set_role("server")
     serve(a.genome, a.socket or None, a.idle_timeout, a.ready_file or None)
     return 0
 

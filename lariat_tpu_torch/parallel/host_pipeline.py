@@ -47,7 +47,8 @@ class PackedBarcode:
     bc_sorted: bytes                       # concatenated record bytes
     buckets: List[Tuple[str, int, bytes]]  # (contig|'unmapped', chunk, blob)
     n_reads: int
-    stats: Tuple[int, int, int, int, int, int, float]
+    # RFAStats' counts, then its rfa_wall, cand_wall_host, cand_wall_primed
+    stats: Tuple[int, int, int, int, int, int, float, float, float]
 
 
 def _init_worker() -> None:
@@ -112,7 +113,8 @@ def _run_one(work) -> PackedBarcode:
         n_reads=len(reads),
         stats=(stats.total, stats.correct, stats.total_mapq10,
                stats.correct_mapq10, stats.picks, stats.tie_picks,
-               stats.rfa_wall))
+               stats.rfa_wall, stats.cand_wall_host,
+               stats.cand_wall_primed))
 
 
 def _run_one_seq(tagged) -> Tuple[int, PackedBarcode]:

@@ -53,6 +53,8 @@ from typing import List, Optional
 
 import torch
 
+from ..utils import spans
+
 # how long a process waits at the rendezvous and in the collective for the
 # others: the slowest shard's run, which at genome scale can be hours
 INIT_TIMEOUT_S = 7 * 24 * 3600.0
@@ -165,6 +167,7 @@ def main(argv=None) -> int:
                    default=INIT_TIMEOUT_S,
                    help="seconds to wait for every process to join")
     args, extra = p.parse_known_args(argv)
+    spans.set_role("multihost")
 
     plan = HostShardPlan(
         host_id=args.process_id, num_hosts=args.num_processes,

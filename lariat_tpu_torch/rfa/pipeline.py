@@ -33,6 +33,11 @@ class RFAStats:
     # wall seconds inside the RFA core (move optimizer + MAPQ), for the
     # bench's per-stage split (VERDICT r4 item 4)
     rfa_wall: float = 0.0
+    # wall seconds of get_chains + get_alignments (the candidates: seeding,
+    # chaining, DP and rescue, or their primed results read back), split by
+    # whether the barcode came primed or host-routed
+    cand_wall_host: float = 0.0
+    cand_wall_primed: float = 0.0
 
 
 @dataclasses.dataclass
@@ -87,10 +92,16 @@ def process_barcode(engine: AlignmentEngine, reads: List[FastQRecord],
     centromeres = centromeres or {}
     ipp = config.improper_pair_penalty
     worth = worth_running_rfa(reads, unique_barcode)
+    t0 = time.perf_counter()
     chains, barcode = get_chains(engine, reads, config.chain_score_delta,
                                  primed_regions)
     alignments, stashed = get_alignments(engine, chains,
                                          config.alignment_score_delta, ipp)
+    if stats is not None:
+        if primed_regions is None:
+            stats.cand_wall_host += time.perf_counter() - t0
+        else:
+            stats.cand_wall_primed += time.perf_counter() - t0
     positions = tag_best_alignments(alignments, -17, stats=stats)
 
     if not worth:

@@ -253,11 +253,21 @@ def test_four_card_group_kills_the_rest_on_a_failure(tmp_path):
     nonzero exit kills the others at once (none is left waiting at the
     rendezvous), and each gets its exit code or None, its log and its
     peak RSS line."""
-    procs = [{"label": f"cli {h}", "env": dict(os.environ),
-              "log": str(tmp_path / f"p{h}.log"),
+    logs = [str(tmp_path / f"p{h}.log") for h in range(4)]
+    # the failing process exits once every other has printed its line (at
+    # most 30 s), so a loaded host cannot kill one before it is up
+    fail = ("import os, sys, time\n"
+            f"logs = {logs!r}\n"
+            "def up(p):\n"
+            "    return os.path.exists(p) and open(p).read().startswith('up')\n"
+            "t = time.time()\n"
+            "while time.time() - t < 30 and not all(map(up, logs)):\n"
+            "    time.sleep(0.05)\n"
+            "sys.exit(3)\n")
+    procs = [{"label": f"cli {h}", "env": dict(os.environ), "log": logs[h],
               "cmd": [sys.executable, "-c",
-                      "import sys, time; print('up', flush=True); "
-                      + ("sys.exit(3)" if h == 2 else "time.sleep(120)")]}
+                      "import sys, time; print('up', flush=True)\n"
+                      + (fail if h == 2 else "time.sleep(120)")]}
              for h in range(4)]
     roots = {}
     t0 = time.time()

@@ -5,8 +5,9 @@ LARIAT_PRIME_MIN_FRAC), the server's fixed batch (LARIAT_PRIME_BATCH), and
 the end of input (queued batches cancelled, the tail grace -- set, and the
 reference's formula when LARIAT_PRIME_TAIL_GRACE is unset -- then the
 abort with its batch host-routed). In every case each item is yielded exactly
-once, and primed plus host-routed pairs are all the pairs. A raising
-engine ends the CLI run with an error."""
+once, primed plus host-routed pairs are all the pairs, and the host-routed
+pairs by reason (``feed_stats["host_by"]``) sum to the host-routed pairs.
+A raising engine ends the CLI run with an error."""
 
 import threading
 import time
@@ -55,8 +56,10 @@ def _items(sizes):
             for i, n in enumerate(sizes)]
 
 
-def _run(items, eng, n_prime, feed=None):
-    """(seqs in yield order, primed items, feed stats) of one feed."""
+def _run(items, eng, n_prime, feed=None, by=None):
+    """(seqs in yield order, primed items, feed stats) of one feed; the
+    stats' ``host_by`` is checked against the host-routed pairs and left
+    in ``by``."""
     stats = {"primed_pairs": 0, "host_pairs": 0}
     seqs, primed = [], []
     for seq, item in cli._primed_iter(feed or iter(items), eng, RFAConfig(),
@@ -69,6 +72,11 @@ def _run(items, eng, n_prime, feed=None):
     n = sum(len(it[0]) for it in items)
     assert stats["primed_pairs"] + stats["host_pairs"] == n
     assert stats["primed_pairs"] == sum(len(items[s][0]) for s in primed)
+    host_by = stats.pop("host_by")
+    assert set(host_by) == set(cli.HOST_REASONS)
+    assert sum(host_by.values()) == stats["host_pairs"]
+    if by is not None:
+        by.update({k: v for k, v in host_by.items() if v})
     return seqs, primed, stats
 
 
@@ -88,9 +96,11 @@ def test_saturation_host_routes(monkeypatch):
         yield from items
         eng.go.set()             # the device finishes at the end of input
 
-    _, primed, stats = _run(items, eng, 1, feed())
+    by = {}
+    _, primed, stats = _run(items, eng, 1, feed(), by)
     assert primed == [0, 1] and eng.batches == [2]
     assert stats == {"primed_pairs": 2, "host_pairs": 18}
+    assert by == {"busy": 18}
 
 
 class _Clock:
@@ -117,9 +127,10 @@ def test_dormant_after_45s_without_a_batch(monkeypatch, capsys):
         yield from items[2:]
         eng.go.set()
 
-    _, primed, stats = _run(items, eng, 4, feed())
+    by = {}
+    _, primed, stats = _run(items, eng, 4, feed(), by)
     assert primed == [0, 1] and eng.batches == [2]
-    assert stats["host_pairs"] == 8
+    assert stats["host_pairs"] == 8 and by == {"dormant": 8}
     assert capsys.readouterr().out.count("device priming dormant") == 1
 
 
@@ -139,9 +150,11 @@ def test_dormant_below_min_frac(monkeypatch, capsys):
         time.sleep(0.05)
         yield from items[4:]
 
-    _, primed, stats = _run(items, eng, 1, feed())
+    by = {}
+    _, primed, stats = _run(items, eng, 1, feed(), by)
     assert primed == [0, 1] and eng.batches == [2]
     assert stats == {"primed_pairs": 2, "host_pairs": 10}
+    assert by == {"busy": 2, "dormant": 8}
     assert "device priming dormant" in capsys.readouterr().out
 
 
@@ -163,10 +176,12 @@ def test_fixed_batch_through_a_server(monkeypatch):
     eng = _Engine(path="/nowhere.sock")
     sizes = [2, 7, 3, 3, 3, 2, 9, 1, 1, 5, 4, 4, 2, 1]
     items = _items(sizes)
-    _, primed, stats = _run(items, eng, 8)
+    by = {}
+    _, primed, stats = _run(items, eng, 8, by=by)
     assert eng.batches == [7, 6, 5, 7, 8]
     assert primed == [1, 2, 3, 4, 5, 7, 8, 9, 10, 11]
     assert stats == {"primed_pairs": 33, "host_pairs": 14}
+    assert by == {"half": 5, "oversize": 9}
 
 
 def test_no_fixed_batch_without_a_server(monkeypatch):
@@ -178,10 +193,23 @@ def test_no_fixed_batch_without_a_server(monkeypatch):
 
 class _LateThreads(cli.ThreadPoolExecutor):
     """A pool whose threads are made 0.3 s after a submit asks for one, as
-    on a host too loaded to schedule a new thread at once."""
+    on a host too loaded to schedule a new thread at once. Its shutdown
+    first waits for every timer, so that no thread is added while the
+    pool's shutdown walks its threads."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self._timers = []
 
     def _adjust_thread_count(self):
-        threading.Timer(0.3, super()._adjust_thread_count).start()
+        timer = threading.Timer(0.3, super()._adjust_thread_count)
+        self._timers.append(timer)
+        timer.start()
+
+    def shutdown(self, *a, **kw):
+        for timer in list(self._timers):
+            timer.join()
+        super().shutdown(*a, **kw)
 
 
 def test_eof_never_cancels_a_batch_given_a_free_thread(monkeypatch):
@@ -211,9 +239,11 @@ def test_eof_cancels_queued_then_aborts_after_grace(monkeypatch):
     monkeypatch.setenv("LARIAT_PRIME_TAIL_GRACE", "0.2")
     eng = _Engine(hold=True)
     items = _items([1] * 7)
-    seqs, primed, stats = _run(items, eng, 2)
+    by = {}
+    seqs, primed, stats = _run(items, eng, 2, by=by)
     assert eng.abort_prime and eng.batches == [2]
     assert primed == [] and stats["host_pairs"] == 7
+    assert by == {"busy": 3, "tail_cancel": 2, "abandoned": 2}
     # the third batch host-routed at once (both slots busy), then the
     # remainder, the cancelled batch, the abandoned one
     assert seqs == [4, 5, 6, 2, 3, 0, 1]
@@ -253,10 +283,12 @@ def test_default_tail_grace_aborts_after_2s(monkeypatch):
         yield from items
         eof["t"] = time.monotonic()
 
-    _, primed, stats = _run(items, eng, 1, feed())
+    by = {}
+    _, primed, stats = _run(items, eng, 1, feed(), by)
     waited = time.monotonic() - eof["t"]
     assert eng.abort_prime and eng.batches == [2] and primed == []
     assert stats == {"primed_pairs": 0, "host_pairs": 4}
+    assert by == {"busy": 2, "abandoned": 2}
     assert 1.95 <= waited < 2.5, waited
 
 
@@ -266,6 +298,21 @@ def test_eof_remainder_primed_when_a_slot_is_free(monkeypatch):
     eng = _Engine()
     _, primed, stats = _run(_items([1] * 5), eng, 2)
     assert eng.batches == [5] and stats["host_pairs"] == 0
+
+
+def test_aborted_pass_host_routes(monkeypatch):
+    """A pass that raises PrimeAborted (a server's abort, asked by another
+    client) sends its batch to the host, counted as aborted."""
+    _target(monkeypatch, 2)
+
+    class Aborting(_Engine):
+        def prime_regions(self, recs, score_delta):
+            super().prime_regions(recs, score_delta)
+            raise PrimeAborted()
+
+    by = {}
+    _, primed, stats = _run(_items([1] * 6), Aborting(), 8, by=by)
+    assert primed == [] and by == {"aborted": 6}
 
 
 def test_raising_engine_fails_the_cli(tmp_path, monkeypatch):
